@@ -1,0 +1,50 @@
+"""Model registry (counterpart of ``tlxcv_tpu/config.py:13-35``): a flat
+table of model factories keyed by name."""
+from __future__ import annotations
+
+import typing as tp
+
+from .device import resolve_device
+
+_MODEL_REGISTRY: dict[str, tp.Callable] = {}
+
+
+def register_model(name=None):
+    def deco(fn):
+        _MODEL_REGISTRY[name or fn.__name__] = fn
+        return fn
+    return deco
+
+
+def list_models(filter: str = ""):
+    _populate()
+    return sorted(k for k in _MODEL_REGISTRY if filter in k)
+
+
+def create_model(name, device=None, **kwargs):
+    """Build a registered model on ``device`` (``None``: the CUDA card;
+    raises ``RuntimeError`` when there is none)."""
+    _populate()
+    try:
+        factory = _MODEL_REGISTRY[name]
+    except KeyError:
+        close = [k for k in _MODEL_REGISTRY if name.lower() in k.lower()]
+        raise KeyError(f"unknown model {name!r}; similar: {close[:8]}") from None
+    return factory(device=resolve_device(device), **kwargs)
+
+
+_POPULATED = False
+
+
+def _populate():
+    """Fill the registry from the ported model modules, once."""
+    global _POPULATED
+    if _POPULATED:
+        return
+    _POPULATED = True
+    from .models import classification as C
+
+    for name in C.__all__:
+        obj = getattr(C, name)
+        if callable(obj) and name[0].islower():
+            _MODEL_REGISTRY.setdefault(name, obj)
