@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py --profile   # adds a per-kernel device-time profile
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -243,6 +244,32 @@ def phase_model(record):
           "img_per_s": batch / step, "launches": launches,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     record["launches"] = launches
+    return model, x
+
+
+def phase_profile(model, x, forwards=3):
+    """Device time per kernel over a few b64 bf16 forwards
+    (torch.profiler), for the breakdown of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model.predict(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                model.predict(x)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)  # microseconds
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    emit({"phase": "profile", "forwards": forwards,
+          "device_ms_per_forward": total / forwards / 1e3,
+          "top": [[e.key[:90], e.count // forwards,
+                   e.self_device_time_total / forwards / 1e3,
+                   e.self_device_time_total / total if total else None]
+                  for e in top]})
 
 
 def main():
@@ -253,7 +280,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
     record = phase_kernels()
-    phase_model(record)
+    model, x = phase_model(record)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(model, x)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{key: record[key] for key in keys}]})

@@ -76,16 +76,23 @@ def test_first_kv_tile_fully_masked_rows():
 
 def test_fully_masked_row_is_finite():
     """A row masked across all of S averages v over its S keys.  The TPU
-    kernel divides by its padded length instead; no parity is asked."""
-    rng = np.random.default_rng(1)
-    bh, s, d = 2, 40, 32
-    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32))
+    kernel instead divides the sum of v by its padded length (here 64 for
+    S = 40 at block_k = 32), so only that row differs; no parity is
+    asked for it."""
+    rng = np.random.default_rng(0)
+    bh, s, d = 1, 40, 32
+    q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32)
                for _ in range(3))
-    bias = torch.zeros(1, s, s)
-    bias[0, 0] = float("-inf")
-    out = flash_attention(q, k, v, bias=bias)
-    assert torch.isfinite(out).all()
-    torch.testing.assert_close(out[:, 0], v.mean(1), atol=1e-6, rtol=0)
+    bias = np.zeros((1, s, s), np.float32)
+    bias[0, 0] = -np.inf
+    out = flash_attention(_t(q), _t(k), _t(v), bias=_t(bias)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out[:, 0], v.mean(1), atol=1e-6)
+    tpu = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)),
+                               bias=jnp.asarray(bias), block_q=32,
+                               block_k=32, interpret=True))
+    np.testing.assert_allclose(tpu[:, 0], v.sum(1) / 64, atol=1e-6)
+    np.testing.assert_allclose(out[:, 1:], tpu[:, 1:], atol=2e-5)
 
 
 @pytest.mark.parametrize("fn", [flash_attention, flash_attention_plain])

@@ -23,7 +23,11 @@
 // - bf16: 4 warps, each owning 16 query rows.  Both products run on the
 //   tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate).  The
 //   scores' accumulator fragments are re-packed in registers as the A operand
-//   of P.V, so P never touches shared memory;
+//   of P.V, so P never touches shared memory.  K/V tiles are double-buffered
+//   with cp.async, so the copy of the next tile overlaps the products of the
+//   current one; V's fragments come from ldmatrix.trans of the row-major
+//   tile.  Key tiles wholly past S, and warps whose rows all lie past S (at
+//   S = 197 three of the last query tile's four), skip their products;
 // - f32: the tensor cores would round to TF32, so this path runs on the f32
 //   FMA units: 256 threads, four per query row, scores and P in shared memory;
 // - online softmax per row, rescaled per k/v tile and normalised once at the
@@ -41,6 +45,7 @@ namespace {
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
+static_assert(kBlockQ == kBlockK, "one row loader stages Q, K and V");
 
 // ---------------------------------------------------------------- f32 path
 constexpr int kThreadsF32 = 256;  // four threads per query row
@@ -171,6 +176,37 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// 16-byte global -> shared copy that bypasses registers; when !valid it
+// writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four transposed 8x8 b16 tiles; lanes 8i..8i+7 give the row addresses of
+// tile i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreadsBf16)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
@@ -178,19 +214,21 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ v,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
                int S, long long bias_bh_stride, float scale) {
-  // Row strides padded by 8 bf16 (16 bytes): the 32-bit fragment reads of
-  // a warp then fall on 32 distinct banks, and 16-byte stores stay aligned.
+  // Rows padded by 8 bf16 (16 bytes): a warp's 32-bit fragment reads and
+  // ldmatrix row reads then fall on 32 distinct banks, and every row
+  // starts 16-byte aligned for cp.async.
   constexpr int LD = D + 8;
-  constexpr int VLD = kBlockK + 8;
-  constexpr int VEC = 8;          // bf16 in one 16-byte load
-  constexpr int CPR = D / VEC;    // 16-byte chunks in a row
-  constexpr int KS = D / 16;      // mma k-steps over the head dim
-  constexpr int NT = kBlockK / 8; // 8-key column tiles of the scores
-  constexpr int DT = D / 8;       // 8-dim column tiles of the output
+  constexpr int VEC = 8;           // bf16 in one 16-byte copy
+  constexpr int CPR = D / VEC;     // 16-byte chunks in a row
+  constexpr int KS = D / 16;       // mma k-steps over the head dim
+  constexpr int NT = kBlockK / 8;  // 8-key column tiles of the scores
+  constexpr int DT = D / 8;        // 8-dim column tiles of the output
+  constexpr int TILE = kBlockK * LD;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][LD]
-  __nv_bfloat16* sk = sq + kBlockQ * LD;                       // [64][LD]
-  __nv_bfloat16* svt = sk + kBlockK * LD;                      // [D][VLD], V^T
+  // Q tile, then two stages of (K tile, V tile): the next k/v tile is in
+  // flight while the current one is used.
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* skv = sq + kBlockQ * LD;
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBlockQ;
@@ -200,27 +238,22 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2;         // fragment row (and row + 8)
   const int t = lane & 3;          // fragment column pair
   const size_t base = (size_t)bh * S * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int n_kv = (S + kBlockK - 1) / kBlockK;
 
-  for (int i = tid; i < kBlockQ * CPR; i += kThreadsBf16) {
-    const int row = i / CPR, c = i % CPR, gr = q0 + row;
-    const uint4 x = gr < S ? *reinterpret_cast<const uint4*>(
-                                 q + base + (size_t)gr * D + c * VEC)
-                           : zero;
-    *reinterpret_cast<uint4*>(sq + row * LD + c * VEC) = x;
-  }
-  __syncthreads();
-  uint32_t qa[KS][4];  // the warp's 16 query rows as mma A fragments
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p0 = sq + (wr + g) * LD + ks * 16 + t * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * LD;
-    qa[ks][0] = ld32(p0);
-    qa[ks][1] = ld32(p1);
-    qa[ks][2] = ld32(p0 + 8);
-    qa[ks][3] = ld32(p1 + 8);
-  }
+  auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0) {
+    for (int i = tid; i < kBlockK * CPR; i += kThreadsBf16) {
+      const int row = i / CPR, c = i % CPR, gr = r0 + row;
+      const bool ok = gr < S;  // rows past S are zero-filled
+      cp_async16(dst + row * LD + c * VEC,
+                 src + base + (size_t)(ok ? gr : 0) * D + c * VEC, ok);
+    }
+  };
+  load_rows(sq, q, q0);
+  load_rows(skv, k, 0);
+  load_rows(skv + TILE, v, 0);
+  cp_async_commit();
 
+  const bool live = q0 + wr < S;  // the warp holds at least one real row
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   const float* br0 =
       bias ? bias + bh * bias_bh_stride + (size_t)min(row0, S - 1) * S
@@ -228,6 +261,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const float* br1 =
       bias ? bias + bh * bias_bh_stride + (size_t)min(row1, S - 1) * S
            : nullptr;
+  uint32_t qa[KS][4];  // the warp's 16 query rows as mma A fragments
   float oacc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
@@ -235,91 +269,114 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockK * CPR; i += kThreadsBf16) {
-      const int row = i / CPR, c = i % CPR, gr = k0 + row;
-      uint4 kx = zero, vx = zero;
-      if (gr < S) {
-        kx = *reinterpret_cast<const uint4*>(k + base + (size_t)gr * D + c * VEC);
-        vx = *reinterpret_cast<const uint4*>(v + base + (size_t)gr * D + c * VEC);
-      }
-      *reinterpret_cast<uint4*>(sk + row * LD + c * VEC) = kx;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vx);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) svt[(c * VEC + e) * VLD + row] = ve[e];
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kBlockK;
+    if (j + 1 < n_kv) {
+      __nv_bfloat16* next = skv + ((j + 1) & 1) * 2 * TILE;
+      load_rows(next, k, k0 + kBlockK);
+      load_rows(next + TILE, v, k0 + kBlockK);
+      cp_async_commit();
+      cp_async_wait<1>();  // everything but the tile just requested
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // scores: sc[nt] holds rows (g, g+8) x keys (nt*8 + 2t, nt*8 + 2t + 1)
-    float sc[NT][4];
+    if (j == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* kp = sk + (nt * 8 + g) * LD + t * 2;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma_16816(sc[nt], qa[ks], ld32(kp + ks * 16), ld32(kp + ks * 16 + 8));
-    }
-    float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + nt * 8 + t * 2 + e;
-        float x0 = sc[nt][e] * scale, x1 = sc[nt][2 + e] * scale;
-        if (br0) {
-          if (col < S) {
-            x0 += br0[col];
-            x1 += br1[col];
-          }
-          x0 = fmaxf(x0, kNeg);
-          x1 = fmaxf(x1, kNeg);
-        }
-        if (col >= S) x0 = x1 = -INFINITY;
-        sc[nt][e] = x0;
-        sc[nt][2 + e] = x1;
-        mt0 = fmaxf(mt0, x0);
-        mt1 = fmaxf(mt1, x1);
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* p0 = sq + (wr + g) * LD + ks * 16 + t * 2;
+        const __nv_bfloat16* p1 = p0 + 8 * LD;
+        qa[ks][0] = ld32(p0);
+        qa[ks][1] = ld32(p1);
+        qa[ks][2] = ld32(p0 + 8);
+        qa[ks][3] = ld32(p1 + 8);
       }
     }
-    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
-    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
-    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
+    const __nv_bfloat16* sk = skv + (j & 1) * 2 * TILE;
+    const __nv_bfloat16* sv = sk + TILE;
+    if (live) {
+      // scores: sc[nt] holds rows (g, g+8) x keys (nt*8 + 2t, nt*8 + 2t + 1)
+      float sc[NT][4];
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= a0;
-      oacc[dt][1] *= a0;
-      oacc[dt][2] *= a1;
-      oacc[dt][3] *= a1;
-    }
-    // P in f32 for the sums, cast to bf16 as the A operand of P.V: score
-    // tiles 2kk and 2kk+1 are exactly the A fragment of keys 16kk..16kk+15.
-    uint32_t pa[NT / 2][4];
+      for (int nt = 0; nt < NT; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        if (k0 + nt * 8 < S) {  // key tiles wholly past S are skipped
+          const __nv_bfloat16* kp = sk + (nt * 8 + g) * LD + t * 2;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = expf(sc[nt][0] - m0), p1 = expf(sc[nt][1] - m0);
-      const float p2 = expf(sc[nt][2] - m1), p3 = expf(sc[nt][3] - m1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+          for (int ks = 0; ks < KS; ++ks)
+            mma_16816(sc[nt], qa[ks], ld32(kp + ks * 16),
+                      ld32(kp + ks * 16 + 8));
+        }
+      }
+      float mt0 = -INFINITY, mt1 = -INFINITY;
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + nt * 8 + t * 2 + e;
+          float x0 = sc[nt][e] * scale, x1 = sc[nt][2 + e] * scale;
+          if (br0) {
+            if (col < S) {
+              x0 += br0[col];
+              x1 += br1[col];
+            }
+            x0 = fmaxf(x0, kNeg);
+            x1 = fmaxf(x1, kNeg);
+          }
+          if (col >= S) x0 = x1 = -INFINITY;
+          sc[nt][e] = x0;
+          sc[nt][2 + e] = x1;
+          mt0 = fmaxf(mt0, x0);
+          mt1 = fmaxf(mt1, x1);
+        }
+      }
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+      const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= a0;
+      l1 *= a1;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vp = svt + (dt * 8 + g) * VLD + kk * 16 + t * 2;
-        mma_16816(oacc[dt], pa[kk], ld32(vp), ld32(vp + 8));
+        oacc[dt][0] *= a0;
+        oacc[dt][1] *= a0;
+        oacc[dt][2] *= a1;
+        oacc[dt][3] *= a1;
+      }
+      // P in f32 for the sums, cast to bf16 as the A operand of P.V: score
+      // tiles 2kk and 2kk+1 are exactly the A fragment of keys 16kk..16kk+15.
+      uint32_t pa[NT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float p0 = expf(sc[nt][0] - m0), p1 = expf(sc[nt][1] - m0);
+        const float p2 = expf(sc[nt][2] - m1), p3 = expf(sc[nt][3] - m1);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      // V's B fragments by transposed ldmatrix: tiles (keys 0-7, dims dt),
+      // (keys 8-15, dims dt), then the same for dims dt + 1.
+      const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int vdim = (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        if (k0 + kk * 16 < S) {
+#pragma unroll
+          for (int dt = 0; dt < DT; dt += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, sv + (kk * 16 + vkey) * LD + dt * 8 + vdim);
+            mma_16816(oacc[dt], pa[kk], b[0], b[1]);
+            mma_16816(oacc[dt + 1], pa[kk], b[2], b[3]);
+          }
+        }
       }
     }
+    __syncthreads();  // this stage is refilled by the next iteration
   }
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -340,7 +397,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 constexpr size_t smem_bf16() {
-  return (2 * kBlockQ * (D + 8) + D * (kBlockK + 8)) * sizeof(__nv_bfloat16);
+  return (kBlockQ + 4 * kBlockK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
 template <int D>
