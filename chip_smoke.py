@@ -94,7 +94,8 @@ def phase_environment():
     _build.build()  # every source under csrc/, in parallel
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name, log in _build.build_logs.items()}
     emit({"phase": "environment", "card": card,
           "device": torch.cuda.get_device_name(0),
@@ -121,6 +122,7 @@ def phase_kernels():
             ("s577_d64", 96, 577, 64, dtype, None),
             ("d32_bias_per_bh", 64, 197, 32, dtype, "per_bh"),
             ("d32_bias_shared", 64, 197, 32, dtype, "shared"),
+            ("d96_vit_s16", 192, 197, 96, dtype, None),
             ("d128", 32, 256, 128, dtype, None),
             ("first_kv_tile_masked", 4, 128, 32, dtype, "block_diag"),
             ("row_fully_masked", 4, 100, 64, dtype, "row0_masked"),
@@ -170,7 +172,7 @@ def phase_kernels():
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4)),
-            "bound_ms": bound, "bound_by": bound_by}
+            "bound_ms": bound, "bound_us": 1e3 * bound, "bound_by": bound_by}
     emit({"phase": "kernel_times", "flash_attention": timings})
     main = next(r for r in results
                 if r["case"] == "vit_b16_b64" and r["dtype"] == "bfloat16")

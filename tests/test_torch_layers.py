@@ -71,6 +71,28 @@ def test_layernorm_matches_jax(rng, eps):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize("weights", ["float32", "bfloat16"])
+def test_layernorm_bf16_matches_jax(rng, weights):
+    """bf16 input: statistics and affine in f32, output in bf16, with f32
+    weights or with weights cast to bf16 (the serving policy)."""
+    x = (rng.normal(size=(3, 9, 64)) * 4 + 2).astype(np.float32)
+    jl = jnn.LayerNorm(64, eps=1e-6)
+    jl.weight.value = jnp.asarray(rng.normal(size=64), weights)
+    jl.bias.value = jnp.asarray(rng.normal(size=64), weights)
+    tl = T.LayerNorm(64, eps=1e-6, device="cpu").to(getattr(torch, weights))
+    load_jax_params(tl, {k: np.asarray(v, np.float32)
+                         for k, v in jl.state_dict().items()})
+    want = jl(jnp.asarray(x, jnp.bfloat16))
+    with torch.no_grad():
+        got = tl(torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    # the f32 results differ in their last bits, so the bf16 outputs may
+    # round apart by one bf16 ulp: at most 2**-7 relative
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2 ** -7,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("name", sorted(T._ACTS))
 def test_activations_match_jax(name):
     x = np.linspace(-6, 6, 241, dtype=np.float32)

@@ -180,13 +180,14 @@ class LayerNorm(nn.Module):
             self.weight = self.bias = None
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, keepdim=True, correction=0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        if self.weight is not None:
-            y = y * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        # torch's layer_norm keeps the statistics and the affine in f32 for
+        # bf16 input; weights of another dtype than x (f32 weights, bf16
+        # input) go through f32 so they are not rounded to x's dtype
+        w, b = self.weight, self.bias
+        if w is not None and w.dtype != x.dtype:
+            return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(),
+                                self.eps).to(x.dtype)
+        return F.layer_norm(x, x.shape[-1:], w, b, self.eps)
 
 
 def _keep_mask(shape, keep, generator, device):
