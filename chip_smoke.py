@@ -80,10 +80,17 @@ def attention_bound_ms(bh, s, d, dtype, bias=None):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def qkv(bh, s, d, dtype, seed):
+def qkv(bh, s, d, dtype, seed, heads=None):
+    """q, k, v as [bh, s, d] tensors; with ``heads``, as the [B, H, S, D]
+    views into one packed [B, S, 3, H, D] projection that a ViT block
+    hands the kernel."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
-            for _ in range(3)]
+    if heads is None:
+        return [torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
+                for _ in range(3)]
+    packed = torch.randn(bh // heads, s, 3, heads, d, generator=g,
+                         device="cuda").to(dtype)
+    return list(packed.permute(2, 0, 3, 1, 4))
 
 
 def phase_environment():
@@ -118,6 +125,7 @@ def phase_kernels():
     cases = []
     for dtype in (f32, bf):
         cases += [
+            ("vit_b16_b64_packed", 768, 197, 64, dtype, None),
             ("vit_b16_b64", 768, 197, 64, dtype, None),
             ("s577_d64", 96, 577, 64, dtype, None),
             ("d32_bias_per_bh", 64, 197, 32, dtype, "per_bh"),
@@ -129,7 +137,8 @@ def phase_kernels():
         ]
     results = []
     for i, (name, bh, s, d, dtype, bias_kind) in enumerate(cases):
-        q, k, v = qkv(bh, s, d, dtype, seed=i)
+        q, k, v = qkv(bh, s, d, dtype, seed=i,
+                      heads=12 if name.endswith("_packed") else None)
         bias = None
         if bias_kind in ("per_bh", "shared"):
             g = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -162,8 +171,7 @@ def phase_kernels():
     timings = {}
     for dtype in (bf, f32):
         bh, s, d = 768, 197, 64
-        q, k, v = qkv(bh, s, d, dtype, seed=7)
-        q4, k4, v4 = (t[None] for t in (q, k, v))
+        q, k, v = qkv(bh, s, d, dtype, seed=7, heads=12)  # as served
         bound, bound_by = attention_bound_ms(bh, s, d, dtype)
         timings[str(dtype).split(".")[-1]] = {
             "shape": [bh, s, d],
@@ -171,11 +179,12 @@ def phase_kernels():
             "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4)),
+                    q, k, v)),
             "bound_ms": bound, "bound_us": 1e3 * bound, "bound_by": bound_by}
     emit({"phase": "kernel_times", "flash_attention": timings})
     main = next(r for r in results
-                if r["case"] == "vit_b16_b64" and r["dtype"] == "bfloat16")
+                if r["case"] == "vit_b16_b64_packed"
+                and r["dtype"] == "bfloat16")
     return {"name": "flash_attention", "route": "cuda",
             "source": "tlxcv_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tlxcv_tpu/ops/pallas/attention.py:39",

@@ -95,6 +95,24 @@ def test_fully_masked_row_is_finite():
     np.testing.assert_allclose(out[:, 1:], tpu[:, 1:], atol=2e-5)
 
 
+def test_flash_takes_packed_qkv_views(rng):
+    """[B, H, S, D] views into one packed [B, S, 3, H, D] projection (what
+    MultiHeadAttention passes) give the [BH, S, D] results."""
+    b, h, s, d = 2, 3, 50, 32
+    packed = torch.from_numpy(
+        rng.normal(size=(b, s, 3, h, d)).astype(np.float32))
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    bias = torch.from_numpy(rng.normal(size=(b * h, s, s)).astype(np.float32))
+    out = flash_attention(q, k, v, bias=bias)
+    assert out.shape == (b, h, s, d)
+    flat = [t.reshape(b * h, s, d).contiguous() for t in (q, k, v)]
+    want = flash_attention(*flat, bias=bias)
+    torch.testing.assert_close(out.reshape(b * h, s, d), want, rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError):
+        flash_attention(q[0], k, v)
+
+
 @pytest.mark.parametrize("fn", [flash_attention, flash_attention_plain])
 def test_rejects_bad_bias_leading_dim(fn):
     q = torch.zeros(4, 16, 32)

@@ -52,6 +52,26 @@ def test_kernel_matches_plain(cuda, dtype, bh, s, d, bias):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d", [(4, 12, 197, 64), (2, 3, 70, 32),
+                                     (1, 8, 65, 96)])
+def test_kernel_reads_packed_qkv_in_place(cuda, dtype, b, h, s, d):
+    """[B, H, S, D] views into a packed [B, S, 3, H, D] projection; the
+    output comes back as [B, H, S, D] stored token-major."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    packed = torch.randn(b, s, 3, h, d, generator=g, device=cuda).to(dtype)
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, s, d) and out.transpose(1, 2).is_contiguous()
+    ref = flash_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
+    strided = flash_attention(q.reshape(b * h, s, d),  # a 3D copy
+                              k.reshape(b * h, s, d), v.reshape(b * h, s, d))
+    torch.testing.assert_close(strided.reshape(b, h, s, d), out, atol=0,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_masked_rows_match_plain(cuda, dtype):
     s = 128
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -75,7 +95,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # dtype
         flash_attention(q, q, q)
     q = torch.zeros(2, 64, 16, device=cuda).transpose(1, 2)
-    with pytest.raises(ValueError):  # contiguity
+    with pytest.raises(ValueError):  # head dim not contiguous
+        flash_attention(q, q, q)
+    q = torch.zeros(2, 16, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
         flash_attention(q, q, q)
 
 

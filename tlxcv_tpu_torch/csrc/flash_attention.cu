@@ -30,6 +30,9 @@
 //   S = 197 three of the last query tile's four), skip their products;
 // - f32: the tensor cores would round to TF32, so this path runs on the f32
 //   FMA units: 256 threads, four per query row, scores and P in shared memory;
+// - q, k, v and o are addressed through (batch, head, row) strides, so a
+//   ViT block's packed qkv projection feeds the kernel in place and o is
+//   written token-major: no copies around the call;
 // - online softmax per row, rescaled per k/v tile and normalised once at the
 //   end (equal in exact arithmetic to the TPU kernel's per-step rescale);
 // - columns past S get probability exactly 0, so a row whose every real key
@@ -47,6 +50,14 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 static_assert(kBlockQ == kBlockK, "one row loader stages Q, K and V");
 
+// Element strides of (batch, head, row) for q, k, v and o; the head dim is
+// contiguous.  Block x of the grid is bh = batch * heads + head, so q, k and
+// v can be strided views into the packed qkv projection, and o can be
+// written token-major, with no copies around the kernel.
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
 // ---------------------------------------------------------------- f32 path
 constexpr int kThreadsF32 = 256;  // four threads per query row
 
@@ -54,8 +65,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int S, long long bias_bh_stride,
-              float scale) {
+              float* __restrict__ o, int S, int H, Strides st,
+              long long bias_bh_stride, float scale) {
   constexpr int LD = D + 1;         // padded rows: column reads hit 32 banks
   constexpr int PLD = kBlockK + 1;
   constexpr int NJ = kBlockK / 4;   // keys per thread in a tile
@@ -71,7 +82,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 2;    // query row in the tile
   const int sub = tid & 3;   // which of the row's four threads
-  const size_t base = (size_t)bh * S * D;
+  const int b = bh / H, h = bh % H;
+  const long long qo = b * st.q[0] + h * st.q[1];
+  const long long ko = b * st.k[0] + h * st.k[1];
+  const long long vo = b * st.v[0] + h * st.v[1];
+  const long long oo = b * st.o[0] + h * st.o[1];
   const int qrow = q0 + r;
   const float* brow =
       bias ? bias + bh * bias_bh_stride + (size_t)min(qrow, S - 1) * S
@@ -79,7 +94,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = tid; i < kBlockQ * D; i += kThreadsF32) {
     const int row = i / D, col = i % D, g = q0 + row;
-    sq[row * LD + col] = g < S ? q[base + (size_t)g * D + col] : 0.f;
+    sq[row * LD + col] = g < S ? q[qo + g * st.q[2] + col] : 0.f;
   }
 
   float acc[ND];
@@ -92,8 +107,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < kBlockK * D; i += kThreadsF32) {
       const int row = i / D, col = i % D, g = k0 + row;
       const bool ok = g < S;
-      sk[row * LD + col] = ok ? k[base + (size_t)g * D + col] : 0.f;
-      sv[row * LD + col] = ok ? v[base + (size_t)g * D + col] : 0.f;
+      sk[row * LD + col] = ok ? k[ko + g * st.k[2] + col] : 0.f;
+      sv[row * LD + col] = ok ? v[vo + g * st.v[2] + col] : 0.f;
     }
     __syncthreads();
 
@@ -146,7 +161,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l;
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd)
-      o[base + (size_t)qrow * D + sub + 4 * dd] = acc[dd] * inv;
+      o[oo + qrow * st.o[2] + sub + 4 * dd] = acc[dd] * inv;
   }
 }
 
@@ -213,7 +228,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-               int S, long long bias_bh_stride, float scale) {
+               int S, int H, Strides st, long long bias_bh_stride,
+               float scale) {
   // Rows padded by 8 bf16 (16 bytes): a warp's 32-bit fragment reads and
   // ldmatrix row reads then fall on 32 distinct banks, and every row
   // starts 16-byte aligned for cp.async.
@@ -237,20 +253,25 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;         // fragment row (and row + 8)
   const int t = lane & 3;          // fragment column pair
-  const size_t base = (size_t)bh * S * D;
   const int n_kv = (S + kBlockK - 1) / kBlockK;
-
-  auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0) {
+  const int b = bh / H, h = bh % H;
+  // src: the (batch, head) slice; ss: its row stride
+  auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                       long long ss, int r0) {
     for (int i = tid; i < kBlockK * CPR; i += kThreadsBf16) {
       const int row = i / CPR, c = i % CPR, gr = r0 + row;
       const bool ok = gr < S;  // rows past S are zero-filled
-      cp_async16(dst + row * LD + c * VEC,
-                 src + base + (size_t)(ok ? gr : 0) * D + c * VEC, ok);
+      cp_async16(dst + row * LD + c * VEC, src + (ok ? gr : 0) * ss + c * VEC,
+                 ok);
     }
   };
-  load_rows(sq, q, q0);
-  load_rows(skv, k, 0);
-  load_rows(skv + TILE, v, 0);
+  const __nv_bfloat16* qs = q + b * st.q[0] + h * st.q[1];
+  const __nv_bfloat16* ks = k + b * st.k[0] + h * st.k[1];
+  const __nv_bfloat16* vs = v + b * st.v[0] + h * st.v[1];
+  __nv_bfloat16* os = o + b * st.o[0] + h * st.o[1];
+  load_rows(sq, qs, st.q[2], q0);
+  load_rows(skv, ks, st.k[2], 0);
+  load_rows(skv + TILE, vs, st.v[2], 0);
   cp_async_commit();
 
   const bool live = q0 + wr < S;  // the warp holds at least one real row
@@ -273,8 +294,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     const int k0 = j * kBlockK;
     if (j + 1 < n_kv) {
       __nv_bfloat16* next = skv + ((j + 1) & 1) * 2 * TILE;
-      load_rows(next, k, k0 + kBlockK);
-      load_rows(next + TILE, v, k0 + kBlockK);
+      load_rows(next, ks, st.k[2], k0 + kBlockK);
+      load_rows(next + TILE, vs, st.v[2], k0 + kBlockK);
       cp_async_commit();
       cp_async_wait<1>();  // everything but the tile just requested
     } else {
@@ -387,10 +408,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int dt = 0; dt < DT; ++dt) {
     const int col = dt * 8 + t * 2;
     if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(os + row0 * st.o[2] + col) =
           __floats2bfloat162_rn(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
     if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(os + row1 * st.o[2] + col) =
           __floats2bfloat162_rn(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
   }
 }
@@ -402,9 +423,9 @@ constexpr size_t smem_bf16() {
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* bias, void* o, int bh, int s,
-                       long long bias_bh_stride, float scale,
-                       cudaStream_t stream) {
+                       const float* bias, void* o, int bh, int s, int heads,
+                       const Strides& st, long long bias_bh_stride,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_f32<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -412,16 +433,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
   flash_fwd_f32<D><<<grid, kThreadsF32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), s,
-      bias_bh_stride, scale);
+      static_cast<const float*>(v), bias, static_cast<float*>(o), s, heads,
+      st, bias_bh_stride, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const float* bias, void* o, int bh, int s,
-                        long long bias_bh_stride, float scale,
-                        cudaStream_t stream) {
+                        const float* bias, void* o, int bh, int s, int heads,
+                        const Strides& st, long long bias_bh_stride,
+                        float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bf16<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -430,39 +451,53 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   flash_fwd_bf16<D><<<grid, kThreadsBf16, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), bias,
-      static_cast<__nv_bfloat16*>(o), s, bias_bh_stride, scale);
+      static_cast<__nv_bfloat16*>(o), s, heads, st, bias_bh_stride, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous [bh, s, d], all f32 or all bf16 (is_bf16), 16-byte
-// aligned.  bias: null or contiguous f32 [1 or bh, s, s] (bias_per_bh).
+// q, k, v, o: [batch, heads, s, d] given by element strides (12 values:
+// batch, head and row strides of q, k, v, o in turn), the head dim
+// contiguous; all f32 or all bf16 (is_bf16), every row 16-byte aligned.
+// bias: null or contiguous f32 [1 or batch*heads, s, s] (bias_per_bh).
 // Launches on `stream` without synchronising; returns the cudaError_t of
 // the launch.
 extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
-                                       void* o, int bh, int s, int d,
+                                       void* o, int batch, int heads, int s,
+                                       int d, const long long* strides,
                                        int bias_per_bh, float scale,
                                        int is_bf16, void* stream) {
   const float* b = static_cast<const float*>(bias);
-  const long long stride = bias_per_bh ? (long long)s * s : 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long bs = bias_per_bh ? (long long)s * s : 0;
+  const int bh = batch * heads;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+#define TLX_LAUNCH(kind, D) \
+  return launch_##kind<D>(q, k, v, b, o, bh, s, heads, st, bs, scale, cs)
   if (is_bf16) {
     switch (d) {
-      case 32: return launch_bf16<32>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 64: return launch_bf16<64>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 96: return launch_bf16<96>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 128: return launch_bf16<128>(q, k, v, b, o, bh, s, stride, scale, st);
+      case 32: TLX_LAUNCH(bf16, 32);
+      case 64: TLX_LAUNCH(bf16, 64);
+      case 96: TLX_LAUNCH(bf16, 96);
+      case 128: TLX_LAUNCH(bf16, 128);
     }
   } else {
     switch (d) {
-      case 32: return launch_f32<32>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 64: return launch_f32<64>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 96: return launch_f32<96>(q, k, v, b, o, bh, s, stride, scale, st);
-      case 128: return launch_f32<128>(q, k, v, b, o, bh, s, stride, scale, st);
+      case 32: TLX_LAUNCH(f32, 32);
+      case 64: TLX_LAUNCH(f32, 64);
+      case 96: TLX_LAUNCH(f32, 96);
+      case 128: TLX_LAUNCH(f32, 128);
     }
   }
+#undef TLX_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,8 +31,10 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
     s, d = q.shape[-2:]
     scale = d ** -0.5 if scale is None else scale
     bh = math.prod(lead)
-    qf, kf, vf = (t.reshape(bh, t.shape[-2], d).contiguous()
-                  for t in (q, k, v))
+    if q.ndim == 4:  # [B, H, S, D] views go to the kernel as they are
+        qf, kf, vf = q, k, v
+    else:
+        qf, kf, vf = (t.reshape(bh, t.shape[-2], d) for t in (q, k, v))
     bias = None
     if mask is not None:
         kv = k.shape[-2]

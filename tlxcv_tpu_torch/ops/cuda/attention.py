@@ -8,11 +8,14 @@ The TPU layout devices of the reference (``block_q``/``block_k``, ``nb``,
 own choice.
 
 ``flash_attention`` takes the plain version for a tensor on the CPU.  For a
-CUDA tensor it launches the kernel or raises; it never falls back.
+CUDA tensor it launches the kernel or raises; it never falls back.  The
+kernel reads q, k, v through their strides: a ``[B, H, S, D]`` view into a
+packed qkv projection needs no copy.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -28,11 +31,12 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_shapes(q, k, v, bias):
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [BH, S, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+    if q.ndim not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one [BH, S, D] or [B, H, S, D] "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    bh, s, _ = q.shape
+    s = q.shape[-2]
+    bh = math.prod(q.shape[:-2])
     if bias is not None:
         if bias.ndim != 3 or bias.shape[0] not in (1, bh):
             raise ValueError(f"bias leading dim {bias.shape[0]} must be 1 or "
@@ -47,14 +51,15 @@ def flash_attention_plain(q, k, v, bias=None, scale=None):
     clamped at ``NEG``, f32 softmax statistics, P cast to v's dtype before
     P.V, normalised at the end, output in q's dtype."""
     _check_shapes(q, k, v, bias)
-    d = q.shape[-1]
+    s, d = q.shape[-2:]
     scale = d ** -0.5 if scale is None else float(scale)
-    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    q3, k3, v3 = (t.reshape(-1, s, d).float() for t in (q, k, v))
+    logits = torch.einsum("bqd,bkd->bqk", q3, k3) * scale
     if bias is not None:
         logits = torch.clamp_min(logits + bias.float(), NEG)
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
-    return (out / p.sum(-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v3)
+    return (out / p.sum(-1, keepdim=True)).to(q.dtype).reshape(q.shape)
 
 
 def _check_kernel_inputs(q, k, v, bias):
@@ -73,12 +78,18 @@ def _check_kernel_inputs(q, k, v, bias):
                          f"got {q.shape[-1]}")
     if bias is not None and bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32, got {bias.dtype}")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError("bias must be contiguous")
+    per_16_bytes = 16 // q.element_size()
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("q, k, v and bias must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("q, k, v and bias must be 16-byte aligned")
-    bh, s, _ = q.shape
+    for t in (q, k, v):
+        if t.stride(-1) != 1 or any(st % per_16_bytes
+                                    for st in t.stride()[:-1]):
+            raise ValueError("q, k, v need a contiguous head dim and other "
+                             "strides of whole 16-byte units")
+    bh, s = math.prod(q.shape[:-2]), q.shape[-2]
     if bh >= 2 ** 31 or -(-s // 64) > 65535:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
@@ -87,7 +98,7 @@ def _kernel_fn():
     fn = _build.library("flash_attention").tlx_flash_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p, i, ctypes.c_float, i, p]
         fn.restype = i
     return fn
 
@@ -98,22 +109,36 @@ def _error_string(rc):
     return fn(rc).decode()
 
 
+def _bhs_strides(t):
+    """(batch, head, row) element strides; a 3D tensor is one batch."""
+    return (0, *t.stride()[:2]) if t.ndim == 3 else t.stride()[:3]
+
+
 def flash_attention(q, k, v, bias=None, scale=None):
-    """softmax(q kᵀ·scale + bias)·v.  q, k, v: [BH, S, D]; bias: optional
-    additive [1|BH, S, S]; scale defaults to D**-0.5.  Returns [BH, S, D]
-    in q's dtype."""
+    """softmax(q kᵀ·scale + bias)·v.  q, k, v: [BH, S, D], or [B, H, S, D]
+    with any strides over a contiguous head dim; bias: optional additive
+    [1|BH, S, S] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape
+    in q's dtype: [BH, S, D] contiguous, or [B, H, S, D] stored
+    token-major (a view of [B, S, H, D])."""
     _check_shapes(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     _check_kernel_inputs(q, k, v, bias)
-    bh, s, d = q.shape
+    s, d = q.shape[-2:]
+    batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
     scale = d ** -0.5 if scale is None else float(scale)
     fn = _kernel_fn()
-    out = torch.empty_like(q)
+    if q.ndim == 3:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    else:
+        out = q.new_empty(batch, s, heads, d).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *(x for t in (q, k, v, out) for x in _bhs_strides(t)))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                bh, s, d, int(bias is not None and bias.shape[0] == bh),
+                batch, heads, s, d, strides,
+                int(bias is not None and bias.shape[0] == batch * heads),
                 scale, _KERNEL_DTYPES[q.dtype],
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
