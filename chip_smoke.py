@@ -67,14 +67,12 @@ def time_ms(fn, reps=30, warmup=5):
     return statistics.median(times)
 
 
-def attention_bound_ms(bh, s, d, dtype, bias=None):
-    """Least time for one call: each input read once and the output
+def attention_bound_ms(bh, s, d, dtype):
+    """Least time for one call without bias: q, k, v read once and o
     written once, against the card's memory rate; 4*S*S*D*BH operations
     against its peak rate for the dtype.  Returns (ms, what bounds it)."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = 4 * bh * s * d * elt + (bias.numel() * 4 if bias is not None
-                                     else 0)
-    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_bytes = 4 * bh * s * d * elt / HBM_BYTES_PER_S
     by_ops = 4 * s * s * d * bh / PEAK_OPS_PER_S[dtype]
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")

@@ -20,6 +20,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain runs in f32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
