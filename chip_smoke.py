@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py          # from the root of the repository
-    python3 chip_smoke.py --profile   # adds a per-kernel device-time profile
+    python3 chip_smoke.py --profile   # adds per-kernel device-time profiles
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -16,15 +16,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. model: ViT-B/16 at full width and depth, random weights from a seed,
    built by ``create_model`` on the card.  f32 and bf16 logits against
    the same weights run in f32 on the CPU; exactly 12 attention kernel
-   launches per forward; then the main path, b64 bf16 ``predict``, is
+   launches per forward; then the ViT path, b64 bf16 ``predict``, is
    served and timed.
+4. ResNet-50 (``create_model("resnet50")``, random weights and BatchNorm
+   statistics from a seed): f32 and bf16 logits on the card against f32
+   on the CPU; ``quantize_for_serving`` on the CPU in f32 with 4
+   calibration images, as the JAX package's bench does; the int8 model on
+   the card against the same int8 model on the CPU (plain int8 GEMM),
+   with exactly 54 int8 GEMM launches per forward.  Then both paths,
+   b256 bf16 ``predict`` on cuDNN and full int8 through the kernel, are
+   served and timed, and the int8 GEMM is timed at every shape of the
+   int8 forward.
 
-The last three lines are the kernels' record, the card, and the contract
-line ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero before printing any result.
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after.  The last three lines are the kernels' record, the
+card, and the contract line ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -35,7 +46,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
-                  torch.float32: 67e12}    # f32 outside the tensor cores
+                  torch.float32: 67e12,    # f32 outside the tensor cores
+                  torch.int8: 1979e12}     # dense tensor-core int8
 
 
 def emit(obj):
@@ -225,13 +237,136 @@ def phase_model(record):
         raise AssertionError(f"{per_forward} attention kernel launches in "
                              f"one forward, expected 12")
 
-    # the main path: b64 bf16 predict, served on the card
-    batch, warmup, rounds = 64, 3, 10
-    x = torch.randn(batch, 224, 224, 3, generator=gen).to(
-        "cuda", torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
+    # the ViT path: b64 bf16 predict, served on the card
+    x = torch.randn(64, 224, 224, 3, generator=gen).to("cuda", torch.bfloat16)
+    counts = serve(model, x, {"flash_attention": 12, "int8_matmul": 0}, name,
+                   "bfloat16")
+    record["launches"] = counts["flash_attention"]
+    return model, x
+
+
+# ---------------------------------------------------------------- int8 GEMM
+# (name, M, K, N): the main path's shapes at b256 224^2, and the JAX
+# package's int8 probe shapes
+INT8_SHAPES = [
+    ("stem_7x7_b256", 3211264, 147, 64),
+    ("layer1_3x3_b256", 802816, 576, 64),
+    ("layer4_1x1_b256", 12544, 2048, 512),
+    ("fc_b256", 256, 2048, 1000),
+    ("probe_4096", 4096, 4096, 4096),
+    ("probe_1x1_b64", 200704, 256, 256),
+]
+
+
+def int8_bound_ms(m, k, n):
+    """Least time of one [M, K] @ [K, N] int8 -> int32 product: a, b read
+    once and the int32 output written once against the card's memory
+    rate; 2*M*N*K operations against its dense int8 rate."""
+    by_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+    by_ops = 2 * m * n * k / PEAK_OPS_PER_S[torch.int8]
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def int8_operands(m, k, n, seed, fill=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fill is None:
+        return [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                              dtype=torch.int8) for shape in ((m, k), (k, n))]
+    return [torch.full(shape, v, device="cuda", dtype=torch.int8)
+            for shape, v in (((m, k), fill[0]), ((k, n), fill[1]))]
+
+
+def time_int8_shape(m, k, n, seed, reps=20):
+    """Kernel, plain and library ms of one product as the int8 layers
+    hand it over: K zero-padded for the kernel, the weight packed [N, Kp].
+    The library call is torch._int_mm on the same padded operands; its
+    shape rules may refuse them (then null, with its message)."""
+    from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul_nt,
+                                                 int8_matmul_plain, pad_k)
+
+    a, b = int8_operands(m, k, n, seed)
+    ap, w = pad_k(a), pad_k(b.t().contiguous())
+    out = {"ms": time_ms(lambda: int8_matmul_nt(ap, w), reps=reps),
+           "plain_ms": time_ms(lambda: int8_matmul_plain(a, b),
+                               reps=max(3, reps // 4), warmup=1)}
+    try:
+        torch._int_mm(ap, w.t())
+        out["library_ms"] = time_ms(lambda: torch._int_mm(ap, w.t()),
+                                    reps=reps)
+    except RuntimeError as err:
+        out["library_ms"] = None
+        out["library_refused"] = str(err).splitlines()[0][:160]
+    out["bound_ms"], out["bound_by"] = int8_bound_ms(m, k, n)
+    return out
+
+
+def phase_int8_kernels():
+    """int8_matmul against int8_matmul_plain on the card, exactly, at the
+    main path's shapes and at the edges of its contract; then the times."""
+    from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+
+    cases = [(name, m, k, n, None) for name, m, k, n in INT8_SHAPES]
+    cases += [(f"edge_{m}x{k}x{n}", m, k, n, None)
+              for m in (1, 17, 33) for k in (1, 17, 33) for n in (1, 17, 33)]
+    cases += [("all_minus_127", 300, 4096, 70, (-127, -127)),
+              ("k4096_plus_minus_127", 129, 4096, 65, (127, -127)),
+              ("k4096_random_sign", 257, 4096, 130, None)]
+    worst = 0
+    for i, (name, m, k, n, fill) in enumerate(cases):
+        a, b = int8_operands(m, k, n, seed=i, fill=fill)
+        if name == "k4096_random_sign":
+            a, b = (torch.where(t >= 0, 127, -127).to(torch.int8)
+                    for t in (a, b))
+        got = int8_matmul(a, b)
+        torch.cuda.synchronize()
+        want = int8_matmul_plain(a, b)
+        err = (got.double() - want.double()).abs().max().item()
+        worst = max(worst, err)
+        if got.dtype != torch.int32 or err != 0:
+            emit({"phase": "int8_kernels", "failed": name,
+                  "shape": [m, k, n], "max_abs_err": err})
+            raise AssertionError(f"int8_matmul {name} {m}x{k}x{n}: "
+                                 f"max |err| {err}, expected exact")
+        del a, b, got, want
+    emit({"phase": "int8_kernels", "cases": len(cases), "max_abs_err": worst,
+          "tolerance": 0, "why": "int32 sums of int8 products are exact"})
+
+    timings = {}
+    for i, (name, m, k, n) in enumerate(INT8_SHAPES):
+        timings[name] = {"shape": [m, k, n], **time_int8_shape(m, k, n, i)}
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_times", "int8_matmul": timings})
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "tlxcv_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "tlxcv_tpu/ops/pallas/matmul.py:32",
+            "max_abs_err": worst}
+
+
+def reset_launches():
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+
     flash_attention.launches = 0
+    int8_matmul.launches = 0
+
+
+def launches():
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+
+    return {"flash_attention": flash_attention.launches,
+            "int8_matmul": int8_matmul.launches}
+
+
+def serve(model, x, expect, name, dtype, warmup=3, rounds=10):
+    """Time ``predict`` (host clock around each call and a synchronise),
+    with the launch counts set to 0 just before and checked just after
+    against ``expect`` launches per forward."""
+    torch.cuda.reset_peak_memory_stats()
     times = []
+    reset_launches()
     with torch.inference_mode():
         for i in range(warmup + rounds):
             torch.cuda.synchronize()
@@ -240,25 +375,172 @@ def phase_model(record):
             torch.cuda.synchronize()
             if i >= warmup:
                 times.append(time.perf_counter() - t0)
-    launches = flash_attention.launches
-    if launches != 12 * (warmup + rounds):
-        raise AssertionError(f"{launches} attention kernel launches in "
-                             f"{warmup + rounds} forwards")
+    counts = launches()
+    want = {k: v * (warmup + rounds) for k, v in expect.items()}
+    if counts != want:
+        raise AssertionError(f"{name} {dtype}: kernel launches {counts}, "
+                             f"expected {want}")
+    batch = x.shape[0]
     if pred.shape != (batch,) or not bool(((pred >= 0) & (pred < 1000)).all()):
         raise AssertionError(f"bad predictions {pred.shape}")
     step = statistics.median(times)
-    emit({"phase": "serve", "model": name, "batch": batch,
-          "dtype": "bfloat16", "rounds": rounds, "step_ms_median": 1e3 * step,
+    emit({"phase": "serve", "model": name, "batch": batch, "dtype": dtype,
+          "rounds": rounds, "step_ms_median": 1e3 * step,
           "step_ms_all": [1e3 * t for t in times],
-          "img_per_s": batch / step, "launches": launches,
+          "img_per_s": batch / step, "launches": counts,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    record["launches"] = launches
-    return model, x
+    return counts
 
 
-def phase_profile(model, x, forwards=3):
-    """Device time per kernel over a few b64 bf16 forwards
-    (torch.profiler), for the breakdown of the step."""
+def params_to(model, dtype):
+    """Cast the float parameters only, as the JAX package's bench casts
+    its params to bf16 and keeps the BatchNorm statistics in f32."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return model
+
+
+def phase_resnet(int8_record):
+    """ResNet-50: float and int8 logits on the card against the CPU, then
+    the two serving paths at b256."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.nn import BatchNorm
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+    from tlxcv_tpu_torch.ops.quant import quantize_for_serving
+    from tlxcv_tpu_torch.tasks import ImageClassification
+
+    name = "resnet50"
+    gen = torch.Generator().manual_seed(0)
+    cpu = ImageClassification(create_model(name, device="cpu",
+                                           generator=gen)).eval()
+    for mod in cpu.modules():  # non-trivial running statistics
+        if isinstance(mod, BatchNorm):
+            c = mod.running_mean.shape[0]
+            mod.running_mean.copy_(0.2 * torch.randn(c, generator=gen))
+            mod.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+    x4 = torch.randn(4, 224, 224, 3, generator=gen)
+    card = copy.deepcopy(cpu).cuda()
+    with torch.inference_mode():
+        want = cpu(x4)
+        scale = want.abs().max().item()
+        got32 = card(x4.cuda()).cpu()
+    params_to(card, torch.bfloat16)
+    with torch.inference_mode():
+        got16 = card(x4.cuda().to(torch.bfloat16)).float().cpu()
+    err32 = (got32 - want).abs().max().item()
+    err16 = (got16 - want).abs().max().item()
+    # f32 on the card (TF32 off) differs from the CPU by summation order
+    # only: 1e-3 of the logit scale.  bf16 rounds every activation and
+    # weight to 8 bits of mantissa through 53 convs: 3e-2 of the scale.
+    check = {"logit_scale": scale, "f32_max_abs_err": err32,
+             "f32_bound": 1e-3 * scale, "bf16_max_abs_err": err16,
+             "bf16_bound": 3e-2 * scale}
+    emit({"phase": "model_check", "model": name, "batch": 4, **check})
+    if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
+        raise AssertionError("non-finite ResNet-50 logits on the card")
+    if not (err32 <= 1e-3 * scale and err16 <= 3e-2 * scale):
+        raise AssertionError(f"ResNet-50 logits disagree with the CPU: "
+                             f"{check}")
+
+    # full int8: prepared on the CPU in f32, served on the card
+    calib = torch.randn(4, 224, 224, 3, generator=gen)
+    t0 = time.perf_counter()
+    counts = quantize_for_serving(cpu.backbone, [calib])
+    prep_s = time.perf_counter() - t0
+    card8 = copy.deepcopy(cpu).cuda()
+    reset_launches()
+    with torch.inference_mode():
+        got8 = card8(x4.cuda()).cpu()
+        per_forward = int8_matmul.launches
+        want8 = cpu(x4)
+    fc = cpu.backbone.fc
+    step = float(fc.a_scale * 127 * fc.w_scale.max())
+    err8 = (got8 - want8).abs().max().item()
+    check = {"counts": list(counts), "expected_counts": [53, 54, 54, 32],
+             "prep_s": prep_s, "logit_scale": want8.abs().max().item(),
+             "max_abs_err": err8, "bound": 4 * step,
+             "why": "up to the global pool every op is an exact int32 "
+                    "product or an IEEE elementwise op; the pool's f32 "
+                    "mean is summed in another order, which can move an "
+                    "fc input code by one, each worth at most a_scale * "
+                    "127 * max w_scale of the fc: four such codes",
+             "launches_per_forward": per_forward}
+    emit({"phase": "model_check", "model": name + "_int8", "batch": 4,
+          **check})
+    if tuple(counts) != (53, 54, 54, 32):
+        raise AssertionError(f"quantize_for_serving counts {counts}")
+    if not torch.isfinite(got8).all() or not err8 <= 4 * step:
+        raise AssertionError(f"int8 ResNet-50 disagrees with the CPU: "
+                             f"{check}")
+    if per_forward != 54:
+        raise AssertionError(f"{per_forward} int8 GEMM launches in one "
+                             f"forward, expected 54")
+    del cpu, x4
+
+    # the ResNet paths: b256 bf16 predict, float on cuDNN and full int8
+    batch = 256
+    x = torch.randn(batch, 224, 224, 3, generator=gen).to(
+        "cuda", torch.bfloat16)
+    serve(card, x, {"flash_attention": 0, "int8_matmul": 0}, name,
+          "bfloat16")
+    counts = serve(card8, x, {"flash_attention": 0, "int8_matmul": 54},
+                   name + "_int8", "int8 (bf16 input)")
+    int8_record["launches"] = counts["int8_matmul"]
+    int8_record.update(int8_forward_times(card8, x))
+    return card, card8, x
+
+
+def int8_forward_times(model, x):
+    """The int8 GEMM at every shape one int8 forward hands it (read from
+    hooks on the int8 layers), timed alone; summed over the forward."""
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+
+    shapes = []
+
+    def hook(mod, args, out):
+        if mod.weight.dtype != torch.int8:
+            return
+        k = mod.weight.shape[1]  # packed Kp; the function's own K below
+        if isinstance(mod, Conv2d):
+            k_fn = mod.kernel_size[0] * mod.kernel_size[1] * args[0].shape[-1]
+        else:
+            k_fn = mod.in_features
+        shapes.append((out.numel() // out.shape[-1], k_fn, out.shape[-1], k))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv2d, Linear))]
+    with torch.inference_mode():
+        model(x)
+    for h in handles:
+        h.remove()
+    distinct = sorted(set(shapes))
+    per_shape = []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i, (m, k_fn, n, kp) in enumerate(distinct):
+        t = time_int8_shape(m, kp, n, seed=1000 + i, reps=10)
+        t["bound_ms"], t["bound_by"] = int8_bound_ms(m, k_fn, n)
+        calls = shapes.count((m, k_fn, n, kp))
+        per_shape.append({"m": m, "k": k_fn, "kp": kp, "n": n,
+                          "calls": calls, **t})
+        for key in ("ms", "plain_ms", "bound_ms"):
+            total[key] += calls * t[key]
+        by[t["bound_by"]] += calls * t["bound_ms"]
+        if total["library_ms"] is not None and t["library_ms"] is not None:
+            total["library_ms"] += calls * t["library_ms"]
+        else:
+            total["library_ms"] = None
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_times", "int8_matmul_per_forward": {
+        "batch": x.shape[0], "calls": len(shapes), "totals_ms": total,
+        "shapes": per_shape}})
+    return {**total, "bound_by": max(by, key=by.get)}
+
+
+def phase_profile(name, model, x, forwards=3):
+    """Device time per kernel over a few forwards (torch.profiler), for
+    the breakdown of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -272,10 +554,11 @@ def phase_profile(model, x, forwards=3):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels)  # microseconds
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    emit({"phase": "profile", "forwards": forwards,
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:30]
+    emit({"phase": "profile", "model": name, "batch": x.shape[0],
+          "forwards": forwards,
           "device_ms_per_forward": total / forwards / 1e3,
-          "top": [[e.key[:90], e.count // forwards,
+          "top": [[e.key[:120], e.count // forwards,
                    e.self_device_time_total / forwards / 1e3,
                    e.self_device_time_total / total if total else None]
                   for e in top]})
@@ -288,13 +571,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
-    record = phase_kernels()
-    model, x = phase_model(record)
+    flash = phase_kernels()
+    int8 = phase_int8_kernels()
+    vit, vit_x = phase_model(flash)
+    resnet16, resnet8, resnet_x = phase_resnet(int8)
     if "--profile" in sys.argv[1:]:
-        phase_profile(model, x)
+        phase_profile("vit_base_patch16_224", vit, vit_x)
+        phase_profile("resnet50", resnet16, resnet_x)
+        phase_profile("resnet50_int8", resnet8, resnet_x)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: record[key] for key in keys}]})
+    emit({"kernels": [{key: r[key] for key in keys} for r in (flash, int8)]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

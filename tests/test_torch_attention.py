@@ -95,6 +95,37 @@ def test_fully_masked_row_is_finite():
     np.testing.assert_allclose(out[:, 1:], tpu[:, 1:], atol=2e-5)
 
 
+def test_fully_masked_row_is_a_documented_divergence(monkeypatch):
+    """A query row masked across all of S has no single reference value:
+    the JAX package's default sdpa path gives NaN (softmax over an all
+    -inf row), its opt-in Pallas path sum(v[:S]) / S_padded with S padded
+    to the 256-row block of _flash_sdpa.  The port gives the finite
+    mean(v[:S]) on its one path.  Every other row agrees."""
+    import tlxcv_tpu.ops.pallas.attention as PA
+
+    orig = PA.flash_attention
+    monkeypatch.setattr(PA, "flash_attention",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    rng = np.random.default_rng(1)
+    b, h, s, d = 1, 2, 40, 32
+    q, k, v = (rng.normal(size=(b, h, s, d)).astype(np.float32)
+               for _ in range(3))
+    mask = np.zeros((s, s), np.float32)
+    mask[0] = -np.inf
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    default = np.asarray(jax_sdpa(jq, jk, jv, mask=jm))
+    pallas = np.asarray(jax_sdpa(jq, jk, jv, mask=jm, use_flash=True))
+    port = scaled_dot_product_attention(_t(q), _t(k), _t(v),
+                                        mask=_t(mask)).numpy()
+    assert np.isnan(default[:, :, 0]).all()
+    np.testing.assert_allclose(pallas[:, :, 0], v.sum(2) / 256, atol=1e-6)
+    np.testing.assert_allclose(port[:, :, 0], v.mean(2), atol=1e-6)
+    assert np.isfinite(port).all()
+    for other in (default, pallas):
+        np.testing.assert_allclose(port[:, :, 1:], other[:, :, 1:],
+                                   atol=3e-5)
+
+
 def test_flash_takes_packed_qkv_views(rng):
     """[B, H, S, D] views into one packed [B, S, 3, H, D] projection (what
     MultiHeadAttention passes) give the [BH, S, D] results."""

@@ -5,12 +5,17 @@ imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import copy
+
 import pytest
 import torch
 
 from tlxcv_tpu_torch import create_model
 from tlxcv_tpu_torch.ops.cuda.attention import (flash_attention,
                                                 flash_attention_plain)
+from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul, int8_matmul_nt,
+                                             int8_matmul_plain)
+from tlxcv_tpu_torch.ops.quant import quantize_for_serving
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +117,96 @@ def test_vit_forward_launches_the_kernel_once_per_block(cuda):
         out = model(x)
     assert flash_attention.launches == before + 3
     assert out.shape == (2, 10) and torch.isfinite(out).all()
+
+
+# ------------------------------------------------------------ int8 GEMM
+@pytest.mark.parametrize("m,k,n", [
+    (1, 16, 1), (17, 32, 17), (33, 48, 33), (130, 144, 70), (257, 160, 64),
+    (1000, 2048, 1000), (300, 4096, 129), (4096, 576, 64),
+])
+def test_int8_kernel_matches_plain_exactly(cuda, m, k, n):
+    """Ragged M and N on both tile widths (N <= 64 and N > 64), K a
+    multiple of 16 with and without a partial 64-byte slice."""
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    before = int8_matmul.launches
+    got = int8_matmul_nt(a, w)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8_matmul_plain(a, w.t()))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 17), (33, 147, 65)])
+def test_int8_matmul_pads_k_exactly(cuda, m, k, n):
+    """The public [M, K] @ [K, N] contract at any K, and the extremes."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    assert torch.equal(int8_matmul(a, b), int8_matmul_plain(a, b))
+    full = torch.full((m, k), -127, dtype=torch.int8, device=cuda)
+    assert torch.equal(int8_matmul(full, full.t().contiguous()),
+                       torch.full((m, m), k * 127 ** 2, dtype=torch.int32,
+                                  device=cuda))
+
+
+def test_int8_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros(8, 24, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        int8_matmul_nt(a, a)
+    a = torch.zeros(8, 48, dtype=torch.int8, device=cuda)[:, :32]
+    with pytest.raises(ValueError):  # not contiguous
+        int8_matmul_nt(a, torch.zeros(4, 32, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError):  # two devices
+        int8_matmul_nt(torch.zeros(8, 32, dtype=torch.int8, device=cuda),
+                       torch.zeros(4, 32, dtype=torch.int8))
+
+
+def _int8_resnet18():
+    """resnet18 quantized for serving on the CPU in f32, as a user would,
+    and a copy moved to the card."""
+    gen = torch.Generator().manual_seed(0)
+    model = create_model("resnet18", num_classes=10, device="cpu",
+                         generator=gen).eval()
+    calib = torch.randn(2, 64, 64, 3, generator=gen)
+    assert quantize_for_serving(model, [calib]) == (20, 21, 21, 8)
+    return model, copy.deepcopy(model).cuda()
+
+
+def test_int8_resnet_launches_the_kernel_per_layer_and_matches_cpu(cuda):
+    """21 launches per forward (20 convs and the fc).  Up to the global
+    pool every op is an exact int32 product or an IEEE elementwise op, so
+    the card agrees with the CPU bitwise there; the pool's f32 mean is
+    summed in another order, which can move an fc input code by one.
+    Each such code moves a logit by at most a_scale * 127 * max w_scale;
+    the bound allows four."""
+    cpu, card = _int8_resnet18()
+    x = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    before = int8_matmul.launches
+    with torch.inference_mode():
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + 21
+        want = cpu(x)
+        torch.testing.assert_close(card.features(x.to(cuda))[-1].cpu(),
+                                   cpu.features(x)[-1], rtol=0, atol=0)
+        got16 = card(x.to(cuda, torch.bfloat16))
+    step = float(cpu.fc.a_scale * 127 * cpu.fc.w_scale.max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=4 * step)
+    assert got16.dtype == torch.bfloat16 and torch.isfinite(got16).all()
+
+
+def test_int8_maxpool_on_the_card_matches_cpu(cuda):
+    """int8 codes pool through shifted slices, padded with -128."""
+    from tlxcv_tpu_torch.nn import MaxPool2d
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-127, 128, (2, 9, 9, 16), generator=g,
+                      dtype=torch.int8)
+    pool = MaxPool2d(3, 2, 1)
+    assert torch.equal(pool(x.to(cuda)).cpu(), pool(x))

@@ -135,11 +135,16 @@ def test_dropout_deterministic_under_generator(cls):
 
 
 def test_int8_weight_not_ported():
+    """int8 Linear and Conv2d run (tests/test_torch_quant.py); a grouped
+    int8 conv (ResNeXt) on the full-int8 path does not."""
     layer = T.Linear(4, 4, device="cpu")
-    layer.weight = torch.nn.Parameter(torch.zeros(4, 4, dtype=torch.int8),
-                                      requires_grad=False)
+    layer.load_int8(torch.ones(4, 4, dtype=torch.int8), torch.ones(4))
+    assert layer(torch.ones(2, 4)).tolist() == [[4.0] * 4] * 2
+    conv = T.Conv2d(8, 8, 3, padding=1, groups=2, bias=False, device="cpu")
+    conv.load_int8(torch.ones(8, 4, 3, 3, dtype=torch.int8), torch.ones(8))
+    T.set_quant_attr(conv, "a_scale", 1.0)
     with pytest.raises(NotImplementedError):
-        layer(torch.randn(2, 4))
+        conv(torch.randn(1, 5, 5, 8))
 
 
 def test_bridge_raises_on_unmatched_key():

@@ -25,8 +25,8 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
     """q, k, v: [..., heads, seq, head_dim].  mask: additive (-inf for
     disallowed), broadcastable to [..., heads, q_len, k_len]."""
     if use_int8:
-        raise NotImplementedError("int8 attention belongs to the int8 "
-                                  "serving slice, which is not ported yet")
+        raise NotImplementedError("int8 attention (the reference's "
+                                  "_int8_sdpa) is not ported yet")
     lead = q.shape[:-2]
     s, d = q.shape[-2:]
     scale = d ** -0.5 if scale is None else scale

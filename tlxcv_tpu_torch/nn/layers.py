@@ -1,32 +1,49 @@
-"""Layers of the ViT slice, NHWC at every public call.
+"""Layers of the ported slices, NHWC at every public call.
 
 Counterpart of ``tlxcv_tpu/nn/layers.py``: the same dtype discipline
 (parameters f32, compute follows the input's dtype, normalisation
 statistics in f32) and the same attribute names, with torch's weight
 layouts: conv ``(O, I, kh, kw)``, dense ``(out, in)``.  Each layer takes
 an explicit ``device`` (``None``: the CUDA card) and a ``torch.Generator``
-for its initial weights.  The int8 serving and QAT branches belong to a
-later slice.
+for its initial weights.
+
+int8 serving (``ops.quant``): a quantized Conv2d or Linear holds its weight
+as int8 codes packed once as ``[out, Kp]``, K-contiguous in ``(kh, kw,
+Cin)`` order and zero-padded to ``Kp`` (a multiple of 16), with a per-out
+channel ``w_scale``.  With a calibrated ``a_scale`` the product runs
+through ``ops.cuda.matmul.int8_matmul_nt`` (the hand-written kernel on the
+card), a conv as im2col plus that product; without one, the weight is
+dequantized and the layer runs in float.  The QAT branches belong to the
+training slice.
 """
 from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core import init as I
 from ..device import resolve_device
+from ..ops.cuda.matmul import int8_matmul_nt, pad_k, padded_k
 
-__all__ = ["Conv2d", "Linear", "LayerNorm", "Dropout", "DropPath",
-           "Identity", "get_activation"]
+__all__ = ["Conv2d", "Linear", "BatchNorm", "BatchNorm2d", "LayerNorm",
+           "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
+           "Dropout", "DropPath", "Identity", "Sequential", "Activation",
+           "relu", "get_activation", "set_quant_attr"]
 
 
 def _gelu(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
 
+
+# ResNet calls ``nn.relu`` through the package at call time, so that the
+# quantization trace (ops.quant._trace) can patch it.  Not in place: the
+# trace tells tensors apart by id().
+relu = F.relu
 
 _ACTS: dict[str, tp.Callable] = {
     "relu": F.relu, "relu6": F.relu6, "gelu": _gelu, "silu": F.silu,
@@ -50,15 +67,40 @@ def get_activation(act) -> tp.Callable:
         raise ValueError(f"unknown activation {act!r}") from None
 
 
+class Activation(nn.Module):
+    def __init__(self, act):
+        super().__init__()
+        self.fn = get_activation(act)
+
+    def forward(self, x):
+        return self.fn(x)
+
+
 class Identity(nn.Module):
     def forward(self, x, *a, **k):
         return x
 
 
-def _int8_unported(layer):
-    raise NotImplementedError(
-        f"{type(layer).__name__}: int8 weights belong to the int8 serving "
-        "slice, which is not ported yet")
+class Sequential(nn.Module):
+    """Children in a ModuleList named ``layers``, as the JAX Sequential
+    keeps them, so that state paths read ``layer1.layers.0.conv1``."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
+            layers = tuple(layers[0])
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def __getitem__(self, i):
+        return self.layers[i]
+
+    def __len__(self):
+        return len(self.layers)
 
 
 def _pair(v):
@@ -90,14 +132,62 @@ def _explicit_pads(padding, in_hw, kernel, stride, dilation):
     return padding
 
 
+def _out_size(n, pads, k, s, d):
+    return (n + pads[0] + pads[1] - d * (k - 1) - 1) // s + 1
+
+
+# ------------------------------------------------------------------ int8
+_QUANT_BUFFERS = ("w_scale", "a_scale", "out_scale")
+
+
+def set_quant_attr(mod, name, value):
+    """Give a Conv2d or Linear one of the tensors that quantization adds:
+    a scale (a buffer) or the bias of a folded BatchNorm (a parameter).
+    ``None`` removes a bias."""
+    if name == "bias":
+        mod.bias = None if value is None else nn.Parameter(
+            torch.as_tensor(value, dtype=torch.float32,
+                            device=mod.weight.device))
+    elif name in _QUANT_BUFFERS:
+        mod.register_buffer(name, torch.as_tensor(
+            value, dtype=torch.float32, device=mod.weight.device).clone())
+    else:
+        raise ValueError(f"{name!r} is not a quantization tensor")
+
+
+def _quantize_input(x, s_in):
+    return torch.round(x.float() / s_in).clamp(-127, 127).to(torch.int8)
+
+
+def _requantize(mod, acc, s_in, out_dtype):
+    """The reference's epilogue, in its op order: scale the int32 sums, add
+    the bias; with ``out_scale``, ReLU if it was fused and requantize to
+    int8 (round half to even, as jnp.round)."""
+    y = acc.float() * (s_in * mod.w_scale)
+    if mod.bias is not None:
+        y = y + mod.bias
+    out_scale = getattr(mod, "out_scale", None)
+    if out_scale is not None:
+        if getattr(mod, "relu_fused", False):
+            y = torch.clamp_min(y, 0.0)
+        return torch.round(y / out_scale).clamp(-127, 127).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def _int8_weight(w_int8):
+    return nn.Parameter(w_int8, requires_grad=False)
+
+
 class Conv2d(nn.Module):
-    """2D convolution, NHWC in and out, weight stored OIHW."""
+    """2D convolution, NHWC in and out, weight stored OIHW (packed
+    ``[out, Kp]`` int8 once quantized)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, bias=True, w_init=None,
                  b_init=None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
+        self.in_channels = in_channels
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride)
         self.dilation = _pair(dilation)
@@ -115,34 +205,108 @@ class Conv2d(nn.Module):
         else:
             self.bias = None
 
-    def forward(self, x):
-        w = self.weight
-        if w.dtype == torch.int8:
-            _int8_unported(self)
+    def _pads(self, hw):
+        return _explicit_pads(self.padding, hw, self.kernel_size,
+                              self.stride, self.dilation)
+
+    def _conv(self, x, w):
         x = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC bytes
-        (h0, h1), (w0, w1) = _explicit_pads(
-            self.padding, x.shape[2:], self.kernel_size, self.stride,
-            self.dilation)
+        (h0, h1), (w0, w1) = self._pads(x.shape[2:])
         if h0 == h1 and w0 == w1:
             pad = (h0, w0)
         else:
             x = F.pad(x, (w0, w1, h0, h1))
             pad = 0
-        y = F.conv2d(x, w.to(x.dtype), None, self.stride, pad, self.dilation,
-                     self.groups).permute(0, 2, 3, 1)
+        return F.conv2d(x, w, None, self.stride, pad, self.dilation,
+                        self.groups).permute(0, 2, 3, 1)
+
+    def forward(self, x):
+        w = self.weight
+        if w.dtype == torch.int8:
+            return self._int8_call(x, w)
+        y = self._conv(x, w.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
 
+    # int8 serving -----------------------------------------------------
+    def load_int8(self, codes, w_scale):
+        """Take int8 codes in the float layout (OIHW) and their per-out
+        channel scale; the codes are packed once as [out, Kp]."""
+        cout = codes.shape[0]
+        codes = codes.to(self.weight.device)
+        packed = pad_k(codes.permute(0, 2, 3, 1).reshape(cout, -1))
+        self.weight = _int8_weight(packed.contiguous())
+        set_quant_attr(self, "w_scale", w_scale)
+
+    def _unpacked(self):
+        """The int8 codes back in OIHW."""
+        kh, kw = self.kernel_size
+        cin = self.in_channels // self.groups
+        w = self.weight[:, :kh * kw * cin]
+        return w.reshape(-1, kh, kw, cin).permute(0, 3, 1, 2)
+
+    def _patches(self, xq):
+        """im2col of an NHWC int8 input: [N*Ho*Wo, Kp] rows in (kh, kw, Cin)
+        order, zero columns up to Kp.  Built from shifted slices (torch's
+        unfold has no int8 kernel); a 1x1 stride-1 conv takes the input as
+        it is."""
+        n, h, w, c = xq.shape
+        (kh, kw), (sh, sw), (dh, dw) = (self.kernel_size, self.stride,
+                                        self.dilation)
+        (h0, h1), (w0, w1) = self._pads((h, w))
+        ho = _out_size(h, (h0, h1), kh, sh, dh)
+        wo = _out_size(w, (w0, w1), kw, sw, dw)
+        k = kh * kw * c
+        if (kh, kw, sh, sw, h0, h1, w0, w1) == (1, 1, 1, 1, 0, 0, 0, 0) \
+                and k == padded_k(k):
+            return xq.reshape(n * h * w, c), (n, ho, wo)
+        if h0 or h1 or w0 or w1:
+            xq = F.pad(xq, (0, 0, w0, w1, h0, h1))
+        cols = [xq[:, i * dh:i * dh + (ho - 1) * sh + 1:sh,
+                   j * dw:j * dw + (wo - 1) * sw + 1:sw, :]
+                for i in range(kh) for j in range(kw)]
+        if padded_k(k) > k:
+            cols.append(xq.new_zeros(n, ho, wo, padded_k(k) - k))
+        return torch.cat(cols, dim=-1).reshape(n * ho * wo, -1), (n, ho, wo)
+
+    def _int8_call(self, x, w):
+        """Quantized serving path (counterpart of the reference's
+        ``Conv2d._int8_call``).  With ``a_scale`` the conv runs int8 x int8
+        -> int32; with ``out_scale`` (ops.quant.fuse_requantize) it emits
+        the next layer's int8 codes, which that layer takes as they are.
+        int8 in gives bf16 out."""
+        int8_in = x.dtype == torch.int8
+        out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
+            else (torch.bfloat16 if int8_in else torch.float32)
+        a_scale = getattr(self, "a_scale", None)
+        if a_scale is not None:
+            if self.groups != 1:
+                raise NotImplementedError(
+                    "int8 Conv2d with groups > 1 (ResNeXt) is not ported")
+            xq = x if int8_in else _quantize_input(x, a_scale)
+            cols, (n, ho, wo) = self._patches(xq)
+            acc = int8_matmul_nt(cols, w)
+            y = _requantize(self, acc, a_scale, out_dtype)
+            return y.reshape(n, ho, wo, -1)
+        wf = (self._unpacked().float()
+              * self.w_scale[:, None, None, None]).to(out_dtype)
+        y = self._conv(x.to(out_dtype), wf)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y.to(out_dtype)
+
 
 class Linear(nn.Module):
-    """Dense layer, weight ``(out, in)``.  The bias is added after the
-    product, in the input's dtype, as the JAX layer does."""
+    """Dense layer, weight ``(out, in)`` (packed ``[out, Kp]`` int8 once
+    quantized).  The bias is added after the product, in the input's
+    dtype, as the JAX layer does."""
 
     def __init__(self, in_features, out_features, bias=True, w_init=None,
                  b_init=None, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
+        self.in_features = in_features
         shape = (out_features, in_features)
         w_init = w_init or (lambda s, **kw: I.kaiming_uniform(
             s, nonlinearity="linear", **kw))
@@ -158,11 +322,97 @@ class Linear(nn.Module):
     def forward(self, x):
         w = self.weight
         if w.dtype == torch.int8:
-            _int8_unported(self)
+            return self._int8_call(x, w)
         y = F.linear(x, w.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+    def load_int8(self, codes, w_scale):
+        """Take int8 codes in the float layout (out, in) and their per-out
+        channel scale; the codes are padded once to [out, Kp]."""
+        codes = codes.to(self.weight.device)
+        self.weight = _int8_weight(pad_k(codes).contiguous())
+        set_quant_attr(self, "w_scale", w_scale)
+
+    def _int8_call(self, x, w):
+        """Quantized serving path (counterpart of the reference's
+        ``Linear._int8_call``); the output keeps a float input's dtype."""
+        out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
+            else torch.float32
+        a_scale = getattr(self, "a_scale", None)
+        if a_scale is not None:
+            xq = _quantize_input(x, a_scale).reshape(-1, self.in_features)
+            acc = int8_matmul_nt(pad_k(xq), w)
+            y = _requantize(self, acc, a_scale, out_dtype)
+            return y.reshape(*x.shape[:-1], -1)
+        wf = (w[:, :self.in_features].float()
+              * self.w_scale[:, None]).to(out_dtype)
+        y = F.linear(x.to(out_dtype), wf)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y.to(out_dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over every axis but the last (channel) one.
+
+    ``momentum`` is the fraction of the running statistics KEPT per
+    training step (the JAX package's convention, 0.9; torch's own momentum
+    is the updated fraction), and ``running_var`` takes the unbiased batch
+    variance.  The running statistics are buffers, updated in place.  In
+    eval the scale and offset are computed in f32 and applied in the
+    input's dtype.  A BatchNorm folded into its conv (``ops.quant.
+    fold_batchnorm``) returns the very tensor object it was given."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.9, affine=True,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.eps = eps
+        self.momentum = momentum
+        if affine:
+            self.weight = nn.Parameter(I.ones((num_features,), device=device))
+            self.bias = nn.Parameter(I.zeros((num_features,), device=device))
+        else:
+            self.weight = self.bias = None
+        self.register_buffer("running_mean",
+                             I.zeros((num_features,), device=device))
+        self.register_buffer("running_var",
+                             I.ones((num_features,), device=device))
+
+    def forward(self, x):
+        if getattr(self, "_folded", False):
+            if self.training:
+                raise RuntimeError(
+                    "BatchNorm was folded for serving; it cannot be "
+                    "trained (rebuild the model for training)")
+            return x
+        axes = tuple(range(x.ndim - 1))
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = xf.var(axes, correction=0)
+            n = x.numel() // x.shape[-1]
+            var_u = var * (n / max(n - 1, 1))
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var_u)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight
+        offset = -mean * scale
+        if self.bias is not None:
+            offset = offset + self.bias
+        return x * scale.to(x.dtype) + offset.to(x.dtype)
+
+
+BatchNorm2d = BatchNorm  # NHWC: one reduction for 1d/2d/3d inputs
 
 
 class LayerNorm(nn.Module):
@@ -190,6 +440,115 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, x.shape[-1:], w, b, self.eps)
 
 
+# --------------------------------------------------------------- pooling
+def _pool_geometry(x, window, stride, padding):
+    window = _pair(window)
+    stride = window if stride is None else _pair(stride)
+    if isinstance(padding, str):
+        pads = _explicit_pads(padding.upper(), x.shape[1:3], window, stride,
+                              (1, 1))
+    else:
+        pads = tuple((p, p) for p in _pair(padding))
+    return window, stride, pads
+
+
+def _max_pool(x, window, stride, padding):
+    """Window max; padding never wins (-inf, or the integer type's least
+    value for int8 codes)."""
+    (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = _pool_geometry(
+        x, window, stride, padding)
+    if x.is_floating_point():
+        xc = x.permute(0, 3, 1, 2)
+        if h0 == h1 and w0 == w1 and h0 <= kh // 2 and w0 <= kw // 2:
+            pad = (h0, w0)
+        else:
+            xc = F.pad(xc, (w0, w1, h0, h1), value=float("-inf"))
+            pad = 0
+        return F.max_pool2d(xc, (kh, kw), (sh, sw), pad).permute(0, 2, 3, 1)
+    # integer codes: shifted slices (no int8 pooling kernel is assumed)
+    n, h, w, c = x.shape
+    ho = _out_size(h, (h0, h1), kh, sh, 1)
+    wo = _out_size(w, (w0, w1), kw, sw, 1)
+    xp = F.pad(x, (0, 0, w0, w1, h0, h1), value=torch.iinfo(x.dtype).min)
+    out = None
+    for i in range(kh):
+        for j in range(kw):
+            s = xp[:, i:i + (ho - 1) * sh + 1:sh, j:j + (wo - 1) * sw + 1:sw]
+            out = s if out is None else torch.maximum(out, s)
+    return out.contiguous()
+
+
+def _avg_pool(x, window, stride, padding):
+    """Window mean in f32 that leaves padding out of the count (torch's
+    count_include_pad=False), back in the input's dtype."""
+    (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = _pool_geometry(
+        x, window, stride, padding)
+    xf = F.pad(x.float().permute(0, 3, 1, 2), (w0, w1, h0, h1))
+    ones = F.pad(x.new_ones((1, 1, *x.shape[1:3]), dtype=torch.float32),
+                 (w0, w1, h0, h1))
+    summed = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)
+    counts = F.avg_pool2d(ones, (kh, kw), (sh, sw), divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1).to(x.dtype)
+
+
+class MaxPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x):
+        return _max_pool(x, self.k, self.s, self.p)
+
+
+class AvgPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x):
+        return _avg_pool(x, self.k, self.s, self.p)
+
+
+def _avg_matrix(inp, out):
+    """Output bin i averages input rows [floor(i*inp/out),
+    ceil((i+1)*inp/out)), as torch's adaptive_avg_pool2d."""
+    m = np.zeros((out, inp), np.float32)
+    for i in range(out):
+        a = (i * inp) // out
+        b = -(-((i + 1) * inp) // out)
+        m[i, a:b] = 1.0 / (b - a)
+    return torch.from_numpy(m)
+
+
+class AdaptiveAvgPool2d(nn.Module):
+    """Adaptive average pool to a fixed (h, w) output (NHWC)."""
+
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = _pair(output_size)
+
+    def forward(self, x):
+        oh, ow = self.output_size
+        n, h, w, c = x.shape
+        if h % oh == 0 and w % ow == 0:
+            return x.reshape(n, oh, h // oh, ow, w // ow, c).mean((2, 4))
+        ah = _avg_matrix(h, oh).to(x.device)
+        aw = _avg_matrix(w, ow).to(x.device)
+        out = torch.einsum("ih,nhwc->niwc", ah, x.float())
+        out = torch.einsum("jw,niwc->nijc", aw, out)
+        return out.to(x.dtype)
+
+
+class GlobalAvgPool2d(nn.Module):
+    def __init__(self, keepdims=False):
+        super().__init__()
+        self.keepdims = keepdims
+
+    def forward(self, x):
+        return x.mean((1, 2), keepdim=self.keepdims)
+
+
+# -------------------------------------------------------- regularisation
 def _keep_mask(shape, keep, generator, device):
     """Bernoulli(keep) mask drawn from ``generator`` (torch's default one
     on ``device`` when None)."""
