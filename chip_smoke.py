@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
     python3 chip_smoke.py --profile   # adds per-kernel device-time profiles
+                                      # and Mask R-CNN's idle share
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -27,6 +28,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    b256 bf16 ``predict`` on cuDNN and full int8 through the kernel, are
    served and timed, and the int8 GEMM is timed at every shape of the
    int8 forward.
+5. Mask R-CNN (``create_model("mask_rcnn")``: ResNet-50 + FPN, 80
+   classes, random weights and BatchNorm statistics from a seed): the row
+   gather and the upsample-add kernels against their plain versions first
+   (phase 2); then f32 and bf16 at b2 640^2 against f32 on the CPU, stage
+   by stage (FPN levels, RPN logits and deltas, box-head and mask logits
+   on the CPU's proposals and detections, the share of the CPU's
+   detections reproduced, a count > 0 per image); then the bench leg, b16
+   640^2 bf16 ``predict``, served and timed with exactly 2 gather and 3
+   upsample-add launches per forward, and both kernels timed on the inputs
+   one served forward hands them.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -239,8 +250,7 @@ def phase_model(record):
 
     # the ViT path: b64 bf16 predict, served on the card
     x = torch.randn(64, 224, 224, 3, generator=gen).to("cuda", torch.bfloat16)
-    counts = serve(model, x, {"flash_attention": 12, "int8_matmul": 0}, name,
-                   "bfloat16")
+    counts, _ = serve(model, x, {"flash_attention": 12}, name, "bfloat16")
     record["launches"] = counts["flash_attention"]
     return model, x
 
@@ -344,26 +354,37 @@ def phase_int8_kernels():
             "max_abs_err": worst}
 
 
-def reset_launches():
+def _counted():
+    """Every kernel wrapper that counts its launches, by kernel name."""
     from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
     from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample_add_fused
 
-    flash_attention.launches = 0
-    int8_matmul.launches = 0
+    return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
+            "gather_rows": gather_rows,
+            "upsample_add_fused": upsample_add_fused}
+
+
+def reset_launches():
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def launches():
-    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
-    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
-
-    return {"flash_attention": flash_attention.launches,
-            "int8_matmul": int8_matmul.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
-def serve(model, x, expect, name, dtype, warmup=3, rounds=10):
+def check_labels(pred, batch):
+    if pred.shape != (batch,) or not bool(((pred >= 0) & (pred < 1000)).all()):
+        raise AssertionError(f"bad predictions {pred.shape}")
+
+
+def serve(model, x, expect, name, dtype, warmup=3, rounds=10,
+          check=check_labels):
     """Time ``predict`` (host clock around each call and a synchronise),
     with the launch counts set to 0 just before and checked just after
-    against ``expect`` launches per forward."""
+    against ``expect`` launches per forward (kernels not named: 0)."""
     torch.cuda.reset_peak_memory_stats()
     times = []
     reset_launches()
@@ -376,20 +397,19 @@ def serve(model, x, expect, name, dtype, warmup=3, rounds=10):
             if i >= warmup:
                 times.append(time.perf_counter() - t0)
     counts = launches()
-    want = {k: v * (warmup + rounds) for k, v in expect.items()}
+    want = {k: expect.get(k, 0) * (warmup + rounds) for k in counts}
     if counts != want:
         raise AssertionError(f"{name} {dtype}: kernel launches {counts}, "
                              f"expected {want}")
     batch = x.shape[0]
-    if pred.shape != (batch,) or not bool(((pred >= 0) & (pred < 1000)).all()):
-        raise AssertionError(f"bad predictions {pred.shape}")
+    check(pred, batch)
     step = statistics.median(times)
     emit({"phase": "serve", "model": name, "batch": batch, "dtype": dtype,
           "rounds": rounds, "step_ms_median": 1e3 * step,
           "step_ms_all": [1e3 * t for t in times],
           "img_per_s": batch / step, "launches": counts,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    return counts
+    return counts, step
 
 
 def params_to(model, dtype):
@@ -482,10 +502,9 @@ def phase_resnet(int8_record):
     batch = 256
     x = torch.randn(batch, 224, 224, 3, generator=gen).to(
         "cuda", torch.bfloat16)
-    serve(card, x, {"flash_attention": 0, "int8_matmul": 0}, name,
-          "bfloat16")
-    counts = serve(card8, x, {"flash_attention": 0, "int8_matmul": 54},
-                   name + "_int8", "int8 (bf16 input)")
+    serve(card, x, {}, name, "bfloat16")
+    counts, _ = serve(card8, x, {"int8_matmul": 54}, name + "_int8",
+                      "int8 (bf16 input)")
     int8_record["launches"] = counts["int8_matmul"]
     int8_record.update(int8_forward_times(card8, x))
     return card, card8, x
@@ -538,9 +557,362 @@ def int8_forward_times(model, x):
     return {**total, "bound_by": max(by, key=by.get)}
 
 
-def phase_profile(name, model, x, forwards=3):
+# ------------------------------------------------------ row gather, upsample
+# The main path's shapes at b16 640^2 bf16: the packed pyramid table has
+# 16 * 34,000 rows of 4 * 256 channels; the box branch gathers 16 * 256 *
+# 7^2 rows, the mask branch 16 * 100 * 14^2.
+GATHER_TABLE = (16 * 34_000, 1024)
+GATHER_ROWS = {"box_b16": 16 * 256 * 49, "mask_b16": 16 * 100 * 196}
+FPN_STEPS = [((16, 20, 20, 256), (40, 40)), ((16, 40, 40, 256), (80, 80)),
+             ((16, 80, 80, 256), (160, 160))]
+
+
+def gather_bound_ms(table, idx):
+    """Least time of one gather on this data: each distinct row the indices
+    name read once, each output row written once, the indices read once,
+    over the memory rate.  Also the data-blind 2 * R * row_bytes form
+    (every index its own row)."""
+    row = table.shape[1] * table.element_size()
+    r = idx.numel()
+    distinct = int(torch.unique(idx).numel())
+    by_data = (distinct * row + r * row + 4 * r) / HBM_BYTES_PER_S
+    return 1e3 * by_data, 1e3 * 2 * r * row / HBM_BYTES_PER_S, distinct
+
+
+def upsample_bound_ms(x, skip):
+    """x and skip read once, the output written once, over the memory rate
+    (a few flops per element, far below the compute rate)."""
+    return 1e3 * (x.numel() + 2 * skip.numel()) * x.element_size() \
+        / HBM_BYTES_PER_S
+
+
+def phase_gather_kernels():
+    """gather_rows against gather_rows_plain on the card, bitwise, at the
+    main path's shapes and at the edges of its contract."""
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    big = torch.randn(*GATHER_TABLE, generator=g, device="cuda").to(
+        torch.bfloat16)
+    for name, r in GATHER_ROWS.items():
+        cases.append((name, big, torch.randint(
+            0, big.shape[0], (r,), generator=g, device="cuda",
+            dtype=torch.int32)))
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for n, c, r in ((500, 256, 777), (1000, 1024, 4097), (37, 3, 5),
+                        (64, 13, 100), (9, 5, 1)):
+            if dtype.is_floating_point:
+                t = torch.randn(n, c, generator=g, device="cuda").to(dtype)
+            else:
+                t = torch.randint(0, 100, (n, c), generator=g, device="cuda",
+                                  dtype=torch.int32).to(dtype)
+            idx = torch.randint(0, n, (r,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            idx[:4] = torch.tensor([0, n - 1, 0, n - 1][:r])  # repeated, ends
+            cases.append((f"{str(dtype)[6:]}_{n}x{c}_r{r}", t, idx))
+    results = []
+    for name, table, idx in cases:
+        got = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        same = torch.equal(got, gather_rows_plain(table, idx))
+        results.append({"case": name, "table": list(table.shape),
+                        "rows": idx.numel(), "bitwise": same})
+        if not same:
+            emit({"phase": "gather_kernels", "failed": results[-1]})
+            raise AssertionError(f"gather_rows {name} differs from plain")
+    emit({"phase": "gather_kernels", "cases": results, "tolerance": 0,
+          "why": "a byte copy"})
+    return {"name": "gather_rows", "route": "cuda",
+            "source": "tlxcv_tpu_torch/csrc/gather_rows.cu",
+            "replaces": "tlxcv_tpu/ops/pallas/gather.py:36",
+            "max_abs_err": 0.0}
+
+
+def upsample_tolerance(mode, dtype, want):
+    """Nearest: bitwise.  Bilinear: the plain version's f32 operations in
+    its order without FMA, so bitwise is expected; bound 1e-5 in f32 (the
+    reference test's) and one bf16 step of the largest output in bf16."""
+    if mode == "nearest":
+        return 0.0
+    if dtype == torch.float32:
+        return 1e-5
+    return 2.0 ** -8 * want.float().abs().max().item()
+
+
+def phase_upsample_kernels():
+    """upsample_add_fused against upsample_add_plain on the card, at the
+    FPN's b16 shapes and at the edges of its contract."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shapes = FPN_STEPS + [((2, 38, 38, 8), (75, 75)),
+                          ((2, 38, 38, 256), (75, 75)),
+                          ((1, 7, 9, 8), (7, 18)), ((1, 5, 6, 3), (11, 13))]
+    results = []
+    for xshape, out_hw in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(*xshape, generator=g, device="cuda").to(dtype)
+            skip = torch.randn(xshape[0], *out_hw, xshape[3], generator=g,
+                               device="cuda").to(dtype)
+            for mode in ("nearest", "bilinear"):
+                got = upsample_add_fused(x, skip, mode)
+                torch.cuda.synchronize()
+                want = upsample_add_plain(x, skip, mode)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = upsample_tolerance(mode, dtype, want)
+                results.append({"x": list(xshape), "out_hw": list(out_hw),
+                                "dtype": str(dtype)[6:], "mode": mode,
+                                "max_abs_err": err, "atol": tol})
+                if got.dtype != dtype or not err <= tol:
+                    emit({"phase": "upsample_kernels", "failed": results[-1]})
+                    raise AssertionError(f"upsample_add_fused {results[-1]}")
+    emit({"phase": "upsample_kernels", "cases": results})
+    return {"name": "upsample_add_fused", "route": "cuda",
+            "source": "tlxcv_tpu_torch/csrc/upsample_add.cu",
+            "replaces": "tlxcv_tpu/ops/pallas/upsample.py:117",
+            # the main path's calls: nearest, bf16, the FPN's shapes
+            "max_abs_err": max(r["max_abs_err"] for r in results
+                               if r["mode"] == "nearest"
+                               and r["dtype"] == "bfloat16"
+                               and [r["x"], r["out_hw"]] in
+                               [[list(a), list(b)] for a, b in FPN_STEPS])}
+
+
+# ------------------------------------------------------------- Mask R-CNN
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    scale = want.abs().max().item()
+    return (got.float().cpu() - want).abs().max().item() / max(scale, 1e-30)
+
+
+def _box_iou(a, b):
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = (rb - lt).clamp_min(0).prod(-1)
+    area = lambda t: (t[:, 2:] - t[:, :2]).clamp_min(0).prod(-1)  # noqa
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter + 1e-9)
+
+
+def matched_share(want, got, labels=True):
+    """Share of the reference's valid detections (rows [label, score, x1,
+    y1, x2, y2], label -1 for none) that a detection of the card matches:
+    the same label (unless ``labels`` is False) and IoU >= 0.9, or every
+    coordinate within 0.5 px (random weights give some zero-area boxes,
+    whose IoU is 0 even with themselves)."""
+    hits = total = 0
+    for w, g in zip(want, got):
+        w, g = w[w[:, 0] >= 0], g[g[:, 0] >= 0].float().cpu()
+        if len(w) == 0:
+            continue
+        close = (_box_iou(w[:, 2:], g[:, 2:]) >= 0.9) | (
+            (w[:, None, 2:] - g[None, :, 2:]).abs().amax(-1) <= 0.5)
+        if labels:
+            close &= w[:, None, 0] == g[None, :, 0]
+        hits += int(close.any(1).sum())
+        total += len(w)
+    return hits / max(total, 1)
+
+
+def as_dets(boxes, valid):
+    """Boxes [N, R, 4] with a validity mask as detection rows (label 0)."""
+    return torch.cat([torch.where(valid, 0.0, -1.0)[..., None].float(),
+                      torch.zeros_like(valid, dtype=torch.float32)[..., None],
+                      boxes.float()], -1)
+
+
+# bounds, relative to the largest reference value of each stage: f32 on the
+# card (TF32 off) differs from the CPU by summation order only; bf16 rounds
+# weights and activations to 8 bits through ~60 convolutions
+MRCNN_BOUND = {"float32": 1e-3, "bfloat16": 5e-2}
+# share of the CPU's detections the card must reproduce (same label and
+# box).  f32 moves a logit by ~1e-5 of its scale, which reorders only
+# near-ties.  bf16 moves the RPN logits by ~3% of their scale; with random
+# weights (the RPN's convs drawn at std 0.01) the objectness logits of the
+# 102,300 anchors lie close together, so the pre-NMS top 512 and the
+# proposals after NMS change: 58% of the CPU's proposals and 49% of its
+# detections were reproduced at seed 0, labels agreeing wherever boxes do
+# (0.5 was predicted and first set as the floor).  A wrong kernel or
+# layout reproduces almost none, so 0.25 still tells a working path from
+# a broken one; the label-free share and the proposals' share are
+# reported beside it, and the heads are held stage by stage above.
+MRCNN_SHARE_FLOOR = {"float32": 0.9, "bfloat16": 0.25}
+
+
+def mrcnn_stages(model, x, props=None, det_boxes=None):
+    """The staged outputs of one forward: FPN levels, RPN logits and deltas,
+    proposals, detections, counts and masks; box-head logits on ``props``
+    and mask logits on ``det_boxes`` (the model's own when not given)."""
+    with torch.inference_mode():
+        feats, logits, deltas, _, p, pmask = model.forward_features(x)
+        cls, bdel = model.box_logits(feats, p)
+        dets, counts, masks = model._postprocess(feats, p, pmask, cls, bdel,
+                                                 x.shape[1:3])
+        if props is not None:
+            cls, bdel = model.box_logits(feats, props)
+        mlog = model.mask_logits(feats, dets[..., 2:6] if det_boxes is None
+                                 else det_boxes)
+    return {"feats": feats, "rpn_logits": logits, "rpn_deltas": deltas,
+            "props": p, "pmask": pmask, "cls_logits": cls, "box_deltas": bdel,
+            "dets": dets, "counts": counts, "masks": masks,
+            "mask_logits": mlog}
+
+
+def phase_mask_rcnn(gather_record, upsample_record):
+    """Mask R-CNN (``create_model("mask_rcnn")``, ResNet-50 + FPN, 80
+    classes, random weights and BatchNorm statistics from a seed): staged
+    f32 and bf16 checks at b2 640^2 against f32 on the CPU, then the
+    bench leg, b16 640^2 bf16 ``predict``, served and timed."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.nn import BatchNorm
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+
+    name = "mask_rcnn"
+    gen = torch.Generator().manual_seed(0)
+    # box_score_thresh=0: with random weights a class probability sits near
+    # 1/81, under the leg's 0.05, and no detection would be left to compare
+    card = create_model(name, generator=gen, box_score_thresh=0.0).eval()
+    for mod in card.modules():
+        if isinstance(mod, BatchNorm):
+            c = mod.running_mean.shape[0]
+            mod.running_mean.copy_(0.2 * torch.randn(c, generator=gen))
+            mod.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+    cpu = create_model(name, device="cpu", box_score_thresh=0.0).eval()
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    x2 = torch.randn(2, 640, 640, 3, generator=gen)
+    t0 = time.perf_counter()
+    want = mrcnn_stages(cpu, x2)
+    cpu_s = time.perf_counter() - t0
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            params_to(card, dtype)
+        dname = str(dtype)[6:]
+        got = mrcnn_stages(card, x2.to("cuda", dtype),
+                           props=want["props"].cuda(),
+                           det_boxes=want["dets"][..., 2:6].cuda())
+        errs = {f"P{i + 2}": _rel(g, w)
+                for i, (g, w) in enumerate(zip(got["feats"], want["feats"]))}
+        errs.update({k: _rel(got[k], want[k]) for k in
+                     ("rpn_logits", "rpn_deltas", "cls_logits", "box_deltas",
+                      "mask_logits")})
+        counts = got["counts"].cpu().tolist()
+        share = matched_share(want["dets"], got["dets"])
+        box_share = matched_share(want["dets"], got["dets"], labels=False)
+        prop_share = matched_share(as_dets(want["props"], want["pmask"]),
+                                   as_dets(got["props"], got["pmask"]))
+        finite = all(bool(torch.isfinite(got[k]).all())
+                     for k in ("dets", "masks", "cls_logits"))
+        check = {"phase": "model_check", "model": name, "batch": 2,
+                 "dtype": dname, "rel_max_abs_err": errs,
+                 "bound": MRCNN_BOUND[dname], "counts": counts,
+                 "cpu_counts": want["counts"].tolist(),
+                 "matched_share": share,
+                 "share_floor": MRCNN_SHARE_FLOOR[dname],
+                 "box_share_any_label": box_share,
+                 "proposal_share": prop_share,
+                 "pmask_equal_share": (got["pmask"].cpu() == want["pmask"])
+                 .float().mean().item(), "finite": finite,
+                 "cpu_reference_s": cpu_s,
+                 "heads_on": "the CPU's proposals and detections"}
+        emit(check)
+        if not finite or min(counts) <= 0:
+            raise AssertionError(f"Mask R-CNN {dname}: {check}")
+        if max(errs.values()) > MRCNN_BOUND[dname]:
+            raise AssertionError(f"Mask R-CNN {dname} stages disagree with "
+                                 f"the CPU: {errs}")
+        if share < MRCNN_SHARE_FLOOR[dname]:
+            raise AssertionError(f"Mask R-CNN {dname}: {share} of the CPU's "
+                                 f"detections matched")
+    del cpu, want, got
+
+    # the bench leg: b16 640^2 bf16, the leg's own score threshold
+    card.box_score_thresh = 0.05
+    task = ObjectDetection(card)
+    x = torch.randn(16, 640, 640, 3, generator=gen).to("cuda", torch.bfloat16)
+
+    def check_dets(out, batch):
+        dets, counts, masks = out
+        if dets.shape != (batch, 100, 6) or masks.shape != (batch, 100, 28,
+                                                            28):
+            raise AssertionError(f"bad Mask R-CNN outputs {dets.shape} "
+                                 f"{masks.shape}")
+        if not (torch.isfinite(dets).all() and torch.isfinite(masks).all()):
+            raise AssertionError("non-finite Mask R-CNN outputs")
+
+    counts, step = serve(task, x, {"gather_rows": 2, "upsample_add_fused": 3},
+                         name, "bfloat16", check=check_dets)
+    gather_record["launches"] = counts["gather_rows"]
+    upsample_record["launches"] = counts["upsample_add_fused"]
+    mrcnn_kernel_times(task, x, gather_record, upsample_record)
+    return task, x, step
+
+
+def mrcnn_kernel_times(task, x, gather_record, upsample_record):
+    """Both kernels timed alone on the inputs one served forward hands
+    them (captured by wrapping the wrappers, outside any counted run),
+    with their plain versions, the library calls and the bounds; summed
+    over the forward."""
+    import tlxcv_tpu_torch.ops.image as image
+    import tlxcv_tpu_torch.ops.roi_align as roi_align
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
+    seen = {"gather": [], "upsample": []}
+    roi_align.gather_rows = lambda t, i: (
+        seen["gather"].append((t, i)) or gather_rows(t, i))
+    image.upsample_add_fused = lambda a, b, mode: (
+        seen["upsample"].append((a, b, mode)) or upsample_add_fused(a, b,
+                                                                     mode))
+    try:
+        with torch.inference_mode():
+            task.predict(x)
+    finally:
+        roi_align.gather_rows = gather_rows
+        image.upsample_add_fused = upsample_add_fused
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    rows = []
+    for (table, idx), branch in zip(seen["gather"], ("box", "mask")):
+        bound, bound_2r, distinct = gather_bound_ms(table, idx)
+        rows.append({"branch": branch, "table": list(table.shape),
+                     "rows": idx.numel(), "distinct_rows": distinct,
+                     "ms": time_ms(lambda: gather_rows(table, idx)),
+                     "plain_ms": time_ms(lambda: gather_rows_plain(table,
+                                                                   idx)),
+                     "library_ms": time_ms(
+                         lambda: torch.index_select(table, 0, idx)),
+                     "bound_ms": bound, "bound_ms_2_r_row_bytes": bound_2r})
+    gather_record.update({k: sum(r[k] for r in rows) for k in keys},
+                         bound_by="bytes")
+    emit({"phase": "kernel_times", "gather_rows_per_forward": rows})
+    del seen["gather"]
+    rows = []
+    for a, b, mode in seen["upsample"]:
+        size = tuple(b.shape[1:3])
+
+        def library(a=a, b=b, mode=mode, size=size):
+            up = torch.nn.functional.interpolate(a.permute(0, 3, 1, 2),
+                                                 size=size, mode=mode)
+            return up.permute(0, 2, 3, 1) + b
+
+        rows.append({"x": list(a.shape), "skip": list(b.shape), "mode": mode,
+                     "dtype": str(a.dtype)[6:],
+                     "ms": time_ms(lambda: upsample_add_fused(a, b, mode)),
+                     "plain_ms": time_ms(lambda: upsample_add_plain(a, b,
+                                                                    mode)),
+                     "library_ms": time_ms(library),
+                     "bound_ms": upsample_bound_ms(a, b)})
+    upsample_record.update({k: sum(r[k] for r in rows) for k in keys},
+                           bound_by="bytes")
+    emit({"phase": "kernel_times", "upsample_add_fused_per_forward": rows})
+    torch.cuda.empty_cache()
+
+
+def phase_profile(name, model, x, forwards=3, step_s=None):
     """Device time per kernel over a few forwards (torch.profiler), for
-    the breakdown of the step."""
+    the breakdown of the step; with the served step's wall time, the share
+    of it the card spends idle."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -555,9 +927,12 @@ def phase_profile(name, model, x, forwards=3):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels)  # microseconds
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:30]
+    device_ms = total / forwards / 1e3
+    idle = None if step_s is None else 1 - device_ms / (1e3 * step_s)
     emit({"phase": "profile", "model": name, "batch": x.shape[0],
-          "forwards": forwards,
-          "device_ms_per_forward": total / forwards / 1e3,
+          "forwards": forwards, "device_ms_per_forward": device_ms,
+          "serve_step_ms": None if step_s is None else 1e3 * step_s,
+          "idle_share": idle,
           "top": [[e.key[:120], e.count // forwards,
                    e.self_device_time_total / forwards / 1e3,
                    e.self_device_time_total / total if total else None]
@@ -573,15 +948,20 @@ def main():
     phase_environment()
     flash = phase_kernels()
     int8 = phase_int8_kernels()
+    gather = phase_gather_kernels()
+    upsample = phase_upsample_kernels()
     vit, vit_x = phase_model(flash)
     resnet16, resnet8, resnet_x = phase_resnet(int8)
+    mrcnn, mrcnn_x, mrcnn_step = phase_mask_rcnn(gather, upsample)
     if "--profile" in sys.argv[1:]:
         phase_profile("vit_base_patch16_224", vit, vit_x)
         phase_profile("resnet50", resnet16, resnet_x)
         phase_profile("resnet50_int8", resnet8, resnet_x)
+        phase_profile("mask_rcnn", mrcnn, mrcnn_x, step_s=mrcnn_step)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: r[key] for key in keys} for r in (flash, int8)]})
+    emit({"kernels": [{key: r[key] for key in keys}
+                      for r in (flash, int8, gather, upsample)]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -210,3 +210,170 @@ def test_int8_maxpool_on_the_card_matches_cpu(cuda):
                       dtype=torch.int8)
     pool = MaxPool2d(3, 2, 1)
     assert torch.equal(pool(x.to(cuda)).cpu(), pool(x))
+
+
+# ------------------------------------------------------------ row gather
+def _table(n, c, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn(n, c, generator=g, device=device).to(dtype)
+    return torch.randint(0, 120, (n, c), generator=g, device=device,
+                         dtype=torch.int32).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("n,c,r", [
+    (500, 256, 777),       # a ragged R
+    (2000, 1024, 4097),    # the packed RoIAlign row width
+    (37, 3, 5),            # rows of 3 elements: not 16-byte multiples
+    (64, 13, 100),
+])
+def test_gather_kernel_matches_plain_bitwise(cuda, dtype, n, c, r):
+    """Repeated indices and rows 0 and N-1 included; every dtype and row
+    width, so every copy width (16 down to 1 byte) runs."""
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+    table = _table(n, c, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(r)
+    idx = torch.randint(0, n, (r,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[:4] = torch.tensor([0, n - 1, 0, n - 1], device=cuda)
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+def test_gather_kernel_misaligned_rows_and_64_bit_offsets(cuda):
+    """A table view one row in (its base no longer 16-byte aligned), and a
+    2.3 GB table whose last rows lie past byte offset 2^31."""
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+    base = _table(101, 6, torch.bfloat16, cuda)
+    idx = torch.tensor([0, 99, 5, 5, 50], device=cuda, dtype=torch.int32)
+    assert torch.equal(gather_rows(base[1:], idx),
+                       gather_rows_plain(base[1:], idx))
+    n, c = 140_000, 16_384
+    big = torch.zeros(n, c, dtype=torch.uint8, device=cuda)
+    big[-3:] = torch.arange(3, device=cuda, dtype=torch.uint8)[:, None] + 7
+    idx = torch.tensor([n - 1, 0, n - 2, n - 3], device=cuda,
+                       dtype=torch.int32)
+    got = gather_rows(big, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(big, idx))
+    assert int(got[0, 0]) == 9 and int(got[3, -1]) == 7
+
+
+def test_gather_kernel_rejects_what_it_does_not_take(cuda):
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
+
+    table = torch.zeros(10, 8, device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        gather_rows(table[:, ::2], idx)
+    with pytest.raises(ValueError):  # two devices
+        gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError):  # int64 indices
+        gather_rows(table, idx.long())
+
+
+# ------------------------------------------------------- upsample + add
+# Nearest copies and adds once: bitwise.  Bilinear runs the plain version's
+# f32 operations in its order with IEEE multiply and add (no FMA): bitwise
+# expected; the stated bounds are 1e-5 (f32, the reference test's) and one
+# bf16 step of the largest output (bf16).
+def _up_inputs(xshape, out_hw, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(*xshape, generator=g, device=device).to(dtype)
+    skip = torch.randn(xshape[0], *out_hw, xshape[3], generator=g,
+                       device=device).to(dtype)
+    return x, skip
+
+
+def _check_upsample(got, want, mode):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if mode == "nearest":
+        assert torch.equal(got, want)
+        return
+    atol = 1e-5 if got.dtype == torch.float32 else \
+        2.0 ** -8 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("xshape,out_hw", [
+    ((2, 20, 20, 256), (40, 40)),    # the FPN's P5 -> P4 step
+    ((2, 80, 80, 256), (160, 160)),  # P3 -> P2
+    ((1, 38, 38, 8), (75, 75)),      # non-2x, C = 8
+    ((2, 7, 9, 16), (7, 18)),        # one axis unchanged
+    ((1, 5, 6, 3), (11, 13)),        # C = 3: one channel per thread
+])
+def test_upsample_kernel_matches_plain(cuda, dtype, mode, xshape, out_hw):
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
+    x, skip = _up_inputs(xshape, out_hw, dtype, cuda)
+    before = upsample_add_fused.launches
+    got = upsample_add_fused(x, skip, mode)
+    torch.cuda.synchronize()
+    assert upsample_add_fused.launches == before + 1
+    _check_upsample(got, upsample_add_plain(x, skip, mode), mode)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_upsample_kernel_takes_strided_views(cuda, mode):
+    """NHWC views of NCHW tensors (channels not contiguous) and a cropped
+    skip: the kernel reads through the strides."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 16, 10, 12, generator=g, device=cuda).permute(
+        0, 2, 3, 1)
+    skip = torch.randn(2, 24, 30, 16, generator=g, device=cuda)[:, 2:22, :24]
+    _check_upsample(upsample_add_fused(x, skip, mode),
+                    upsample_add_plain(x, skip, mode), mode)
+
+
+def test_upsample_kernel_rejects_what_it_does_not_take(cuda):
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample_add_fused
+
+    x = torch.zeros(1, 4, 4, 8, device=cuda)
+    with pytest.raises(ValueError):  # two devices
+        upsample_add_fused(x, torch.zeros(1, 8, 8, 8))
+    with pytest.raises(ValueError):  # f16
+        upsample_add_fused(x.half(), torch.zeros(1, 8, 8, 8, device=cuda,
+                                                 dtype=torch.float16))
+
+
+def test_mask_rcnn_forward_launches_both_kernels(cuda):
+    """A micro Mask R-CNN on the card: 3 upsample-add launches (the FPN)
+    and 2 gathers (box and mask RoIAlign) per forward, in f32 and bf16."""
+    from tlxcv_tpu_torch.models.classification import resnet18
+    from tlxcv_tpu_torch.models.detection import MaskRCNN
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample_add_fused
+
+    gen = torch.Generator().manual_seed(0)
+    model = MaskRCNN(num_classes=4, num_proposals=16, pre_nms_top_k=64,
+                     detections_per_image=8, box_score_thresh=0.0,
+                     backbone=resnet18(num_classes=0, with_pool=False,
+                                       generator=gen),
+                     generator=gen).eval()
+    x = torch.randn(2, 128, 128, 3, generator=gen).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            for p in model.parameters():
+                p.data = p.data.to(dtype)
+        g0, u0 = gather_rows.launches, upsample_add_fused.launches
+        with torch.inference_mode():
+            dets, counts, masks = model(x.to(dtype))
+        torch.cuda.synchronize()
+        assert gather_rows.launches == g0 + 2
+        assert upsample_add_fused.launches == u0 + 3
+        assert dets.shape == (2, 8, 6) and masks.shape == (2, 8, 28, 28)
+        assert torch.isfinite(dets).all() and torch.isfinite(masks).all()
+        assert (counts > 0).all()

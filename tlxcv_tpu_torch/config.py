@@ -43,8 +43,10 @@ def _populate():
         return
     _POPULATED = True
     from .models import classification as C
+    from .models import detection as D
 
     for name in C.__all__:
         obj = getattr(C, name)
         if callable(obj) and name[0].islower():
             _MODEL_REGISTRY.setdefault(name, obj)
+    _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)

@@ -18,6 +18,7 @@ training slice.
 """
 from __future__ import annotations
 
+import math
 import typing as tp
 
 import numpy as np
@@ -29,8 +30,8 @@ from ..core import init as I
 from ..device import resolve_device
 from ..ops.cuda.matmul import int8_matmul_nt, pad_k, padded_k
 
-__all__ = ["Conv2d", "Linear", "BatchNorm", "BatchNorm2d", "LayerNorm",
-           "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
+__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm", "BatchNorm2d",
+           "LayerNorm", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
            "Dropout", "DropPath", "Identity", "Sequential", "Activation",
            "relu", "get_activation", "set_quant_attr"]
 
@@ -295,6 +296,45 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y.to(out_dtype)
+
+
+class ConvTranspose2d(nn.Module):
+    """Transposed 2D convolution, NHWC in and out, torch geometry: output
+    ``(H - 1)·s - 2p + k + output_padding``.  The weight is torch's
+    ``(in, out/groups, kh, kw)``; the JAX package's HWIO ``(kh, kw, in/g,
+    out)`` kernel maps onto it with no flip (``utils.bridge``), since
+    ``F.conv_transpose2d`` is the lhs-dilated conv with the flipped kernel
+    that the reference spells out.  The default init is the reference's,
+    kaiming normal over fan_out = out·kh·kw."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, bias=True, groups=1,
+                 w_init=None, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = _pair(output_padding)
+        self.groups = groups
+        kh, kw = self.kernel_size
+        shape = (in_channels, out_channels // groups, kh, kw)
+        if w_init is None:
+            std = math.sqrt(2.0) / math.sqrt(out_channels * kh * kw)
+            w_init = lambda s, **kw_: I.normal(s, std=std, **kw_)  # noqa: E731
+        self.weight = nn.Parameter(
+            w_init(shape, generator=generator, device=device))
+        self.bias = nn.Parameter(I.zeros((out_channels,), device=device)) \
+            if bias else None
+
+    def forward(self, x):
+        y = F.conv_transpose2d(
+            x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None,
+            self.stride, self.padding, self.output_padding, self.groups)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class Linear(nn.Module):

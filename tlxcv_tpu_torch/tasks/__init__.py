@@ -1,3 +1,4 @@
 from .image_classification import ImageClassification
+from .object_detection import ObjectDetection
 
-__all__ = ["ImageClassification"]
+__all__ = ["ImageClassification", "ObjectDetection"]
