@@ -377,3 +377,155 @@ def test_mask_rcnn_forward_launches_both_kernels(cuda):
         assert dets.shape == (2, 8, 6) and masks.shape == (2, 8, 28, 28)
         assert torch.isfinite(dets).all() and torch.isfinite(masks).all()
         assert (counts > 0).all()
+
+
+# ------------------------------------------------------------- gradients
+def test_card_kernels_carry_gradients(cuda):
+    """Through the upsample-add and the row gather on the card, a tensor
+    that requires grad gets a ``grad_fn``, and its gradient equals the one
+    the plain versions give on the CPU: bitwise for the upsample-add (the
+    transposed resize kernel takes the plain version's taps in its order),
+    within 1e-5 for the gather (its scatter-add adds a repeated row's
+    gradients with atomics, in an order that changes from run to run: 50
+    N(0, 1) rows into one sum near 8 give a few f32 steps, 3.3e-6 seen)."""
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
+    from tlxcv_tpu_torch.ops.image import upsample_add
+
+    g = torch.Generator().manual_seed(5)
+    for mode in ("nearest", "bilinear"):
+        x = torch.randn(2, 10, 12, 16, generator=g)
+        skip = torch.randn(2, 20, 24, 16, generator=g)
+        gy = torch.randn(2, 20, 24, 16, generator=g)
+        grads = {}
+        for dev in ("cpu", cuda):
+            xs = [t.detach().to(dev).requires_grad_() for t in (x, skip)]
+            out = upsample_add(*xs, mode=mode)
+            assert out.grad_fn is not None
+            out.backward(gy.to(dev))
+            grads[str(dev)] = [t.grad.cpu() for t in xs]
+        for a, b in zip(grads["cpu"], grads["cuda"]):
+            assert torch.equal(a, b)
+    table = torch.randn(300, 64, generator=g)
+    idx = torch.randint(0, 300, (2000,), generator=g, dtype=torch.int32)
+    idx[:50] = 3
+    gy = torch.randn(2000, 64, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        t = table.detach().to(dev).requires_grad_()
+        out = gather_rows(t, idx.to(dev))
+        assert out.grad_fn is not None
+        out.backward(gy.to(dev))
+        grads.append(t.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=0)
+
+
+_SEP_CASES = [  # (g shape, input hw of the forward, mode)
+    ((2, 40, 40, 256), (20, 20), "nearest"),     # the FPN backward, b2
+    ((2, 160, 160, 256), (80, 80), "nearest"),
+    ((2, 40, 40, 256), (20, 20), "bilinear"),
+    ((1, 75, 75, 3), (38, 38), "bilinear"),      # ragged taps, C = 3
+    ((1, 75, 75, 8), (38, 38), "nearest"),
+    ((1, 75, 75, 256), (38, 38), "bilinear"),
+    ((1, 11, 13, 5), (5, 6), "bilinear"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gshape,in_hw,mode", _SEP_CASES)
+def test_sep_resize_kernel_matches_plain(cuda, dtype, gshape, in_hw, mode):
+    """The transposed resize (the upsample-add's backward) against its
+    plain version on the card: the same taps in the same order, IEEE
+    multiply and add, one rounding: bitwise."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
+                                                   sep_resize_plain, sep_taps)
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    gy = torch.randn(*gshape, generator=gen, device=cuda).to(dtype)
+    th = sep_taps(gshape[1], in_hw[0], mode, True, cuda)
+    tw = sep_taps(gshape[2], in_hw[1], mode, True, cuda)
+    before = sep_resize.launches
+    got = sep_resize(gy, th, tw)
+    torch.cuda.synchronize()
+    assert sep_resize.launches == before + 1
+    assert got.shape == (gshape[0], *in_hw, gshape[3]) and got.dtype == dtype
+    assert torch.equal(got, sep_resize_plain(gy, th, tw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sep_resize_kernel_takes_stride0_and_permuted(cuda, dtype):
+    """The gradient of a ``.sum()`` is a stride-0 expand; a permuted one is
+    not contiguous; an odd channel offset forbids the vector path.  All
+    bitwise equal to the contiguous call and to the plain version."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
+                                                   sep_resize_plain, sep_taps)
+
+    th = sep_taps(40, 20, "bilinear", True, cuda)
+    tw = sep_taps(48, 24, "bilinear", True, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    views = [
+        torch.tensor(0.75, device=cuda).to(dtype).expand(2, 40, 48, 64),
+        torch.randn(2, 64, 48, 40, generator=gen, device=cuda).to(
+            dtype).permute(0, 3, 2, 1),
+        torch.randn(2, 40, 48, 65, generator=gen, device=cuda).to(
+            dtype)[..., 1:],
+    ]
+    for v in views:
+        got = sep_resize(v, th, tw)
+        assert torch.equal(got, sep_resize(v.contiguous(), th, tw))
+        assert torch.equal(got, sep_resize_plain(v, th, tw))
+
+
+def test_upsample2x_on_the_card_matches_the_cpu(cuda):
+    """``upsample2x_fused`` forward and backward on the card, through the
+    transposed-resize kernel both ways, bitwise against the CPU."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample2x_fused
+
+    x = torch.randn(2, 8, 8, 128, generator=torch.Generator().manual_seed(8))
+    outs = []
+    for dev in ("cpu", cuda):
+        t = x.detach().to(dev).requires_grad_()
+        y = upsample2x_fused(t)
+        (y ** 2).sum().backward()
+        outs.append((y.detach().cpu(), t.grad.cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_mask_rcnn_training_step_launches_all_three_kernels(cuda):
+    """A micro Mask R-CNN training step on the card: 3 forward
+    upsample-adds, 3 transposed resizes in the backward, 2 gathers; every
+    parameter that gets a non-zero gradient on the CPU gets one on the
+    card (values: ``chip_smoke.py``'s train_check)."""
+    from tlxcv_tpu_torch.models.classification import resnet18
+    from tlxcv_tpu_torch.models.detection import MaskRCNN
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
+    from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
+                                                   upsample_add_fused)
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = MaskRCNN(num_classes=4, num_proposals=16, pre_nms_top_k=64,
+                   detections_per_image=8, device="cpu",
+                   backbone=resnet18(num_classes=0, with_pool=False,
+                                     device="cpu", generator=gen),
+                   generator=gen).train()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(2, 128, 128, 3, generator=gen)
+    masks = torch.zeros(2, 2, 128, 128)
+    masks[0, 0, 10:70, 10:60] = 1
+    masks[1, 1, 50:110, 40:100] = 1
+    y = {"boxes": torch.tensor([[[10.0, 10, 60, 70], [0, 0, 0, 0]],
+                                [[0.0, 0, 0, 0], [40, 50, 100, 110]]]),
+         "class_labels": torch.tensor([[1, 0], [0, 2]]),
+         "mask": torch.tensor([[1.0, 0], [0, 1]]), "masks": masks}
+    cpu.loss_fn(cpu(x), y).backward()
+    counts = [f.launches for f in (upsample_add_fused, sep_resize,
+                                   gather_rows)]
+    card.loss_fn(card(x.to(cuda)),
+                 {k: v.to(cuda) for k, v in y.items()}).backward()
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(
+        (upsample_add_fused, sep_resize, gather_rows), counts)] == [3, 3, 2]
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        if p.grad is None or not p.grad.any():
+            continue
+        assert q.grad is not None and q.grad.any(), k

@@ -33,6 +33,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tlxcv_tpu_torch.ops.cuda.attention" in got["imported"]
     assert "tlxcv_tpu_torch.utils.bridge" in got["imported"]
+    for name in ("train.trainer", "train.optimizers", "data.loader",
+                 "data.shapes_det", "ops.losses"):
+        assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 
 

@@ -18,6 +18,7 @@ from tlxcv_tpu_torch.models.detection import MaskRCNN
 from tlxcv_tpu_torch.models.detection import mask_rcnn as TM
 from tlxcv_tpu_torch.tasks import ObjectDetection
 from tlxcv_tpu_torch.utils import load_jax_params
+from tlxcv_tpu_torch.utils.bridge import _owner, _to_port_layout
 
 MICRO = dict(num_classes=4, num_proposals=16, pre_nms_top_k=64,
              detections_per_image=8)
@@ -164,12 +165,116 @@ def test_task_registry_training_mode_and_loss(pair):
     assert set(out) == {"feats", "rpn_logits", "rpn_deltas", "anchors",
                         "proposals", "proposal_mask", "image_hw"}
     assert out["proposals"].shape == (1, 16, 4) and len(out["feats"]) == 5
-    with pytest.raises(NotImplementedError, match="training slice"):
-        task.loss_fn(out, {})
+    targets = {"boxes": torch.tensor([[[4.0, 6.0, 40.0, 50.0]]]),
+               "class_labels": torch.tensor([[2]]),
+               "mask": torch.ones(1, 1)}
+    loss = task.loss_fn(out, targets)
+    assert loss.shape == () and bool(torch.isfinite(loss))
     full = create_model("mask_rcnn", device="cpu", num_classes=80)
     assert full.cls_score.weight.shape == (81, 1024)
     assert full.mask_head.pred.weight.shape == (80, 256, 1, 1)
     assert isinstance(full.backbone.layer4[0].conv3.weight, torch.Tensor)
+
+
+def _targets(with_masks, zero_gt=False):
+    boxes = np.asarray([[[10, 10, 60, 70], [40, 50, 100, 110], [0, 0, 0, 0]],
+                        [[5, 20, 90, 60], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                       np.float32)
+    valid = np.asarray([[1, 1, 0], [1, 0, 0]], np.float32)
+    masks = np.zeros((2, 3, *HW), np.float32)
+    masks[0, 0, 10:70, 10:60] = 1
+    masks[0, 1, 50:110, 40:100] = 1
+    masks[1, 0, 20:60, 5:90] = 1
+    if zero_gt:
+        boxes, valid, masks = 0 * boxes, 0 * valid, 0 * masks
+    t = {"boxes": boxes, "class_labels": np.asarray([[1, 2, 0], [3, 0, 0]],
+                                                    np.int32),
+         "mask": valid}
+    if with_masks:
+        t["masks"] = masks
+    return t
+
+
+_DIFF = ("feats", "rpn_logits", "rpn_deltas", "proposals")
+
+
+def _loss_and_grads(pair, targets):
+    """Both loss_fns on the JAX model's training outputs (so both see the
+    same proposals): the loss, its gradients with respect to the outputs
+    and to the heads' parameters that loss_fn runs."""
+    jm, tm = pair[:2]
+    params, state = split(jm)
+    x = np.random.default_rng(0).normal(size=(2, *HW, 3)).astype(np.float32)
+    out, _ = pure(jm, lambda m, x: m(x))(params, state, jnp.asarray(x),
+                                         training=True)
+    loss_of = pure(jm, lambda m, o, t: m.loss_fn(o, t))
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+
+    def f(p, d):
+        return loss_of(p, state, {**out, **d}, jt, training=True)[0]
+
+    jloss, (jgp, jgo) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(
+        params, {k: out[k] for k in _DIFF})
+    tout = {k: (v if k in ("image_hw",) else
+                [torch.from_numpy(np.array(f)).requires_grad_() for f in v]
+                if k == "feats" else torch.from_numpy(np.array(v)))
+            for k, v in out.items()}
+    for k in _DIFF[1:]:
+        tout[k].requires_grad_()
+    tm.zero_grad()
+    tloss = tm.loss_fn(tout, {k: torch.from_numpy(v)
+                              for k, v in targets.items()})
+    tloss.backward()
+    return float(jloss), float(tloss), jgo, jgp, tout
+
+
+@pytest.mark.parametrize("with_masks", [True, False])
+def test_loss_fn_matches_jax(pair, with_masks):
+    """The loss within 1e-5 relative; its gradients with respect to the FPN
+    levels, the RPN outputs and the proposals within 1e-4 of each one's
+    largest element (3.5e-5 seen: f32 sums in another order); the box
+    head's parameters within 1e-3 and the mask head's within 3e-2 (six
+    layers at random init, ReLU between them: ill-conditioned in f32, JAX
+    0.3% and the port 0.7% of max |g| from float64)."""
+    jloss, tloss, jgo, jgp, tout = _loss_and_grads(pair, _targets(with_masks))
+    tm = pair[1]
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+
+    def rel(got, want):
+        want = np.asarray(want)
+        return np.abs(got.detach().numpy() - want).max() / np.abs(want).max()
+
+    for g, w in zip(tout["feats"][:4], jgo["feats"][:4]):
+        if np.abs(np.asarray(w)).max() > 0:    # P2 only at 128^2
+            assert rel(g.grad, w) <= 1e-4
+    for k in _DIFF[1:]:
+        assert rel(tout[k].grad, jgo[k]) <= 1e-4, k
+    for k, p in tm.named_parameters():
+        head = k.split(".")[0]
+        if head not in ("box_head", "cls_score", "bbox_pred", "mask_head"):
+            assert p.grad is None, k           # loss_fn runs the heads only
+            continue
+        if head == "mask_head" and not with_masks:
+            assert p.grad is None, k
+            continue
+        owner, leaf = _owner(tm, k)
+        want = _to_port_layout(owner, leaf, np.asarray(jgp[k.replace(
+            ".", "/")]))
+        assert rel(p.grad, want) <= (3e-2 if head == "mask_head" else 1e-3), k
+
+
+def test_loss_fn_finite_with_zero_gt(pair):
+    """An image batch with no valid GT (tests/test_mask_rcnn.py:112): the
+    padded all-zero target rows encode to finite deltas that the masks
+    zero; the loss and its gradients are finite and equal JAX's."""
+    jloss, tloss, jgo, _, tout = _loss_and_grads(pair, _targets(True, True))
+    assert np.isfinite(tloss)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    for k in _DIFF[1:]:
+        assert bool(torch.isfinite(tout[k].grad).all()), k
+    np.testing.assert_allclose(tout["rpn_logits"].grad.numpy(),
+                               np.asarray(jgo["rpn_logits"]), rtol=0,
+                               atol=1e-6)
 
 
 def test_anchors_match_jax_and_are_cached():

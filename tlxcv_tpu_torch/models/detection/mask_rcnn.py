@@ -1,20 +1,20 @@
-"""Mask R-CNN, serving (counterpart of
-``tlxcv_tpu/models/detection/mask_rcnn.py``): ResNet + FPN, RPN with a
-static top-K proposal set, RoIAlign, box head, greedy class-aware NMS, mask
-head.  NHWC images, the JAX model's attribute names (``fpn.lateral.0``,
-``mask_head.convs.3``, ``mask_head.deconv``), so the bridge needs no name
-table.
+"""Mask R-CNN (counterpart of ``tlxcv_tpu/models/detection/mask_rcnn.py``):
+ResNet + FPN, RPN with a static top-K proposal set, RoIAlign, box head,
+greedy class-aware NMS, mask head, and the training loss.  NHWC images,
+the JAX model's attribute names (``fpn.lateral.0``, ``mask_head.convs.3``,
+``mask_head.deconv``), so the bridge needs no name table.
 
 Static shapes throughout, as in the reference: ``num_proposals`` proposals
 per image with a validity mask, ``detections_per_image`` detections padded
 with label -1 plus a count.  The whole batch runs at once, with no read
 back to the host on the way.  Two kernels of the port sit on this path: the
 FPN's nearest upsample-add (``ops.image.upsample_add``, 3 launches per
-forward) and RoIAlign's row gather (``ops.roi_align``, 2 launches: box and
-mask branch).
+forward, and 3 of the transposed resize per backward) and RoIAlign's row
+gather (``ops.roi_align``, 2 launches: box and mask branch, in ``predict``
+and in ``loss_fn`` alike).
 
-Training (``loss_fn``) comes with the training slice; in training mode the
-model returns the reference's dict of RPN outputs and proposals.
+In training mode the model returns the reference's dict of RPN outputs and
+proposals, and ``loss_fn`` runs the heads on them.
 """
 from __future__ import annotations
 
@@ -27,10 +27,11 @@ from torch import nn as tnn
 from ... import nn
 from ...core import init as I
 from ...device import resolve_device
-from ...ops.boxes import clip_boxes, delta2bbox, pairwise_iou
+from ...ops.boxes import bbox2delta, clip_boxes, delta2bbox, pairwise_iou
 from ...ops.image import upsample_add
+from ...ops.losses import binary_cross_entropy, smooth_l1_loss
 from ...ops.nms import matrix_nms, multiclass_nms, nms, take_per_image, top_k
-from ...ops.roi_align import multilevel_roi_align, paste_masks
+from ...ops.roi_align import multilevel_roi_align, paste_masks, roi_align
 from ..classification.resnet import ResNet
 
 __all__ = ["MaskRCNN", "FPN", "RPNHead", "TwoFCHead", "MaskHead"]
@@ -276,6 +277,123 @@ class MaskRCNN(tnn.Module):
         return pasted.reshape(n, d, *pasted.shape[1:])
 
     def loss_fn(self, outputs, targets):
-        raise NotImplementedError(
-            "Mask R-CNN's loss_fn is not ported yet: it comes with the "
-            "training slice (ROADMAP queue 1, item 5)")
+        """The reference's training loss (``mask_rcnn.py:286-443``) on the
+        training-mode outputs.  targets: boxes [B, M, 4] xyxy pixels,
+        class_labels [B, M], mask [B, M] validity, optional masks [B, M, H,
+        W] binary.  Nothing is detached that the reference does not stop:
+        the box and mask losses reach the RPN's deltas through RoIAlign's
+        sampling coordinates."""
+        gt_boxes = targets["boxes"].float()
+        gt_labels = targets["class_labels"].long()
+        gt_valid = targets.get("mask")
+        if gt_valid is None:
+            gt_valid = (gt_boxes[..., 2] > gt_boxes[..., 0]).float()
+        valid = gt_valid > 0
+        anchors = outputs["anchors"]
+        rpn_logits, rpn_deltas = outputs["rpn_logits"], outputs["rpn_deltas"]
+        b, m = gt_boxes.shape[:2]
+
+        # ---- RPN matching: positive at IoU > 0.7 or the best anchor of a
+        # GT (padded GTs name the out-of-range sentinel, dropped), negative
+        # under 0.3
+        with torch.no_grad():
+            all_anchors = anchors.expand(b, *anchors.shape)
+            iou = torch.where(valid[..., None],
+                              pairwise_iou(gt_boxes, all_anchors), -1.0)
+            best_iou, best_gt = iou.amax(1), iou.argmax(1)          # [B, A]
+            pos = (best_iou > 0.7) | _mark(
+                anchors.shape[0], torch.where(valid, iou.argmax(2),
+                                              anchors.shape[0]))
+            neg = (best_iou < 0.3) & ~pos
+            t_delta = bbox2delta(all_anchors, _take(gt_boxes, best_gt))
+        posf, negf = pos.float(), neg.float()
+        # balanced pos/neg means: the 1:1 sampler in expectation
+        rpn_ce = binary_cross_entropy(rpn_logits, posf, reduction="none")
+        rpn_cls = 0.5 * (_wmean(rpn_ce, posf) + _wmean(rpn_ce, negf))
+        rpn_reg = _wmean(smooth_l1_loss(rpn_deltas, t_delta,
+                                        reduction="none").sum(-1), posf)
+
+        # ---- GT-augmented proposals: the last M slots carry the GT boxes
+        props = outputs["proposals"]
+        pmask = outputs["proposal_mask"].float()
+        r = props.shape[1]
+        if m < r:
+            tail = torch.arange(r, device=props.device) >= r - m
+            gt_slot = torch.cat([props.new_zeros(b, r - m, 4),
+                                 gt_boxes.to(props.dtype)], 1)
+            gv_slot = torch.cat([gt_valid.new_zeros(b, r - m),
+                                 gt_valid.float()], 1)
+            use_gt = tail[None, :] & (gv_slot > 0)
+            props = torch.where(use_gt[..., None], gt_slot, props)
+            pmask = torch.maximum(pmask, use_gt.float())
+        cls_logits, box_deltas = self.box_logits(outputs["feats"], props)
+
+        # ---- box-head matching at IoU 0.5; each valid GT's best proposal
+        # is foreground and matched to that GT
+        with torch.no_grad():
+            piou = torch.where(valid[..., None],
+                               pairwise_iou(gt_boxes, props), -1.0)
+            p_best_gt = piou.argmax(1)                              # [B, R]
+            live = pmask > 0
+            best_prop = torch.where(valid, piou.argmax(2), r)       # [B, M]
+            fg = ((piou.amax(1) >= 0.5) & live) | (_mark(r, best_prop)
+                                                   & live)
+            p_best_gt = torch.cat([p_best_gt, p_best_gt.new_zeros(b, 1)], 1)
+            p_best_gt.scatter_(1, best_prop, torch.arange(
+                m, device=props.device).expand(b, m))
+            p_best_gt = p_best_gt[:, :r]
+            t_label = torch.where(fg, gt_labels.gather(1, p_best_gt),
+                                  self.num_classes)
+            safe = torch.where(
+                (props[..., 2:] > props[..., :2]).all(-1, keepdim=True),
+                props, props + props.new_tensor([0.0, 0.0, 1.0, 1.0]))
+            t_bdelta = bbox2delta(safe, _take(gt_boxes, p_best_gt))
+        logp = torch.log_softmax(cls_logits, -1)
+        ce = -logp.gather(-1, t_label[..., None])[..., 0]
+        fgf = fg.float()
+        # fg/bg at the 1:3 sampling ratio in expectation
+        box_cls = (0.25 * _wmean(ce, fgf * pmask)
+                   + 0.75 * _wmean(ce, (1.0 - fgf) * pmask))
+        box_reg = _wmean(smooth_l1_loss(box_deltas, t_bdelta,
+                                        reduction="none").sum(-1), fgf)
+        total = rpn_cls + rpn_reg + box_cls + box_reg
+
+        gt_masks = targets.get("masks") if self.with_mask else None
+        if gt_masks is None:
+            return total
+        mask_logits = self.mask_logits(outputs["feats"], props)
+        ms2 = mask_logits.shape[2]
+        with torch.no_grad():
+            # each proposal's matched GT mask cropped to the proposal at the
+            # head's resolution, read from the matched GT in place (the
+            # reference gathers an [R, H, W] copy per image first)
+            hm, wm = gt_masks.shape[2:]
+            image = (torch.arange(b, device=props.device)[:, None] * m
+                     + p_best_gt).reshape(-1)
+            t_masks = roi_align(gt_masks.float().reshape(b * m, hm, wm, 1),
+                                props.reshape(b * r, 1, 4), ms2,
+                                batch_index=image).reshape(b, r, ms2, ms2)
+        sel = t_label.clamp(0, self.num_classes - 1)
+        pred = mask_logits.gather(-1, sel[:, :, None, None, None].expand(
+            b, r, ms2, ms2, 1))[..., 0]
+        mloss = binary_cross_entropy(pred, (t_masks > 0.5).float(),
+                                     reduction="none").mean((-1, -2))
+        return total + _wmean(mloss, fgf)
+
+
+def _mark(n, idx):
+    """[B, n] bool, True at ``idx`` [B, K]; an index of n is dropped (the
+    reference's out-of-range sentinel with ``mode="drop"``)."""
+    out = torch.zeros(idx.shape[0], n + 1, dtype=torch.bool,
+                      device=idx.device)
+    return out.scatter_(1, idx, True)[:, :n]
+
+
+def _take(t, idx):
+    """t [B, M, 4], idx [B, K] -> [B, K, 4] (``take_along_axis``)."""
+    return t.gather(1, idx[..., None].expand(*idx.shape, t.shape[-1]))
+
+
+def _wmean(x, w):
+    """``Σ x·w / max(Σ w, 1)``."""
+    return (x * w).sum() / w.sum().clamp_min(1.0)

@@ -12,10 +12,25 @@ import torch
 __all__ = [
     "xywh2xyxy", "xyxy2xywh", "box_area", "pairwise_iou", "aligned_iou",
     "bbox_iou", "bbox2delta", "delta2bbox", "distance2bbox", "bbox2distance",
-    "batch_distance2bbox", "clip_boxes",
+    "batch_distance2bbox", "clip_boxes", "clip",
 ]
 
 EPS = 1e-9
+
+
+def clip(x, lo=None, hi=None):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, so a value on a bound
+    passes half its gradient, as in JAX (``clamp`` passes all of it).  The
+    bounds are made on x's device by a fill, with no copy from the host.
+    A tensor that takes no gradient gets ``clamp``: the same values in one
+    launch."""
+    if not x.requires_grad:
+        return x.clamp(lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
 
 
 def xywh2xyxy(b):
@@ -108,7 +123,7 @@ def delta2bbox(deltas, boxes, weights=(1.0, 1.0, 1.0, 1.0),
                max_ratio=16 / 1000.0):
     """Decode deltas against anchors.  A bf16 delta against f32 anchors
     gives f32 boxes, as the reference's type promotion does."""
-    clip = abs(math.log(max_ratio))
+    bound = abs(math.log(max_ratio))
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
     cx = boxes[..., 0] + w * 0.5
@@ -116,8 +131,8 @@ def delta2bbox(deltas, boxes, weights=(1.0, 1.0, 1.0, 1.0),
     wx, wy, ww, wh = weights
     dx = deltas[..., 0] / wx
     dy = deltas[..., 1] / wy
-    dw = torch.clamp(deltas[..., 2] / ww, -clip, clip)
-    dh = torch.clamp(deltas[..., 3] / wh, -clip, clip)
+    dw = clip(deltas[..., 2] / ww, -bound, bound)
+    dh = clip(deltas[..., 3] / wh, -bound, bound)
     pcx = cx + dx * w
     pcy = cy + dy * h
     pw = w * torch.exp(dw)
@@ -165,6 +180,6 @@ def clip_boxes(boxes, im_shape):
     """Clip xyxy boxes to (h, w)."""
     h, w = im_shape
     return torch.stack([
-        boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
-        boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h),
+        clip(boxes[..., 0], 0.0, w), clip(boxes[..., 1], 0.0, h),
+        clip(boxes[..., 2], 0.0, w), clip(boxes[..., 3], 0.0, h),
     ], dim=-1)

@@ -12,6 +12,14 @@ any dtype and 1-D int32 indices in ``[0, N)`` (not checked on the card:
 that would need a read back to the host).  It takes the plain version for
 CPU tensors; for CUDA tensors it launches the kernel or raises, never
 falling back.
+
+It is differentiable in a floating table.  The gradient is a scatter-add of
+the output gradient into an f32 zero table, cast back to the table's dtype.
+The reference has no backward kernel here: its gradient of ``table[idx]``
+is XLA's scatter-add, outside any Pallas kernel, and ``index_add_`` is its
+counterpart.  On the card ``index_add_`` adds with atomics, so the order of
+the sums into a repeated row, and so their last bits, change from run to
+run.
 """
 from __future__ import annotations
 
@@ -55,12 +63,7 @@ def _error_string(rc):
     return fn(rc).decode()
 
 
-def gather_rows(table, idx):
-    """table [N, C] (any dtype, contiguous), idx [R] int32 in [0, N) ->
-    [R, C], byte for byte ``table[idx]``."""
-    _check(table, idx)
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
+def _gather_kernel(table, idx):
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows runs on CUDA or CPU tensors, got "
                          f"{table.device}")
@@ -78,6 +81,34 @@ def gather_rows(table, idx):
                            f"{_error_string(rc)} ({rc})")
     gather_rows.launches += 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` with its gradient, a scatter-add in f32."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        if table.device.type == "cpu":
+            return gather_rows_plain(table, idx)
+        return _gather_kernel(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        grad = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                           device=g.device)
+        grad.index_add_(0, idx, g.float())
+        return grad.to(ctx.table_dtype), None
+
+
+def gather_rows(table, idx):
+    """table [N, C] (any dtype, contiguous), idx [R] int32 in [0, N) ->
+    [R, C], byte for byte ``table[idx]``; differentiable in a floating
+    table."""
+    _check(table, idx)
+    return _GatherRows.apply(table, idx)
 
 
 gather_rows.launches = 0  # kernel launches since the last reset

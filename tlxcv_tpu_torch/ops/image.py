@@ -4,9 +4,11 @@ top-down pattern ``interpolate(x, size=skip.hw) + skip``.
 
 ``upsample_add`` hands every call that meets the fused kernel's contract
 (an upsample, ``align_corners=False``, nearest or bilinear, f32 or bf16 in
-one dtype) to ``ops.cuda.upsample.upsample_add_fused``: the hand-written
-kernel for CUDA tensors, its plain version for CPU ones.  Any other call
-takes the plain composition, as the reference's default path does.
+one dtype) to ``ops.cuda.upsample.upsample_add_fused``, on the CPU too: an
+autograd Function whose forward is the hand-written kernel for CUDA
+tensors (its plain version for CPU ones) and whose backward is the
+transposed resize kernel (its plain version).  Any other call takes the
+plain composition, as the reference's default path does.
 ``max_pool2d_with_argmax``, ``max_unpool2d``, ``unfold`` and ``pad2d``
 come with the segmentation slices.
 """

@@ -12,6 +12,13 @@ hand-written kernel; for a CPU one, its plain version.
 
 With a bf16 feature table and the f32 bilinear weights the result is f32,
 as in the reference, so the heads after it run in f32.
+
+Gradients flow as in the reference: into the feature table through the
+row gather's scatter-add, and into the boxes through the sampling
+coordinates (nothing is detached; torchvision detaches the proposals, the
+reference does not).  The clamps are ``torch.maximum``/``torch.minimum``
+(``ops.boxes.clip``), which split the gradient 0.5/0.5 at a tie as JAX's
+``maximum``, ``minimum`` and ``clip`` do (``clamp`` passes all of it).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import functools
 
 import torch
 
+from .boxes import clip
 from .cuda.gather import gather_rows
 
 __all__ = ["roi_align", "multilevel_roi_align", "paste_masks"]
@@ -64,16 +72,16 @@ def multilevel_roi_align(feats, boxes, output_size: int = 7,
     s, sr = output_size, sampling_ratio
 
     # canonical level: k0 + log2(sqrt(area) / 224), clamped to P2..P5
-    area = (torch.clamp_min(boxes[..., 2] - boxes[..., 0], 1.0)
-            * torch.clamp_min(boxes[..., 3] - boxes[..., 1], 1.0))
+    area = (clip(boxes[..., 2] - boxes[..., 0], 1.0)
+            * clip(boxes[..., 3] - boxes[..., 1], 1.0))
     k = torch.floor(4 + torch.log2(torch.sqrt(area) / 224.0 + 1e-9))
     k = (torch.clamp(k, 2, 5) - 2).long()                # [N, R] in 0..3
 
     scale = 1.0 / stride_arr[k]                          # [N, R]
     b = boxes * scale[..., None]
     x1, y1, x2, y2 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
-    bin_h = torch.clamp_min(y2 - y1, 1.0) / s
-    bin_w = torch.clamp_min(x2 - x1, 1.0) / s
+    bin_h = clip(y2 - y1, 1.0) / s
+    bin_w = clip(x2 - x1, 1.0) / s
     iy = (torch.arange(s * sr, dtype=torch.float32, device=boxes.device)
           + 0.5) / sr
     ys = y1[..., None] + bin_h[..., None] * iy - 0.5     # [N, R, S']
@@ -83,8 +91,8 @@ def multilevel_roi_align(feats, boxes, output_size: int = 7,
 
     vy = ((ys > -1.0) & (ys < hk))[..., :, None]
     vx = ((xs > -1.0) & (xs < wk))[..., None, :]
-    ys = torch.clamp(torch.clamp_min(ys, 0), max=hk - 1)  # edge clamp
-    xs = torch.clamp(torch.clamp_min(xs, 0), max=wk - 1)
+    ys = torch.minimum(clip(ys, 0.0), hk - 1)           # edge clamp
+    xs = torch.minimum(clip(xs, 0.0), wk - 1)
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     wy1 = (ys - y0)[..., :, None, None]                  # [N, R, S', 1, 1]
@@ -108,14 +116,16 @@ def multilevel_roi_align(feats, boxes, output_size: int = 7,
     return out
 
 
-def _bilinear_gather(feat, ys, xs):
-    """feat [B, H, W, C]; ys, xs [B, ...] float coordinates -> [B, ..., C].
-    Out-of-bounds samples give zero; coordinates are clamped before the
-    weights, as torchvision's bilinear_interpolate."""
+def _bilinear_gather(feat, ys, xs, batch_index=None):
+    """feat [B, H, W, C]; ys, xs [B', ...] float coordinates -> [B', ...,
+    C], row b of the coordinates sampling image ``batch_index[b]`` of feat
+    (image b when not given).  Out-of-bounds samples give zero; coordinates
+    are clamped before the weights, as torchvision's
+    bilinear_interpolate."""
     _, h, w, _ = feat.shape
     valid = ((ys > -1.0) & (ys < h) & (xs > -1.0) & (xs < w))[..., None]
-    ys = ys.clamp(0, h - 1)
-    xs = xs.clamp(0, w - 1)
+    ys = clip(ys, 0.0, h - 1.0)
+    xs = clip(xs, 0.0, w - 1.0)
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     wy1 = (ys - y0)[..., None]
@@ -124,8 +134,9 @@ def _bilinear_gather(feat, ys, xs):
     y1i = (y0i + 1).clamp(0, h - 1)
     x0i = x0.long()
     x1i = (x0i + 1).clamp(0, w - 1)
-    bi = torch.arange(feat.shape[0], device=feat.device).reshape(
-        -1, *(1,) * (ys.ndim - 1))
+    if batch_index is None:
+        batch_index = torch.arange(ys.shape[0], device=feat.device)
+    bi = batch_index.reshape(-1, *(1,) * (ys.ndim - 1))
     v00, v01 = feat[bi, y0i, x0i], feat[bi, y0i, x1i]
     v10, v11 = feat[bi, y1i, x0i], feat[bi, y1i, x1i]
     out = (v00 * (1 - wy1) * (1 - wx1) + v01 * (1 - wy1) * wx1 +
@@ -134,14 +145,16 @@ def _bilinear_gather(feat, ys, xs):
 
 
 def roi_align(features, boxes, output_size: int = 7,
-              spatial_scale: float = 1.0, sampling_ratio: int = 2):
-    """features [N, H, W, C]; boxes [N, R, 4] xyxy in image coordinates.
-    Returns [N, R, S, S, C] (S = output_size)."""
+              spatial_scale: float = 1.0, sampling_ratio: int = 2,
+              batch_index=None):
+    """features [B, H, W, C]; boxes [N, R, 4] xyxy in image coordinates,
+    row n of them on image ``batch_index[n]`` of features (image n when not
+    given, N = B).  Returns [N, R, S, S, C] (S = output_size)."""
     s, sr = output_size, sampling_ratio
     b = boxes * spatial_scale
     x1, y1, x2, y2 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
-    bin_h = torch.clamp_min(y2 - y1, 1.0) / s
-    bin_w = torch.clamp_min(x2 - x1, 1.0) / s
+    bin_h = clip(y2 - y1, 1.0) / s
+    bin_w = clip(x2 - x1, 1.0) / s
     iy = (torch.arange(s * sr, dtype=torch.float32, device=boxes.device)
           + 0.5) / sr
     ys = y1[..., None] + bin_h[..., None] * iy           # [N, R, S']
@@ -149,7 +162,7 @@ def roi_align(features, boxes, output_size: int = 7,
     n, r, m = ys.shape
     yy = ys[..., :, None].expand(n, r, m, m)
     xx = xs[..., None, :].expand(n, r, m, m)
-    vals = _bilinear_gather(features, yy - 0.5, xx - 0.5)
+    vals = _bilinear_gather(features, yy - 0.5, xx - 0.5, batch_index)
     c = vals.shape[-1]
     return vals.reshape(n, r, s, sr, s, sr, c).mean(dim=(3, 5))
 
@@ -161,8 +174,8 @@ def paste_masks(masks, boxes, image_hw):
     h, w = image_hw
     m = masks.shape[-1]
     x1, y1, x2, y2 = boxes.unbind(-1)
-    bw = torch.clamp_min(x2 - x1, 1.0)[:, None]
-    bh = torch.clamp_min(y2 - y1, 1.0)[:, None]
+    bw = clip(x2 - x1, 1.0)[:, None]
+    bh = clip(y2 - y1, 1.0)[:, None]
     f32 = dict(dtype=torch.float32, device=masks.device)
     ys = (torch.arange(h, **f32) + 0.5 - y1[:, None]) / bh * m - 0.5  # [R, H]
     xs = (torch.arange(w, **f32) + 0.5 - x1[:, None]) / bw * m - 0.5  # [R, W]
