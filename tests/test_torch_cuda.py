@@ -13,9 +13,11 @@ import torch
 from tlxcv_tpu_torch import create_model
 from tlxcv_tpu_torch.ops.cuda.attention import (flash_attention,
                                                 flash_attention_plain)
-from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul, int8_matmul_nt,
+from tlxcv_tpu_torch.ops.cuda.matmul import (bf16_matmul, bf16_matmul_plain,
+                                             int8_matmul, int8_matmul_nt,
                                              int8_matmul_plain)
-from tlxcv_tpu_torch.ops.quant import quantize_for_serving
+from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                       quantize_for_serving, quantize_weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -529,3 +531,65 @@ def test_mask_rcnn_training_step_launches_all_three_kernels(cuda):
         if p.grad is None or not p.grad.any():
             continue
         assert q.grad is not None and q.grad.any(), k
+
+
+# ------------------------------------------------------------ bf16 GEMM
+@pytest.mark.parametrize("m,k,n", [
+    (1000, 520, 1000), (1, 64, 9), (129, 1001, 77), (257, 4096, 130),
+])
+def test_bf16_kernel_matches_plain(cuda, m, k, n):
+    """Ragged M and N, a K the wrapper pads to a multiple of 8.  Both sum in
+    f32 and round once, in other orders: each element within one bf16 ulp
+    of the larger result plus the f32 reordering bound 2 (K - 1) 2^-24
+    sum_k |a_ik b_kj|."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=g, device=cuda).to(torch.bfloat16)
+    before = bf16_matmul.launches
+    got = bf16_matmul(a, b)
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    want = bf16_matmul_plain(a, b).float()
+    big = torch.maximum(got.float().abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    reorder = 2 * (k - 1) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+    assert bool(((got.float() - want).abs() <= ulp + reorder).all())
+
+
+def test_bf16_kernel_is_exact_on_exact_sums(cuda):
+    """Integer operands: every partial sum is exact in f32, so the kernel
+    and the plain version round the same value and agree bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a, b = (torch.randint(-4, 5, s, generator=g, device=cuda).to(
+        torch.bfloat16) for s in ((300, 2048), (2048, 260)))
+    assert torch.equal(bf16_matmul(a, b), bf16_matmul_plain(a, b))
+
+
+def test_bf16_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros(8, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # two devices
+        bf16_matmul(a, torch.zeros(16, 4, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        bf16_matmul(a, a.t().float())
+
+
+def test_int8_yolov3_launches_the_kernel_per_conv(cuda):
+    """YOLOv3 quantized as the bench builds it, on the CPU in f32: every
+    one of its 75 convolutions launches the int8 GEMM once per forward,
+    and bf16 images give finite detections."""
+    gen = torch.Generator().manual_seed(0)
+    model = create_model("yolov3", device="cpu", generator=gen,
+                         num_classes=6, keep_top_k=20).eval()
+    calib = torch.randn(2, 64, 64, 3, generator=gen)
+    assert quantize_weights(model) == 75
+    assert calibrate_activations(model, [calib],
+                                 forward=model.head_outputs) == 75
+    card = model.cuda()
+    x = torch.randn(2, 64, 64, 3, generator=gen).to(cuda, torch.bfloat16)
+    before = int8_matmul.launches
+    with torch.inference_mode():
+        dets, counts = card(x)
+        torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 75
+    assert dets.shape == (2, 20, 6) and torch.isfinite(dets).all()

@@ -34,7 +34,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
     assert "tlxcv_tpu_torch.ops.cuda.attention" in got["imported"]
     assert "tlxcv_tpu_torch.utils.bridge" in got["imported"]
     for name in ("train.trainer", "train.optimizers", "data.loader",
-                 "data.shapes_det", "ops.losses"):
+                 "data.shapes_det", "ops.losses", "ops.yolo",
+                 "models.detection.yolov3",
+                 "models.detection.backbones.darknet",
+                 "demo.image_classification.probe_int8_gemm"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -50,3 +50,4 @@ def _populate():
         if callable(obj) and name[0].islower():
             _MODEL_REGISTRY.setdefault(name, obj)
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
+    _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)

@@ -33,7 +33,7 @@ from ..ops.cuda.matmul import int8_matmul_nt, pad_k, padded_k
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm", "BatchNorm2d",
            "LayerNorm", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
            "Dropout", "DropPath", "Identity", "Sequential", "Activation",
-           "relu", "get_activation", "set_quant_attr"]
+           "leaky_relu", "relu", "get_activation", "set_quant_attr"]
 
 
 def _gelu(x):
@@ -46,12 +46,18 @@ def _gelu(x):
 # trace tells tensors apart by id().
 relu = F.relu
 
+
+def leaky_relu(x, negative_slope=0.01):
+    """``jax.nn.leaky_relu``: ``x`` where ``x >= 0``, else
+    ``negative_slope * x`` (DarkNet's ConvBNLayer takes 0.1)."""
+    return F.leaky_relu(x, negative_slope)
+
 _ACTS: dict[str, tp.Callable] = {
     "relu": F.relu, "relu6": F.relu6, "gelu": _gelu, "silu": F.silu,
     "swish": F.silu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
     "hardswish": F.hardswish, "hard_swish": F.hardswish,
     "hardsigmoid": F.hardsigmoid, "hard_sigmoid": F.hardsigmoid,
-    "leaky_relu": F.leaky_relu, "leakyrelu": F.leaky_relu, "mish": F.mish,
+    "leaky_relu": leaky_relu, "leakyrelu": leaky_relu, "mish": F.mish,
     "identity": lambda x: x, "linear": lambda x: x,
 }
 

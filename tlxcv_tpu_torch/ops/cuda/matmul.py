@@ -1,17 +1,26 @@
-"""int8 GEMM: the Hopper kernel's wrapper and its plain version.
+"""The GEMM kernels: int8 and bf16, each Hopper kernel's wrapper beside its
+plain version.
 
-Replaces the Pallas TPU kernel ``tlxcv_tpu/ops/pallas/matmul.py``
-(``int8_matmul`` :57).  The kernel is ``csrc/int8_matmul.cu``; its source
-note says what bounds it on the H100 and how its design meets that.  The
-TPU block sizes and ``interpret`` of the reference have no counterpart.
+``int8_matmul`` replaces the Pallas TPU kernel
+``tlxcv_tpu/ops/pallas/matmul.py`` (``int8_matmul`` :57); its kernel is
+``csrc/int8_matmul.cu``.  ``bf16_matmul`` replaces the bf16 twin that the
+demo's GEMM probe defines, ``demo/image_classification/
+probe_int8_pallas.py`` (``bf16_matmul`` :86); its kernel is
+``csrc/bf16_matmul.cu``.  Each source note says what bounds the kernel on
+the H100 and how its design meets that.  The TPU block sizes and
+``interpret`` of the references have no counterpart.
 
 ``int8_matmul(a, b)`` keeps the reference contract, ``[M, K] int8 @ [K, N]
 int8 -> [M, N] int32``, exact.  The int8 Conv2d and Linear call
 ``int8_matmul_nt`` instead, with the weight packed once as ``[N, Kp]``
 (K-contiguous, ``Kp`` a multiple of ``K_ALIGN``), so no call transposes it.
 
-Both take the plain version for tensors on the CPU.  For CUDA tensors they
-launch the kernel or raise; they never fall back.
+``bf16_matmul(a, b)`` keeps its reference's contract, ``[M, K] bf16 @ [K,
+N] bf16 -> [M, N] bf16``: the products summed in f32 and rounded to bf16
+once, at the end.
+
+All of them take the plain version for tensors on the CPU.  For CUDA
+tensors they launch the kernel or raise; they never fall back.
 """
 from __future__ import annotations
 
@@ -22,8 +31,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_nt", "int8_matmul_plain", "K_ALIGN",
-           "padded_k", "pad_k"]
+__all__ = ["bf16_matmul", "bf16_matmul_plain", "int8_matmul", "int8_matmul_nt",
+           "int8_matmul_plain", "K_ALIGN", "padded_k", "pad_k"]
 
 K_ALIGN = 16  # the kernel's K granularity: one 16-byte cp.async chunk
 
@@ -124,3 +133,81 @@ def int8_matmul_nt(a, w):
 
 
 int8_matmul.launches = 0  # kernel launches since the last reset
+
+
+# ------------------------------------------------------------------ bf16
+BF16_ALIGN = 8  # the bf16 kernel's K and row granule: one 16-byte chunk
+
+
+def _check_bf16_operands(a, b):
+    """bf16, 2D, and K of ``a`` equal to the rows of ``b``."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"bf16_matmul needs bf16 operands, got "
+                        f"{a.dtype}/{b.dtype}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dims mismatch: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+
+
+def bf16_matmul_plain(a, b):
+    """[M, K] bf16 @ [K, N] bf16 -> [M, N] bf16: the product in f32, rounded
+    to bf16 once.  On the card the f32 product must run in full f32, as
+    PyTorch's default (``torch.backends.cuda.matmul.allow_tf32`` False)
+    has it."""
+    _check_bf16_operands(a, b)
+    return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def _pad_to(t, rows, cols):
+    """Zero rows and columns appended up to ``rows`` x ``cols``; exact,
+    since a zero adds nothing to the sum."""
+    extra_r, extra_c = rows - t.shape[0], cols - t.shape[1]
+    return F.pad(t, (0, extra_c, 0, extra_r)) if extra_r or extra_c else t
+
+
+def _bf16_kernel_fn():
+    fn = _build.library("bf16_matmul").tlx_bf16_matmul
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def bf16_matmul(a, b):
+    """``a``: [M, K] bf16, ``b``: [K, N] bf16 -> [M, N] bf16, summed in f32
+    and rounded once.  On the card K, and the rows of ``b``, are
+    zero-padded to a multiple of ``BF16_ALIGN`` for the kernel when they
+    are not one already; ``b`` is read as it lies, never transposed."""
+    _check_bf16_operands(a, b)
+    if a.device.type == "cpu":
+        return bf16_matmul_plain(a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"bf16_matmul runs on CUDA or CPU tensors on one "
+                         f"device, got {a.device} and {b.device}")
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=a.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    kp = -(-k // BF16_ALIGN) * BF16_ALIGN
+    ldb = -(-n // BF16_ALIGN) * BF16_ALIGN
+    a = _pad_to(a.contiguous(), m, kp)
+    b = _pad_to(b.contiguous(), kp, ldb)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("the kernel takes 16-byte aligned operands")
+    if -(-m // 128) >= 2 ** 31 or -(-n // 128) > 65535:
+        raise ValueError(f"shape {m} x {n} exceeds the kernel's grid")
+    with torch.cuda.device(a.device):
+        rc = _bf16_kernel_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                               n, kp, ldb,
+                               torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fn = _build.library("bf16_matmul").tlx_bf16_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"bf16_matmul kernel launch failed: "
+                           f"{fn(rc).decode()} ({rc})")
+    bf16_matmul.launches += 1
+    return out
+
+
+bf16_matmul.launches = 0  # kernel launches since the last reset
