@@ -42,13 +42,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    one served forward hands them (device time from CUDA-graph replays).
 6. bf16_kernels and probe (run after phase 2's int8 GEMM): the bf16 GEMM
    (``csrc/bf16_matmul.cu``) against its plain version at 4096^3, ragged
-   M and N, one row, one column and a padded K, within one bf16 ulp plus
-   the f32 reordering bound (integer operands bitwise), and its time beside
-   ``torch.matmul``'s and the bound; then the port of the demo's GEMM probe
+   M and N, one row, one column and a padded K, within one bf16 ulp (plus
+   the f32 reordering bound near zero; integer operands bitwise), and its
+   time beside ``torch.matmul``'s and the bound; then the port of the
+   demo's GEMM probe
    (``tlxcv_tpu_torch.demo.image_classification.probe_int8_gemm``) at the
    reference's sizes, which must launch both GEMM kernels.
 7. YOLOv3 (``create_model("yolov3", num_classes=80, use_matrix_nms=True)``,
-   random weights and BatchNorm statistics from a seed): f32 and bf16 at
+   random weights from a seed, BatchNorm statistics from one train-mode
+   forward of 2 seeded images on the CPU): f32 and bf16 at
    b2 416^2 against f32 on the CPU, stage by stage (the three head
    outputs, the decoded boxes and scores, the NMS on the CPU's decoded
    boxes, the share of the CPU's detections reproduced, a count > 0 per
@@ -356,14 +358,22 @@ def int8_operands(m, k, n, seed, fill=None):
 def time_int8_shape(m, k, n, seed, reps=20):
     """Kernel, plain and library ms of one product as the int8 layers
     hand it over: K zero-padded for the kernel, the weight packed [N, Kp].
-    The library call is torch._int_mm on the same padded operands; its
-    shape rules may refuse them (then null, with its message)."""
+    The kernel's product is first held to the plain one, bitwise, so every
+    shape timed is a shape checked.  The library call is torch._int_mm on
+    the same padded operands; its shape rules may refuse them (then null,
+    with its message)."""
     from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul_nt,
                                                  int8_matmul_plain, pad_k)
 
     a, b = int8_operands(m, k, n, seed)
     ap, w = pad_k(a), pad_k(b.t().contiguous())
-    out = {"ms": time_ms(lambda: int8_matmul_nt(ap, w), reps=reps),
+    if not torch.equal(int8_matmul_nt(ap, w), int8_matmul_plain(a, b)):
+        emit({"phase": "int8_kernels", "failed": "timed shape",
+              "shape": [m, k, n]})
+        raise AssertionError(f"int8_matmul {m}x{k}x{n} differs from its "
+                             f"plain version")
+    out = {"exact": True,
+           "ms": time_ms(lambda: int8_matmul_nt(ap, w), reps=reps),
            "plain_ms": time_ms(lambda: int8_matmul_plain(a, b),
                                reps=max(3, reps // 4), warmup=1)}
     try:
@@ -443,16 +453,21 @@ def bf16_ulp(x):
 
 
 def bf16_tolerance(a, b, got, want):
-    """Per element: one bf16 ulp of the larger of the two results, plus
-    how far two f32 sums of the same K products may lie apart when taken
-    in different orders, 2 (K - 1) 2^-24 sum_k |a_ik b_kj| (the kernel sums
-    in k16 steps on the tensor cores, the plain version in cuBLAS's
-    order).  One ulp alone is exceeded only near zero, where the f32
-    reordering is larger than the bf16 spacing; that share is reported."""
+    """Per element: one bf16 ulp of the larger of the two results, and how
+    far two f32 sums of the same K products may lie apart when taken in
+    different orders, 2 (K - 1) 2^-24 sum_k |a_ik b_kj| (the kernel sums in
+    k16 steps on the tensor cores, the plain version in cuBLAS's order)."""
     k = a.shape[1]
     reorder = 2 * (k - 1) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
     ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
-    return ulp, ulp + reorder
+    return ulp, reorder
+
+
+# the share of elements of a "normal" case that may lie beyond one bf16 ulp
+# of the plain result: all of them near zero, where the f32 reordering is
+# larger than the bf16 spacing (1.6e-4 read at 4096^3 on one H100 80GB
+# HBM3, 700 W)
+BF16_BEYOND_ONE_ULP = 1e-3
 
 
 def bf16_close_share(got, want):
@@ -492,26 +507,34 @@ def phase_bf16_kernels():
         torch.cuda.synchronize()
         want = bf16_matmul_plain(a, b)
         err = (got.float() - want.float()).abs()
-        ulp, tol = bf16_tolerance(a, b, got, want)
+        ulp, reorder = bf16_tolerance(a, b, got, want)
+        away = want.float().abs() > reorder  # where one ulp must hold
         row = {"case": name, "shape": [m, k, n], "operands": kind,
                "max_abs_err": err.max().item(),
                "max_err_in_ulps": (err / ulp).max().item(),
+               "max_err_in_ulps_away_from_zero":
+                   (err / ulp)[away].max().item() if away.any() else 0.0,
+               "share_differing": (err > 0).float().mean().item(),
                "share_beyond_one_ulp": (err > ulp).float().mean().item(),
-               "within_bound": bool((err <= tol).all()),
+               "within_bound": bool((err <= ulp + reorder).all()),
                "finite": bool(torch.isfinite(got).all())}
         results.append(row)
         ok = got.dtype == torch.bfloat16 and got.shape == (m, n) and \
-            row["finite"] and row["within_bound"]
+            row["finite"] and row["within_bound"] and \
+            row["max_err_in_ulps_away_from_zero"] <= 1 and \
+            row["share_beyond_one_ulp"] <= BF16_BEYOND_ONE_ULP
         if kind == "integers":  # exact sums, one rounding: bitwise
             ok = ok and row["max_abs_err"] == 0
         if not ok:
             emit({"phase": "bf16_kernels", "failed": row})
             raise AssertionError(f"bf16_matmul {name}: {row}")
-        del a, b, got, want, err, ulp, tol
+        del a, b, got, want, err, ulp, reorder, away
     emit({"phase": "bf16_kernels", "cases": results,
-          "tolerance": "one bf16 ulp of the larger result plus the f32 "
-                       "reordering bound 2 (K - 1) 2^-24 sum|a||b|; "
-                       "integer operands bitwise"})
+          "tolerance": "one bf16 ulp of the larger result wherever |plain| "
+                       "exceeds the f32 reordering bound 2 (K - 1) 2^-24 "
+                       "sum|a||b|, and one ulp plus that bound near zero; "
+                       f"at most {BF16_BEYOND_ONE_ULP} of the elements "
+                       "beyond one ulp; integer operands bitwise"})
 
     m = k = n = 4096
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -634,6 +657,25 @@ def random_bn_statistics(model, gen):
             c = mod.running_mean.shape[0]
             mod.running_mean.copy_(0.2 * torch.randn(c, generator=gen))
             mod.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+
+
+def data_bn_statistics(model, x):
+    """BatchNorm running statistics of the model's own activations, as
+    training leaves them: one train-mode forward of ``x`` in which every
+    BatchNorm keeps none of its old statistics, so each normalises its
+    input to mean 0 and variance 1 and the head's logits stay O(1)."""
+    from tlxcv_tpu_torch.nn import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    kept = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    for m, v in zip(bns, kept):
+        m.momentum = v
 
 
 def phase_resnet(int8_record):
@@ -1145,11 +1187,13 @@ def yolo_int8_check(cpu8, cpu, x1):
     (tests/test_torch_yolov3.py): the float BatchNorm and leaky ReLU
     between the 75 unfolded int8 layers round differently on the two
     devices (torch.rsqrt among them), and a code flipped by one moves the
-    next layer's inputs across further rounding boundaries, until the two
-    chains differ by about as much as either differs from the f32 model
-    (on one H100 80GB HBM3, 1.00-1.07 times that error per level; on the
-    CPU, the same int8 model fed the image perturbed by one f32 ulp drifts
-    by 0.96-1.07 times it).  So the head outputs are held to the int8
+    next layer's inputs across further rounding boundaries (on one H100
+    80GB HBM3 the two chains' head outputs differ by 0.37-0.43 times as
+    much as either differs from the f32 model, and the card's lies
+    0.995-1.003 times as far from it as the CPU's; only 8-34% of the head
+    outputs lie within 4 quantization steps of the CPU's, the steps being
+    small beside the int8 model's own error).  So the head outputs are
+    held to the int8
     model's own error against its f32 model on the CPU, per level: the
     card's int8 model within 1.25 times it of the f32 model (as accurate as
     the CPU's), and within sqrt(2) times it of the CPU's int8 model (two
@@ -1217,39 +1261,42 @@ def yolo_int8_check(cpu8, cpu, x1):
     return card8
 
 
-# bounds on the head outputs, relative to the largest reference value, as
-# for Mask R-CNN: f32 on the card (TF32 off) differs from the CPU by
-# summation order only; bf16 rounds weights and activations to 8 bits
-# through 75 convolutions.  The decode after the heads is reported, not
-# bounded, end to end: at random init some box logits lie near the
-# exp(+-10) clamp and many objectness probabilities near conf_thresh =
-# 0.005, whose cut zeroes a box and its scores, so a head difference of
-# 4e-6 of the scale moved a box corner by 0.95 px and a score by 1.5e-3 of
-# the largest (one H100 80GB HBM3).  The decode and the NMS are each held
-# alone instead: fed the CPU's own inputs in the run's dtype, against the
-# CPU's decode and NMS of the same inputs.
-YOLO_BOUND = {"float32": 1e-3, "bfloat16": 5e-2}
+# f32 on the card (TF32 off) differs from the CPU by summation order only:
+# the head outputs and, end to end, the decoded boxes and scores within
+# YOLO_F32_BOUND of the largest reference value.  A random network whose
+# BatchNorms normalise its own activations is chaotic at init: through its
+# 72 BatchNorms a rounding difference grows by orders of magnitude (the f32
+# heads differ by 5.6e-5 of their max, the bf16 heads from the CPU's f32
+# ones by 18-33%, on one H100 80GB HBM3; the CPU's own bf16 model lies as
+# far from its f32 one).  So bf16 is held, per level, to the CPU's bf16
+# model's rms error against the f32 model: the card's bf16 model within
+# YOLO_BF16_RMS[0] times it of the f32 model (as accurate as the CPU's),
+# and within YOLO_BF16_RMS[1] times it of the CPU's bf16 model (two
+# rounding noises of that size).  The decode and the NMS are each also held
+# alone: fed the CPU's own inputs in the run's dtype, against the CPU's
+# decode and NMS of the same inputs.
+YOLO_F32_BOUND = 1e-3
+YOLO_BF16_RMS = (1.25, math.sqrt(2))
 # the share of the decode's outputs within one bf16 ulp of the CPU's on the
 # same bf16 inputs (sigmoid and exp may round differently on the two
 # devices, and a probability on the conf_thresh cut may flip a box)
 YOLO_BF16_DECODE_SHARE = 0.999
-# the share of the CPU's detections the card reproduces (same label and
-# box), end to end in f32 and, in both dtypes, by the NMS alone on the
-# same inputs.  End to end in bf16 it is reported, not bounded: the random
-# DarkNet's head logits reach +-1,800 (std 340), so about 1.8 x 10^5 of the
-# 851,760 candidate scores of each image are 1.0 in bf16 (and in f32,
-# where the two devices saturate alike), and which 100 survive those ties
-# is decided by rounding (0.075 measured on one H100 80GB HBM3, and on the
-# CPU in bf16).
-YOLO_SHARE_FLOOR = 0.9
+# the share of the CPU's f32 detections the card reproduces (same label and
+# box), end to end, and by the NMS alone on the same inputs.  In bf16 the
+# chaotic heads reorder which of the near-equal candidate scores survive:
+# 0.35 end to end on one H100 80GB HBM3, 0.37 for the CPU's own bf16 model
+YOLO_SHARE_FLOOR = {"float32": 0.9, "bfloat16": 0.25}
+YOLO_NMS_SHARE_FLOOR = 0.9
 
 
 def phase_yolov3():
     """YOLOv3 (``create_model("yolov3", num_classes=80,
-    use_matrix_nms=True)``, random weights and BatchNorm statistics from a
-    seed): f32 and bf16 at b2 416^2 against f32 on the CPU stage by stage;
-    int8 on the card against int8 on the CPU; then the bench legs
-    ``yolov3`` and ``yolov3_int8``, b128 416^2 ``predict``, served."""
+    use_matrix_nms=True)``, random weights from a seed, BatchNorm
+    statistics from one train-mode forward of 2 seeded images): f32 and
+    bf16 at b2 416^2 against f32 on the CPU stage by stage (bf16 beside the
+    CPU's own bf16 model); int8 on the card against int8 on the CPU; then
+    the bench legs ``yolov3`` and ``yolov3_int8``, b128 416^2 ``predict``,
+    served."""
     from tlxcv_tpu_torch import create_model
     from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
                                            quantize_weights)
@@ -1258,38 +1305,45 @@ def phase_yolov3():
     name = "yolov3"
     gen = torch.Generator().manual_seed(0)
     cpu = create_model(name, device="cpu", generator=gen, num_classes=80,
-                       use_matrix_nms=True).eval()
-    random_bn_statistics(cpu, gen)
+                       use_matrix_nms=True)
+    data_bn_statistics(cpu, torch.randn(2, 416, 416, 3, generator=gen))
     card = copy.deepcopy(cpu).cuda()
     x2 = torch.randn(2, 416, 416, 3, generator=gen)
     t0 = time.perf_counter()
     want = yolo_stages(cpu, x2)
     cpu_s = time.perf_counter() - t0
+    keys = ("boxes", "scores")
     for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
         if dtype == torch.bfloat16:
             params_to(card, dtype)
-        dname = str(dtype)[6:]
+            want16 = yolo_stages(params_to(copy.deepcopy(cpu), dtype),
+                                 x2.to(dtype))
         got = yolo_stages(card, x2.to("cuda", dtype))
         errs = {f"head{i}": _rel(g, w)
                 for i, (g, w) in enumerate(zip(got["heads"], want["heads"]))}
-        decoded = {k: _rel(got[k], want[k]) for k in ("boxes", "scores")}
+        decoded = {k: _rel(got[k], want[k]) for k in keys}
         with torch.inference_mode():  # the decode and the NMS alone
             heads = [h.to(dtype) for h in want["heads"]]
             ref = cpu.decode(heads, x2.shape[1:3])
             alone = card.decode([h.cuda() for h in heads], x2.shape[1:3])
-            inputs = [want[k].to(dtype) for k in ("boxes", "scores")]
+            inputs = [want[k].to(dtype) for k in keys]
             ref_dets, _ = cpu.nms(*inputs)
             nms_dets, _ = card.nms(*(t.cuda() for t in inputs))
-        keys = ("boxes", "scores")
+        decoded.update({f"{k}_on_cpu_heads": _rel(g, r)
+                        for k, g, r in zip(keys, alone, ref)})
+        levels = None
         if dtype == torch.float32:
-            errs.update({f"{k}_on_cpu_heads": _rel(g, r)
-                         for k, g, r in zip(keys, alone, ref)})
+            errs.update(decoded)
         else:
-            decoded.update({f"{k}_on_cpu_heads": _rel(g, r)
-                            for k, g, r in zip(keys, alone, ref)})
             decoded.update({f"{k}_on_cpu_heads_share_within_one_ulp":
                             bf16_close_share(g, r)
                             for k, g, r in zip(keys, alone, ref)})
+            levels = [{"rms_card_f32_cpu": _rms(g, w),
+                       "rms_cpu_bf16_f32_cpu": _rms(c, w),
+                       "rms_card_cpu_bf16": _rms(g, c)}
+                      for g, c, w in zip(got["heads"], want16["heads"],
+                                         want["heads"])]
         nms_share = matched_share(ref_dets, nms_dets)
         share = matched_share(want["dets"], got["dets"])
         counts = got["counts"].cpu().tolist()
@@ -1297,32 +1351,40 @@ def phase_yolov3():
                      for k in ("boxes", "scores", "dets"))
         check = {"phase": "model_check", "model": name, "batch": 2,
                  "dtype": dname, "rel_max_abs_err": errs,
-                 "bound": YOLO_BOUND[dname],
+                 "bound": YOLO_F32_BOUND, "levels": levels,
+                 "rms_bound": YOLO_BF16_RMS,
                  "decoded_rel_max_abs_err": decoded, "counts": counts,
                  "cpu_counts": want["counts"].tolist(),
                  "matched_share": share,
-                 "share_floor": YOLO_SHARE_FLOOR
-                 if dtype == torch.float32 else None,
+                 "share_floor": YOLO_SHARE_FLOOR[dname],
+                 "cpu_bf16_matched_share": matched_share(
+                     want["dets"], want16["dets"]) if levels else None,
                  "cpu_scores_at_one": int((inputs[1] == 1).sum()),
                  "nms_share_on_cpu_inputs": nms_share, "finite": finite,
                  "cpu_reference_s": cpu_s}
         emit(check)
         if not finite or min(counts) <= 0:
             raise AssertionError(f"YOLOv3 {dname}: {check}")
-        if max(errs.values()) > YOLO_BOUND[dname]:
-            raise AssertionError(f"YOLOv3 {dname} stages disagree with the "
-                                 f"CPU: {errs}")
-        if dtype == torch.bfloat16 and min(
-                v for k, v in decoded.items() if k.endswith("_ulp")) < \
-                YOLO_BF16_DECODE_SHARE:
+        if dtype == torch.float32 and max(errs.values()) > YOLO_F32_BOUND:
+            raise AssertionError(f"YOLOv3 f32 stages disagree with the CPU: "
+                                 f"{errs}")
+        if levels and any(
+                lv["rms_card_f32_cpu"] > YOLO_BF16_RMS[0]
+                * lv["rms_cpu_bf16_f32_cpu"] or lv["rms_card_cpu_bf16"]
+                > YOLO_BF16_RMS[1] * lv["rms_cpu_bf16_f32_cpu"]
+                for lv in levels):
+            raise AssertionError(f"YOLOv3 bf16 heads less accurate than the "
+                                 f"CPU's bf16 model: {levels}")
+        if levels and min(v for k, v in decoded.items()
+                          if k.endswith("_ulp")) < YOLO_BF16_DECODE_SHARE:
             raise AssertionError(f"YOLOv3 bf16 decode disagrees with the "
                                  f"CPU's on the same inputs: {decoded}")
-        if nms_share < YOLO_SHARE_FLOOR or (
-                dtype == torch.float32 and share < YOLO_SHARE_FLOOR):
+        if nms_share < YOLO_NMS_SHARE_FLOOR or \
+                share < YOLO_SHARE_FLOOR[dname]:
             raise AssertionError(f"YOLOv3 {dname}: {share} of the CPU's "
                                  f"detections matched, {nms_share} by the "
                                  f"NMS alone")
-    del want, got
+    del want, want16, got
 
     # full int8, built as the JAX package's bench builds it: weights, then
     # activations calibrated through head_outputs on 2 images, on the CPU

@@ -244,6 +244,14 @@ def test_create_model_yolov3():
         m.loss_fn({}, {})
 
 
+def test_training_only_options_are_refused():
+    """``gt_iou_thresh`` steers only the training loss's target assignment,
+    which is not ported: the serving model refuses it rather than ignore
+    it."""
+    with pytest.raises(TypeError, match="gt_iou_thresh"):
+        create_model("yolov3", device="cpu", gt_iou_thresh=0.7)
+
+
 # ------------------------------------------------------------------ int8
 def _rms(a, b):
     return float(np.sqrt(np.mean((np.asarray(a, np.float64)

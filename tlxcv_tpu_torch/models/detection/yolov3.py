@@ -146,19 +146,18 @@ class YOLOv3(tnn.Module):
     """The detector.  Eval: ``forward`` returns ``(dets [B, keep_top_k,
     6], counts [B])``, rows [label, score, x1, y1, x2, y2] in input-image
     pixels, invalid rows [-1, 0, 0, 0, 0, 0].  Train mode returns the
-    reference's ``{"head_outs", "input_hw"}``."""
+    reference's ``{"head_outs", "input_hw"}``.  The reference's
+    ``gt_iou_thresh`` is read only by its training loss and comes with it."""
 
     def __init__(self, num_classes=80, anchors=DEFAULT_ANCHORS,
                  anchor_masks=DEFAULT_MASKS, score_threshold=0.01,
                  nms_threshold=0.5, nms_top_k=1000, keep_top_k=100,
                  use_matrix_nms=False, iou_aware=False,
-                 iou_aware_factor=0.4, gt_iou_thresh=1.0, device=None,
-                 generator=None):
+                 iou_aware_factor=0.4, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, generator=generator)
         self.use_matrix_nms = use_matrix_nms
-        self.gt_iou_thresh = gt_iou_thresh
         self.backbone = DarkNet(**kw)
         self.neck = YOLOv3FPN(in_channels=self.backbone.out_channels, **kw)
         self.yolo_head = YOLOv3Head(

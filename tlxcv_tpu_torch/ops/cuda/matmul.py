@@ -78,36 +78,39 @@ def int8_matmul(a, b):
     return int8_matmul_nt(pad_k(a.contiguous()), pad_k(b.t().contiguous()))
 
 
-def _check_kernel_inputs(a, w):
-    if a.device.type != "cuda" or w.device != a.device:
-        raise ValueError(f"int8_matmul runs on CUDA or CPU tensors on one "
-                         f"device, got {a.device} and {w.device}")
-    m, k = a.shape
-    if k % K_ALIGN:
-        raise ValueError(f"the kernel takes K a multiple of {K_ALIGN}, got "
-                         f"{k}; pad with pad_k")
-    if not (a.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the kernel takes contiguous operands")
-    if a.data_ptr() % 16 or w.data_ptr() % 16:
+def _check_device(name, a, b):
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name} runs on CUDA or CPU tensors on one device, "
+                         f"got {a.device} and {b.device}")
+
+
+def _launch(wrapper, symbol, errors, tensors, m, ints, tile_n):
+    """Launch the C entry ``symbol`` of ``wrapper``'s kernel library on the
+    current stream: the tensors' addresses (the output last), ``m`` as a
+    long long, the ``ints`` (N first), the stream.  The grid is
+    ``ceil(m / 128) x ceil(N / tile_n)`` blocks.  Raises with the library's
+    error string ``errors`` if the launch failed; counts a launch on
+    ``wrapper`` otherwise."""
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the kernel takes 16-byte aligned operands")
-    if -(-m // 128) >= 2 ** 31 or -(-w.shape[0] // 64) > 65535:
-        raise ValueError(f"shape {m} x {w.shape[0]} exceeds the kernel's "
-                         f"grid")
-
-
-def _kernel_fn():
-    fn = _build.library("int8_matmul").tlx_int8_matmul_nt
+    if -(-m // 128) >= 2 ** 31 or -(-ints[0] // tile_n) > 65535:
+        raise ValueError(f"shape {m} x {ints[0]} exceeds the kernel's grid")
+    lib = _build.library(wrapper.__name__)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, p]
-        fn.restype = i
-    return fn
-
-
-def _error_string(rc):
-    fn = _build.library("int8_matmul").tlx_int8_error_string
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-    return fn(rc).decode()
+        p = ctypes.c_void_p
+        fn.argtypes = ([p] * len(tensors) + [ctypes.c_longlong]
+                       + [ctypes.c_int] * len(ints) + [p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(tensors[0].device):
+        rc = fn(*(t.data_ptr() for t in tensors), m, *ints,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        err = getattr(lib, errors)
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                           f"{err(rc).decode()} ({rc})")
+    wrapper.launches += 1
 
 
 def int8_matmul_nt(a, w):
@@ -117,18 +120,18 @@ def int8_matmul_nt(a, w):
     _check_operands(a, w, 1)
     if a.device.type == "cpu":
         return int8_matmul_plain(a, w.t())
-    _check_kernel_inputs(a, w)
-    m, n = a.shape[0], w.shape[0]
+    _check_device("int8_matmul", a, w)
+    m, n, k = a.shape[0], w.shape[0], a.shape[1]
+    if k % K_ALIGN:
+        raise ValueError(f"the kernel takes K a multiple of {K_ALIGN}, got "
+                         f"{k}; pad with pad_k")
+    if not (a.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the kernel takes contiguous operands")
     out = torch.empty(m, n, dtype=torch.int32, device=a.device)
-    if m == 0 or n == 0 or a.shape[1] == 0:
+    if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    with torch.cuda.device(a.device):
-        rc = _kernel_fn()(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-                          a.shape[1], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: "
-                           f"{_error_string(rc)} ({rc})")
-    int8_matmul.launches += 1
+    _launch(int8_matmul, "tlx_int8_matmul_nt", "tlx_int8_error_string",
+            (a, w, out), m, (n, k), tile_n=64)
     return out
 
 
@@ -165,15 +168,6 @@ def _pad_to(t, rows, cols):
     return F.pad(t, (0, extra_c, 0, extra_r)) if extra_r or extra_c else t
 
 
-def _bf16_kernel_fn():
-    fn = _build.library("bf16_matmul").tlx_bf16_matmul
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
-        fn.restype = i
-    return fn
-
-
 def bf16_matmul(a, b):
     """``a``: [M, K] bf16, ``b``: [K, N] bf16 -> [M, N] bf16, summed in f32
     and rounded once.  On the card K, and the rows of ``b``, are
@@ -182,9 +176,7 @@ def bf16_matmul(a, b):
     _check_bf16_operands(a, b)
     if a.device.type == "cpu":
         return bf16_matmul_plain(a, b)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"bf16_matmul runs on CUDA or CPU tensors on one "
-                         f"device, got {a.device} and {b.device}")
+    _check_device("bf16_matmul", a, b)
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty(m, n, dtype=torch.bfloat16, device=a.device)
     if m == 0 or n == 0 or k == 0:
@@ -193,20 +185,8 @@ def bf16_matmul(a, b):
     ldb = -(-n // BF16_ALIGN) * BF16_ALIGN
     a = _pad_to(a.contiguous(), m, kp)
     b = _pad_to(b.contiguous(), kp, ldb)
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("the kernel takes 16-byte aligned operands")
-    if -(-m // 128) >= 2 ** 31 or -(-n // 128) > 65535:
-        raise ValueError(f"shape {m} x {n} exceeds the kernel's grid")
-    with torch.cuda.device(a.device):
-        rc = _bf16_kernel_fn()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                               n, kp, ldb,
-                               torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        fn = _build.library("bf16_matmul").tlx_bf16_error_string
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"bf16_matmul kernel launch failed: "
-                           f"{fn(rc).decode()} ({rc})")
-    bf16_matmul.launches += 1
+    _launch(bf16_matmul, "tlx_bf16_matmul", "tlx_bf16_error_string",
+            (a, b, out), m, (n, kp, ldb), tile_n=128)
     return out
 
 
