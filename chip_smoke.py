@@ -6,6 +6,13 @@
                                       # and the idle shares of Mask R-CNN
                                       # and YOLOv3, served, and of a Mask
                                       # R-CNN training step
+    python3 chip_smoke.py --kernels   # only the flash-attention and bf16
+                                      # GEMM kernels, checked, timed and
+                                      # profiled, the GEMM probe, and
+                                      # ViT-B/16; no contract line
+    python3 chip_smoke.py --vit       # only ViT-B/16, checked and served
+                                      # (to compare two trees: copy this
+                                      # file into the other's root)
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -13,9 +20,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    CUDA versions; every kernel under tlxcv_tpu_torch/csrc/ is built with
    nvcc for sm_90a, one nvcc per source, all started together.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the edge cases of its contract, with the
-   tolerance and its reason; then the kernel's, the plain version's and
-   the library call's times (CUDA events, medians) beside the bound.
+   the main path's shapes and at the edge cases of its contract (flash
+   attention also at S = 1, 65, 129 and 577 for every head dim), with the
+   tolerance and its reason; a backward through the card's attention must
+   raise NotImplementedError; then the kernel's, the plain version's and
+   the library call's times beside the bound (flash attention and the
+   bf16 GEMM: device time from CUDA-graph replays, and CUDA events around
+   each call beside it; the others: CUDA events, medians).
 3. model: ViT-B/16 at full width and depth, random weights from a seed,
    built by ``create_model`` on the card.  f32 and bf16 logits against
    the same weights run in f32 on the CPU; exactly 12 attention kernel
@@ -191,7 +202,7 @@ def phase_environment():
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "entry function" in ln or "registers" in ln
-                    or "spill" in ln]
+                    or "spill" in ln or "arning" in ln]
              for name, log in _build.build_logs.items()}
     emit({"phase": "environment", "card": card,
           "device": torch.cuda.get_device_name(0),
@@ -224,6 +235,9 @@ def phase_kernels():
             ("first_kv_tile_masked", 4, 128, 32, dtype, "block_diag"),
             ("row_fully_masked", 4, 100, 64, dtype, "row0_masked"),
         ]
+        # ragged S against the 64-row and 128-row tiles, at every head dim
+        cases += [(f"s{s}_d{d}", 8, s, d, dtype, None)
+                  for d in (32, 64, 96, 128) for s in (1, 65, 129, 577)]
     results = []
     for i, (name, bh, s, d, dtype, bias_kind) in enumerate(cases):
         q, k, v = qkv(bh, s, d, dtype, seed=i,
@@ -256,19 +270,28 @@ def phase_kernels():
             raise AssertionError(f"flash_attention {name} {dtype}: "
                                  f"max |err| {err} > {tol[dtype]}")
     emit({"phase": "kernels", "flash_attention": results})
+    emit({"phase": "kernels", "flash_backward_raises": backward_raises()})
 
+    # ms and library_ms: device time from CUDA-graph replays; event_ms and
+    # library_event_ms: CUDA events around each call, which also count the
+    # host's launch cost where it exceeds the call's device time (the
+    # wrapper's Python and ctypes here)
     timings = {}
     for dtype in (bf, f32):
         bh, s, d = 768, 197, 64
         q, k, v = qkv(bh, s, d, dtype, seed=7, heads=12)  # as served
         bound, bound_by = attention_bound_ms(bh, s, d, dtype)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
         timings[str(dtype).split(".")[-1]] = {
             "shape": [bh, s, d],
-            "ms": time_ms(lambda: flash_attention(q, k, v)),
+            "ms": graph_ms(lambda: flash_attention(q, k, v)),
+            "event_ms": time_ms(lambda: flash_attention(q, k, v)),
             "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v)),
+            "library_ms": graph_ms(sdpa),
+            "library_event_ms": time_ms(sdpa),
             "bound_ms": bound, "bound_us": 1e3 * bound, "bound_by": bound_by}
     emit({"phase": "kernel_times", "flash_attention": timings})
     main = next(r for r in results
@@ -278,6 +301,57 @@ def phase_kernels():
             "source": "tlxcv_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tlxcv_tpu/ops/pallas/attention.py:39",
             "max_abs_err": main["max_abs_err"], **timings["bfloat16"]}
+
+
+def backward_raises():
+    """A backward through the card's attention raises NotImplementedError
+    (there is no backward kernel yet) instead of handing back zeros."""
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+
+    q, k, v = (t.requires_grad_() for t in
+               qkv(24, 197, 64, torch.bfloat16, seed=9, heads=12))
+    out = flash_attention(q, k, v)
+    if out.grad_fn is None:
+        raise AssertionError("the card's attention output has no grad_fn")
+    try:
+        out.float().sum().backward()
+    except NotImplementedError:
+        return True
+    raise AssertionError("a backward through the card's attention did not "
+                         "raise")
+
+
+def phase_kernel_profile():
+    """torch.profiler over 20 calls of each redesigned kernel and of its
+    library counterpart at the served shapes: device time per call by
+    kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+    from tlxcv_tpu_torch.ops.cuda.matmul import bf16_matmul
+
+    q, k, v = qkv(768, 197, 64, torch.bfloat16, seed=7, heads=12)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a, b = (torch.randn(4096, 4096, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    calls = {
+        "flash_attention_768x197x64_packed": lambda: flash_attention(q, k, v),
+        "sdpa_768x197x64_packed":
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        "bf16_matmul_4096": lambda: bf16_matmul(a, b),
+        "torch_matmul_4096": lambda: torch.matmul(a, b),
+    }
+    for name, fn in calls.items():
+        with torch.inference_mode():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+        emit_profile(prof, name, 20, None)
 
 
 def phase_model(record):
@@ -543,11 +617,15 @@ def phase_bf16_kernels():
     saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:
+        # ms and library_ms from CUDA-graph replays, the event times beside
+        # them (as for flash_attention)
         timing = {"shape": [m, k, n],
-                  "ms": time_ms(lambda: bf16_matmul(a, b)),
+                  "ms": graph_ms(lambda: bf16_matmul(a, b)),
+                  "event_ms": time_ms(lambda: bf16_matmul(a, b)),
                   "plain_ms": time_ms(lambda: bf16_matmul_plain(a, b),
                                       reps=10),
-                  "library_ms": time_ms(lambda: torch.matmul(a, b))}
+                  "library_ms": graph_ms(lambda: torch.matmul(a, b)),
+                  "library_event_ms": time_ms(lambda: torch.matmul(a, b))}
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             saved
@@ -1891,7 +1969,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
     phase_environment()
+    if "--vit" in sys.argv[1:]:  # ViT-B/16 checked and served, alone
+        phase_model({})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
+    if "--kernels" in sys.argv[1:]:  # the redesigned kernels alone
+        bf16 = phase_bf16_kernels()
+        phase_probe(bf16)
+        phase_kernel_profile()
+        phase_model(flash)
+        emit({"kernels": [flash, bf16]})
+        print(card_line(), flush=True)
+        return 0
     int8 = phase_int8_kernels()
     bf16 = phase_bf16_kernels()
     phase_probe(bf16)

@@ -183,3 +183,31 @@ def test_mha_matches_jax(rng, with_mask):
         got = tm(_t(x), mask=None if mask is None else _t(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     assert jax.default_backend() == "cpu"
+
+
+def test_card_call_is_a_function_whose_backward_raises(monkeypatch, rng):
+    """The card's call is an autograd node: its output has a ``grad_fn``
+    and a backward through it raises instead of handing back zeros.  Here
+    the kernel launch is the plain version, so the Function runs on the
+    CPU; its forward is the plain result."""
+    import tlxcv_tpu_torch.ops.cuda.attention as A
+
+    def plain_launch(q, k, v, bias, scale):
+        out = flash_attention_plain(q, k, v, bias, scale)
+        return out if q.ndim == 3 else out.transpose(1, 2).contiguous()
+
+    monkeypatch.setattr(A, "_launch_kernel", plain_launch)
+    b, h, s, d = 2, 3, 20, 32
+    packed = torch.from_numpy(
+        rng.normal(size=(b, s, 3, h, d)).astype(np.float32))
+    packed.requires_grad_()
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    out = A._FlashAttention.apply(q, k, v, None, d ** -0.5)
+    assert out.grad_fn is not None and out.shape == (b, s, h, d)
+    want = flash_attention_plain(q, k, v).transpose(1, 2)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+        out.sum().backward()
+    assert packed.grad is None
+    with torch.no_grad():  # no graph, nothing to raise
+        assert A._FlashAttention.apply(q, k, v, None, 0.5).grad_fn is None

@@ -95,6 +95,67 @@ def test_masked_rows_match_plain(cuda, dtype):
     torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
 
 
+_S_EDGES = (1, 63, 64, 65, 128, 129, 197, 577)  # about the 64/128-row tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("s", _S_EDGES)
+def test_kernel_matches_plain_at_ragged_s(cuda, dtype, d, s):
+    """Every head dim at S about the tile edges: no bias, per-BH bias and
+    shared bias, [BH, S, D] and packed [B, H, S, D] views."""
+    g = torch.Generator(device=cuda).manual_seed(s * d)
+    b, h = 2, 3
+    packed = torch.randn(b, s, 3, h, d, generator=g, device=cuda).to(dtype)
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    flat = [t.reshape(b * h, s, d).contiguous() for t in (q, k, v)]
+    per_bh = torch.randn(b * h, s, s, generator=g, device=cuda)
+    for args, bias in ((flat, None), (flat, per_bh), (flat, per_bh[:1]),
+                       ((q, k, v), None), ((q, k, v), per_bh)):
+        out = flash_attention(*args, bias=bias)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == args[0].shape
+        ref = flash_attention_plain(*(t.float() for t in args), bias)
+        torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype],
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_fully_masked_row_averages_v(cuda, dtype, d):
+    """A row masked across all of S: every real key gets the clamped bias,
+    so P is uniform over the S keys and the row is mean(v) (the pinned
+    divergence, tests/test_torch_attention.py), at S past one k/v tile."""
+    s = 130
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(4, s, d, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    bias = torch.zeros(1, s, s, device=cuda)
+    bias[0, 5] = float("-inf")
+    out = flash_attention(q, k, v, bias=bias)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[:, 5].float(), v.float().mean(1),
+                               atol=_TOL[dtype], rtol=0)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), bias)
+    torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
+
+
+def test_backward_through_the_card_raises(cuda):
+    """A loss that needs the patch embedding's gradient, through a micro
+    ViT's attention on the card (head dim 32, the kernel's smallest): the
+    backward raises NotImplementedError (no backward kernel yet) instead
+    of handing back zero gradients."""
+    model = create_model("vit_base_patch16_224", img_size=32, patch_size=8,
+                         embed_dim=128, depth=2, num_heads=4, qkv_bias=True,
+                         num_classes=10,
+                         generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    loss = torch.logsumexp(model(x), -1).mean()
+    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+        loss.backward()
+    assert model.patch_embed.proj.weight.grad is None
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 16, 48, device=cuda)
     with pytest.raises(ValueError):  # head dim
@@ -536,12 +597,15 @@ def test_mask_rcnn_training_step_launches_all_three_kernels(cuda):
 # ------------------------------------------------------------ bf16 GEMM
 @pytest.mark.parametrize("m,k,n", [
     (1000, 520, 1000), (1, 64, 9), (129, 1001, 77), (257, 4096, 130),
+    (1, 4096, 4096), (4096, 4096, 1), (129, 64, 77), (300, 9, 260),
+    (64, 512, 513),
 ])
 def test_bf16_kernel_matches_plain(cuda, m, k, n):
-    """Ragged M and N, a K the wrapper pads to a multiple of 8.  Both sum in
+    """Ragged M and N, one row, one column, K the wrapper pads to a
+    multiple of 8 (from 9 and 1001), N past one 256-wide tile.  Both sum in
     f32 and round once, in other orders: each element within one bf16 ulp
     of the larger result plus the f32 reordering bound 2 (K - 1) 2^-24
-    sum_k |a_ik b_kj|."""
+    sum_k |a_ik b_kj|; integer operands, whose sums are exact, bitwise."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
     b = torch.randn(k, n, generator=g, device=cuda).to(torch.bfloat16)
@@ -555,6 +619,19 @@ def test_bf16_kernel_matches_plain(cuda, m, k, n):
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
     reorder = 2 * (k - 1) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
     assert bool(((got.float() - want).abs() <= ulp + reorder).all())
+    ai, bi = (torch.randint(-4, 5, t.shape, generator=g, device=cuda).to(
+        torch.bfloat16) for t in (a, b))
+    assert torch.equal(bf16_matmul(ai, bi), bf16_matmul_plain(ai, bi))
+
+
+def test_bf16_kernel_is_exact_at_4096_cubed(cuda):
+    """Integer operands at the probe's 4096^3: every partial sum exact in
+    f32 (|sum| <= 4096 * 16), so the kernel and the plain version agree
+    bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a, b = (torch.randint(-4, 5, (4096, 4096), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    assert torch.equal(bf16_matmul(a, b), bf16_matmul_plain(a, b))
 
 
 def test_bf16_kernel_is_exact_on_exact_sums(cuda):

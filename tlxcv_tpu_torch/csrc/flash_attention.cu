@@ -13,47 +13,66 @@
 // cores, not memory, become the limit.  So the bound is the bytes of q, k,
 // v and o.  The design reads each q tile once, streams k and v tiles
 // through shared memory, and keeps the S x S scores and probabilities in
-// registers: the only device-memory traffic is q, k, v (k and v once per
-// 64-row query tile) and o.
+// registers: the only device-memory traffic is q, k, v and o, with k and v
+// read again from L2 by a head's other query tiles.
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later):
-// - one thread block per (bh, tile of 64 query rows); a loop inside the block
-//   walks 64-row k/v tiles staged in shared memory (the TPU kernel's
-//   sequential kv grid axis);
-// - bf16: 4 warps, each owning 16 query rows.  Both products run on the
-//   tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate).  The
-//   scores' accumulator fragments are re-packed in registers as the A operand
-//   of P.V, so P never touches shared memory.  K/V tiles are double-buffered
-//   with cp.async, so the copy of the next tile overlaps the products of the
-//   current one; V's fragments come from ldmatrix.trans of the row-major
-//   tile.  Key tiles wholly past S, and warps whose rows all lie past S (at
-//   S = 197 three of the last query tile's four), skip their products;
-// - f32: the tensor cores would round to TF32, so this path runs on the f32
-//   FMA units: 256 threads, four per query row, scores and P in shared memory;
-// - q, k, v and o are addressed through (batch, head, row) strides, so a
-//   ViT block's packed qkv projection feeds the kernel in place and o is
-//   written token-major: no copies around the call;
-// - online softmax per row, rescaled per k/v tile and normalised once at the
-//   end (equal in exact arithmetic to the TPU kernel's per-step rescale);
-// - columns past S get probability exactly 0, so a row whose every real key
-//   is masked averages v over its S keys and stays finite.
+// bf16 design (warp-specialised, TMA + wgmma):
+// - one block per (bh, tile of 64 query rows), the query tiles of one head
+//   next to each other in the grid, so a head's k and v come from L2 after
+//   its first tile; 160 threads: one consumer warpgroup of 64 rows (wgmma's
+//   M) and one producer warp (kRowsQ below says why not two);
+// - the producer's one thread loads the q tile once and the 64-key k and v
+//   tiles into a 2-stage ring by TMA, through 4D tensor maps over the
+//   strided (D, S, H, B) views (so a ViT block's packed qkv projection is
+//   read in place), in boxes of 32 columns (64 bytes, which divide every
+//   head dim: 32, 64, 96, 128) stored with TMA's 64-byte swizzle;
+//   out-of-range rows are zero-filled by TMA; per stage a full barrier for
+//   k, one for v, and an empty barrier the consumers release;
+// - S = Q K^T by wgmma m64n64k16 from shared memory (both K-major); the
+//   online softmax stays in registers, in the accumulator layout; P is
+//   rounded to bf16 in registers and is wgmma's register A operand for
+//   O += P V (m64nDk16, V MN-major from shared memory), so neither S nor P
+//   touches shared memory;
+// - the bias, whose rows (4 S bytes) TMA cannot address, is read with
+//   plain loads; o is stored from registers through its strides (ViT's
+//   token-major layout), rows past S skipped;
+// - rows and keys past S are computed as padding (at S = 197: 256 of
+//   each); skipping a warp's dead rows, key groups or k16 steps past S in
+//   the last tile measured slower at ViT's shape and is left out;
+// - the exponentials run on the special-function unit in log2 units
+//   (ex2.approx.ftz; without bias, log2(e) is folded into the scale);
+// - up to four blocks share an SM at D = 64 (41 KB of shared memory, 160
+//   threads of 92 registers each), so one block's loads and epilogue
+//   overlap the others' products.
+// f32 design: the tensor cores would round to TF32, so this path runs on
+// the f32 FMA units: 256 threads, four per query row, one block per (bh,
+// 64-row tile), scores and P in shared memory.
+//
+// Both paths: online softmax per row, rescaled per k/v tile and normalised
+// once at the end (equal in exact arithmetic to the TPU kernel's per-step
+// rescale); columns past S get probability exactly 0, so a row whose every
+// real key is masked averages v over its S keys and stays finite.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace tlx;
+
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
-constexpr int kBlockQ = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockQ = 64;  // f32 path
 constexpr int kBlockK = 64;
-static_assert(kBlockQ == kBlockK, "one row loader stages Q, K and V");
 
 // Element strides of (batch, head, row) for q, k, v and o; the head dim is
-// contiguous.  Block x of the grid is bh = batch * heads + head, so q, k and
-// v can be strided views into the packed qkv projection, and o can be
-// written token-major, with no copies around the kernel.
+// contiguous.  q, k and v can be strided views into the packed qkv
+// projection, and o can be written token-major, with no copies around the
+// kernel.
 struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
@@ -170,256 +189,6 @@ constexpr size_t smem_f32() {
   return (3 * kBlockQ * (D + 1) + kBlockQ * (kBlockK + 1)) * sizeof(float);
 }
 
-// --------------------------------------------------------------- bf16 path
-constexpr int kThreadsBf16 = 128;  // four warps of 16 query rows
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16-byte global -> shared copy that bypasses registers; when !valid it
-// writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four transposed 8x8 b16 tiles; lanes 8i..8i+7 give the row addresses of
-// tile i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBf16)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-               int S, int H, Strides st, long long bias_bh_stride,
-               float scale) {
-  // Rows padded by 8 bf16 (16 bytes): a warp's 32-bit fragment reads and
-  // ldmatrix row reads then fall on 32 distinct banks, and every row
-  // starts 16-byte aligned for cp.async.
-  constexpr int LD = D + 8;
-  constexpr int VEC = 8;           // bf16 in one 16-byte copy
-  constexpr int CPR = D / VEC;     // 16-byte chunks in a row
-  constexpr int KS = D / 16;       // mma k-steps over the head dim
-  constexpr int NT = kBlockK / 8;  // 8-key column tiles of the scores
-  constexpr int DT = D / 8;        // 8-dim column tiles of the output
-  constexpr int TILE = kBlockK * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Q tile, then two stages of (K tile, V tile): the next k/v tile is in
-  // flight while the current one is used.
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* skv = sq + kBlockQ * LD;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int wr = (tid >> 5) * 16;  // the warp's first row in the tile
-  const int lane = tid & 31;
-  const int g = lane >> 2;         // fragment row (and row + 8)
-  const int t = lane & 3;          // fragment column pair
-  const int n_kv = (S + kBlockK - 1) / kBlockK;
-  const int b = bh / H, h = bh % H;
-  // src: the (batch, head) slice; ss: its row stride
-  auto load_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
-                       long long ss, int r0) {
-    for (int i = tid; i < kBlockK * CPR; i += kThreadsBf16) {
-      const int row = i / CPR, c = i % CPR, gr = r0 + row;
-      const bool ok = gr < S;  // rows past S are zero-filled
-      cp_async16(dst + row * LD + c * VEC, src + (ok ? gr : 0) * ss + c * VEC,
-                 ok);
-    }
-  };
-  const __nv_bfloat16* qs = q + b * st.q[0] + h * st.q[1];
-  const __nv_bfloat16* ks = k + b * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vs = v + b * st.v[0] + h * st.v[1];
-  __nv_bfloat16* os = o + b * st.o[0] + h * st.o[1];
-  load_rows(sq, qs, st.q[2], q0);
-  load_rows(skv, ks, st.k[2], 0);
-  load_rows(skv + TILE, vs, st.v[2], 0);
-  cp_async_commit();
-
-  const bool live = q0 + wr < S;  // the warp holds at least one real row
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const float* br0 =
-      bias ? bias + bh * bias_bh_stride + (size_t)min(row0, S - 1) * S
-           : nullptr;
-  const float* br1 =
-      bias ? bias + bh * bias_bh_stride + (size_t)min(row1, S - 1) * S
-           : nullptr;
-  uint32_t qa[KS][4];  // the warp's 16 query rows as mma A fragments
-  float oacc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    oacc[dt][0] = oacc[dt][1] = oacc[dt][2] = oacc[dt][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBlockK;
-    if (j + 1 < n_kv) {
-      __nv_bfloat16* next = skv + ((j + 1) & 1) * 2 * TILE;
-      load_rows(next, ks, st.k[2], k0 + kBlockK);
-      load_rows(next + TILE, vs, st.v[2], k0 + kBlockK);
-      cp_async_commit();
-      cp_async_wait<1>();  // everything but the tile just requested
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* p0 = sq + (wr + g) * LD + ks * 16 + t * 2;
-        const __nv_bfloat16* p1 = p0 + 8 * LD;
-        qa[ks][0] = ld32(p0);
-        qa[ks][1] = ld32(p1);
-        qa[ks][2] = ld32(p0 + 8);
-        qa[ks][3] = ld32(p1 + 8);
-      }
-    }
-    const __nv_bfloat16* sk = skv + (j & 1) * 2 * TILE;
-    const __nv_bfloat16* sv = sk + TILE;
-    if (live) {
-      // scores: sc[nt] holds rows (g, g+8) x keys (nt*8 + 2t, nt*8 + 2t + 1)
-      float sc[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-        if (k0 + nt * 8 < S) {  // key tiles wholly past S are skipped
-          const __nv_bfloat16* kp = sk + (nt * 8 + g) * LD + t * 2;
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            mma_16816(sc[nt], qa[ks], ld32(kp + ks * 16),
-                      ld32(kp + ks * 16 + 8));
-        }
-      }
-      float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + nt * 8 + t * 2 + e;
-          float x0 = sc[nt][e] * scale, x1 = sc[nt][2 + e] * scale;
-          if (br0) {
-            if (col < S) {
-              x0 += br0[col];
-              x1 += br1[col];
-            }
-            x0 = fmaxf(x0, kNeg);
-            x1 = fmaxf(x1, kNeg);
-          }
-          if (col >= S) x0 = x1 = -INFINITY;
-          sc[nt][e] = x0;
-          sc[nt][2 + e] = x1;
-          mt0 = fmaxf(mt0, x0);
-          mt1 = fmaxf(mt1, x1);
-        }
-      }
-      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
-      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
-      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
-      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
-      const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= a0;
-      l1 *= a1;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        oacc[dt][0] *= a0;
-        oacc[dt][1] *= a0;
-        oacc[dt][2] *= a1;
-        oacc[dt][3] *= a1;
-      }
-      // P in f32 for the sums, cast to bf16 as the A operand of P.V: score
-      // tiles 2kk and 2kk+1 are exactly the A fragment of keys 16kk..16kk+15.
-      uint32_t pa[NT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float p0 = expf(sc[nt][0] - m0), p1 = expf(sc[nt][1] - m0);
-        const float p2 = expf(sc[nt][2] - m1), p3 = expf(sc[nt][3] - m1);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-      // V's B fragments by transposed ldmatrix: tiles (keys 0-7, dims dt),
-      // (keys 8-15, dims dt), then the same for dims dt + 1.
-      const int vkey = (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int vdim = (lane >> 4) * 8;
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        if (k0 + kk * 16 < S) {
-#pragma unroll
-          for (int dt = 0; dt < DT; dt += 2) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, sv + (kk * 16 + vkey) * LD + dt * 8 + vdim);
-            mma_16816(oacc[dt], pa[kk], b[0], b[1]);
-            mma_16816(oacc[dt + 1], pa[kk], b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + t * 2;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(os + row0 * st.o[2] + col) =
-          __floats2bfloat162_rn(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(os + row1 * st.o[2] + col) =
-          __floats2bfloat162_rn(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
-  }
-}
-
-template <int D>
-constexpr size_t smem_bf16() {
-  return (kBlockQ + 4 * kBlockK) * (D + 8) * sizeof(__nv_bfloat16);
-}
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
@@ -427,7 +196,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const Strides& st, long long bias_bh_stride,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_f32<D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  static cudaError_t err = cudaFuncSetAttribute(  // once per process
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
@@ -438,31 +207,337 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// --------------------------------------------------------------- bf16 path
+// Query rows per block: one consumer warpgroup of 64 rows (wgmma's M).
+// Two warpgroups a block (128 rows) measured slower at every shape of
+// chip_smoke.py's kernel cases on the H100: four independent blocks an
+// SM hide each other's prologue better than two blocks of two.
+constexpr int kRowsQ = 64;
+constexpr int kKeys = 64;     // keys per k/v tile
+constexpr int kStages = 2;
+constexpr int kThreadsBf16 = 160;  // the consumer warpgroup + 1 producer warp
+constexpr int kChunk = 32;    // head-dim columns per TMA box: 64 bytes
+
+template <int D>
+struct Layout {
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kQChunk = kRowsQ * kChunk * 2;
+  static constexpr int kKVChunk = kKeys * kChunk * 2;   // 4 KB
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kTileBytes = kChunks * kKVChunk;  // one k or v tile
+  static constexpr int kStageBytes = 2 * kTileBytes;     // k, then v
+  // barriers: q, k full x kStages, v full x kStages, empty x kStages
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 3 * kStages);
+};
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (a
+// probability below 2^-126 adds nothing at bf16 or f32 precision here).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x is the low half
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// A box of `rows` rows x 32 columns of the (D, S, H, B) view at (col, row,
+// h, b); `swap` says the map lists H before S (the smaller stride first).
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, bool swap, int col,
+                                          int row, int h, int b) {
+  if (swap)
+    tma_load_4d(dst, map, bar, col, h, row, b);
+  else
+    tma_load_4d(dst, map, bar, col, row, h, b);
+}
+
+// No minimum of blocks an SM: a register cap made the bias variants spill
+// and gained nothing at ViT's shape, where blocks of 92 registers share an
+// SM anyway.
+template <int D, bool kBias>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
+               int S, int H, long long o_b, long long o_h, long long o_row,
+               long long bias_bh_stride, float scale, int swaps) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = sq + L::kQBytes;
+  const uint32_t bar_q = sq + L::kBarOffset;
+  const uint32_t bar_k = bar_q + 8;                  // + 8 s
+  const uint32_t bar_v = bar_k + 8 * kStages;        // + 8 s
+  const uint32_t bar_empty = bar_v + 8 * kStages;    // + 8 s
+
+  const int n_qt = (S + kRowsQ - 1) / kRowsQ;
+  const int bh = blockIdx.x / n_qt;  // a head's query tiles are adjacent
+  const int q0 = (blockIdx.x % n_qt) * kRowsQ;
+  const int b = bh / H, h = bh % H;
+  const int n_kv = (S + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---------------------------------------------------------- producer
+    if (threadIdx.x != 128) return;
+    mbar_expect_tx(bar_q, L::kQBytes);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c)
+      load_rows(sq + c * L::kQChunk, &map_q, bar_q, swaps & 1, c * kChunk, q0,
+                h, b);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+      const uint32_t sk = ring + s * L::kStageBytes;
+      const uint32_t sv = sk + L::kTileBytes;
+      mbar_expect_tx(bar_k + 8 * s, L::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c)
+        load_rows(sk + c * L::kKVChunk, &map_k, bar_k + 8 * s, swaps & 2,
+                  c * kChunk, j * kKeys, h, b);
+      mbar_expect_tx(bar_v + 8 * s, L::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c)
+        load_rows(sv + c * L::kKVChunk, &map_v, bar_v + 8 * s, swaps & 4,
+                  c * kChunk, j * kKeys, h, b);
+    }
+    return;
+  }
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int row0 = q0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const float* br0 = nullptr;
+  const float* br1 = nullptr;
+  if (kBias) {
+    const float* bb = bias + bh * bias_bh_stride;
+    br0 = bb + static_cast<long long>(min(row0, S - 1)) * S;
+    br1 = bb + static_cast<long long>(min(row1, S - 1)) * S;
+  }
+  // without bias the scores are kept in log2 units (scaled by scale*log2e);
+  // with bias in natural units, since the clamp value times log2e would
+  // overflow to -inf
+  const float sc = kBias ? scale : scale * kLog2e;
+
+  float sacc[kKeys / 2];  // S: rows (row0, row1) x 64 keys
+  float oacc[D / 2];      // O: rows (row0, row1) x D
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows row0, row1
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const uint32_t phase = (j / kStages) & 1;
+    const uint32_t sk = ring + s * L::kStageBytes;
+    const uint32_t sv = sk + L::kTileBytes;
+    const int k0 = j * kKeys;
+
+    // S = Q K^T: k16 steps along the head dim, two per 32-column chunk
+    mbar_wait(bar_k + 8 * s, phase);
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks & 1) * 32;
+      wgmma_ss<kKeys, 0>(
+          sacc,
+          smem_desc(sq + (ks >> 1) * L::kQChunk + off, 16, 512, kSwizzle64B),
+          smem_desc(sk + (ks >> 1) * L::kKVChunk + off, 16, 512, kSwizzle64B),
+          ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // online softmax on the accumulator: sacc[4 jj + e] is row row0 (e < 2)
+    // or row1, key k0 + 8 jj + 2 t + (e & 1)
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+    const bool ragged = k0 + kKeys > S;
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      float x;
+      if (kBias) {
+        const float* br = (i & 2) ? br1 : br0;
+        x = fmaxf(fmaf(sacc[i], sc, col < S ? br[col] : 0.f), kNeg);
+      } else {
+        x = sacc[i] * sc;
+      }
+      if (ragged && col >= S) x = -INFINITY;
+      sacc[i] = x;
+      if (i & 2)
+        mt1 = fmaxf(mt1, x);
+      else
+        mt0 = fmaxf(mt0, x);
+    }
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    // exp of a difference, in log2 units: the clamp value -0.7 FLT_MAX
+    // minus itself is 0
+    const float u = kBias ? kLog2e : 1.f;
+    const float a0 = exp2_ftz((m0 - mn0) * u);
+    const float a1 = exp2_ftz((m1 - mn1) * u);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+    uint32_t pa[kKeys / 16][4];  // P as the A fragments of 4 k16 steps
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; i += 2) {
+      const float mi = (i & 2) ? m1 : m0;
+      const float p0 = exp2_ftz((sacc[i] - mi) * u);
+      const float p1 = exp2_ftz((sacc[i + 1] - mi) * u);
+      if (i & 2)
+        l1 += p0 + p1;
+      else
+        l0 += p0 + p1;
+      // key group jj = i / 4: A register (jj & 1) * 2 + (row1 ? 1 : 0) of
+      // k16 step jj / 2
+      pa[i / 8][((i / 4) & 1) * 2 + ((i & 2) ? 1 : 0)] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+
+    // O += P V: k16 steps along the keys, 16 rows (1024 bytes) of the
+    // MN-major V tile each; 32-column chunks of V 4 KB apart (LBO)
+    mbar_wait(bar_v + 8 * s, phase);
+    fence_regs(oacc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<D>(oacc, pa[kk],
+                  smem_desc(sv + kk * 16 * (kChunk * 2), L::kKVChunk, 512,
+                            kSwizzle64B),
+                  1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    if (threadIdx.x % 128 == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  __nv_bfloat16* ob = o + b * o_b + h * o_h;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_row + col) =
+          __floats2bfloat162_rn(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * o_row + col) =
+          __floats2bfloat162_rn(oacc[4 * jj + 2] * inv1,
+                                oacc[4 * jj + 3] * inv1);
+  }
+}
+
+// A 4D map over the (D, S, H, B) view of a bf16 tensor with element
+// strides st = (batch, head, row), in boxes of 32 columns x `rows` rows.
+// The dims are listed by growing stride (H before S for a packed qkv view,
+// whose head stride is below its row stride): *swap says which.
+bool make_view_map(CUtensorMap* map, const void* base, const long long* st,
+                   int batch, int heads, int s, int d, int rows, bool* swap) {
+  const long long bs = batch == 1 ? (st[1] * heads + st[2] * s) : st[0];
+  *swap = st[1] < st[2];
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d),
+      static_cast<cuuint64_t>(*swap ? heads : s),
+      static_cast<cuuint64_t>(*swap ? s : heads),
+      static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      e * static_cast<cuuint64_t>(*swap ? st[1] : st[2]),
+      e * static_cast<cuuint64_t>(*swap ? st[2] : st[1]),
+      e * static_cast<cuuint64_t>(bs)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kChunk),
+                             static_cast<cuuint32_t>(*swap ? 1 : rows),
+                             static_cast<cuuint32_t>(*swap ? rows : 1), 1};
+  return make_bf16_map(map, base, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <int D, bool kBias>
+cudaError_t launch_bf16_kind(const CUtensorMap* maps, const float* bias,
+                             void* o, int bh, int s, int heads,
+                             const Strides& st, long long bias_bh_stride,
+                             float scale, int swaps, cudaStream_t stream) {
+  constexpr size_t smem = Layout<D>::kSmem;
+  static cudaError_t err = cudaFuncSetAttribute(  // once per process
+      flash_fwd_bf16<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>(bh) * ((s + kRowsQ - 1) / kRowsQ);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  flash_fwd_bf16<D, kBias><<<static_cast<unsigned>(blocks), kThreadsBf16,
+                             smem, stream>>>(
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), s,
+      heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const float* bias, void* o, int bh, int s, int heads,
-                        const Strides& st, long long bias_bh_stride,
+                        const float* bias, void* o, int batch, int heads,
+                        int s, const Strides& st, long long bias_bh_stride,
                         float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bf16<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
-  flash_fwd_bf16<D><<<grid, kThreadsBf16, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias,
-      static_cast<__nv_bfloat16*>(o), s, heads, st, bias_bh_stride, scale);
-  return cudaGetLastError();
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const long long* strides[3] = {st.q, st.k, st.v};
+  int swaps = 0;
+  for (int i = 0; i < 3; ++i) {
+    bool swap;
+    if (!make_view_map(&maps[i], bases[i], strides[i], batch, heads, s, D,
+                       i == 0 ? kRowsQ : kKeys, &swap))
+      return cudaErrorInvalidValue;
+    swaps |= swap << i;
+  }
+  const int bh = batch * heads;
+  if (bias != nullptr)
+    return launch_bf16_kind<D, true>(maps, bias, o, bh, s, heads, st,
+                                     bias_bh_stride, scale, swaps, stream);
+  return launch_bf16_kind<D, false>(maps, bias, o, bh, s, heads, st,
+                                    bias_bh_stride, scale, swaps, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: [batch, heads, s, d] given by element strides (12 values:
 // batch, head and row strides of q, k, v, o in turn), the head dim
-// contiguous; all f32 or all bf16 (is_bf16), every row 16-byte aligned.
+// contiguous; all f32 or all bf16 (is_bf16), every row 16-byte aligned, and
+// for bf16 every stride a whole number of 16-byte units.
 // bias: null or contiguous f32 [1 or batch*heads, s, s] (bias_per_bh).
 // Launches on `stream` without synchronising; returns the cudaError_t of
-// the launch.
+// the launch (cudaErrorInvalidValue also when the driver refuses a tensor
+// map).
 extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* o, int batch, int heads, int s,
@@ -480,24 +555,27 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
     st.o[i] = strides[9 + i];
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define TLX_LAUNCH(kind, D) \
-  return launch_##kind<D>(q, k, v, b, o, bh, s, heads, st, bs, scale, cs)
   if (is_bf16) {
+#define TLX_LAUNCH(D) \
+  return launch_bf16<D>(q, k, v, b, o, batch, heads, s, st, bs, scale, cs)
     switch (d) {
-      case 32: TLX_LAUNCH(bf16, 32);
-      case 64: TLX_LAUNCH(bf16, 64);
-      case 96: TLX_LAUNCH(bf16, 96);
-      case 128: TLX_LAUNCH(bf16, 128);
+      case 32: TLX_LAUNCH(32);
+      case 64: TLX_LAUNCH(64);
+      case 96: TLX_LAUNCH(96);
+      case 128: TLX_LAUNCH(128);
     }
-  } else {
-    switch (d) {
-      case 32: TLX_LAUNCH(f32, 32);
-      case 64: TLX_LAUNCH(f32, 64);
-      case 96: TLX_LAUNCH(f32, 96);
-      case 128: TLX_LAUNCH(f32, 128);
-    }
-  }
 #undef TLX_LAUNCH
+  } else {
+#define TLX_LAUNCH(D) \
+  return launch_f32<D>(q, k, v, b, o, bh, s, heads, st, bs, scale, cs)
+    switch (d) {
+      case 32: TLX_LAUNCH(32);
+      case 64: TLX_LAUNCH(64);
+      case 96: TLX_LAUNCH(96);
+      case 128: TLX_LAUNCH(128);
+    }
+#undef TLX_LAUNCH
+  }
   return (int)cudaErrorInvalidValue;
 }
 

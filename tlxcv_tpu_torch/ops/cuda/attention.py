@@ -7,10 +7,14 @@ The TPU layout devices of the reference (``block_q``/``block_k``, ``nb``,
 ``pad_d``, ``interpret``) have no counterpart: block sizes are the kernel's
 own choice.
 
-``flash_attention`` takes the plain version for a tensor on the CPU.  For a
-CUDA tensor it launches the kernel or raises; it never falls back.  The
-kernel reads q, k, v through their strides: a ``[B, H, S, D]`` view into a
-packed qkv projection needs no copy.
+``flash_attention`` takes the plain version for a tensor on the CPU, which
+autograd differentiates.  For a CUDA tensor it launches the kernel or
+raises; it never falls back.  The kernel reads q, k, v through their
+strides: a ``[B, H, S, D]`` view into a packed qkv projection needs no copy.
+On the card the call is a ``torch.autograd.Function`` whose forward is the
+kernel: its output carries a ``grad_fn``, and a backward through it raises
+``NotImplementedError`` until the backward kernel lands (ROADMAP queue 2
+item 2), so no gradient silently comes back as zeros.
 """
 from __future__ import annotations
 
@@ -63,30 +67,34 @@ def flash_attention_plain(q, k, v, bias=None, scale=None):
 
 
 def _check_kernel_inputs(q, k, v, bias):
-    if q.device.type != "cuda":
+    """What the kernel takes; written for a short host path, since it runs
+    before every launch."""
+    dev, dtype = q.device, q.dtype
+    if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
-                         f"got {q.device}")
-    tensors = [q, k, v] + ([bias] if bias is not None else [])
-    if any(t.device != q.device for t in tensors):
+                         f"got {dev}")
+    if k.device != dev or v.device != dev or (
+            bias is not None and bias.device != dev):
         raise ValueError("q, k, v and bias must be on one device")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if dtype not in _KERNEL_DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"the kernel takes f32 or bf16 q, k, v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+                         f"dtype, got {dtype}, {k.dtype}, {v.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dim {HEAD_DIMS}, "
                          f"got {q.shape[-1]}")
-    if bias is not None and bias.dtype != torch.float32:
-        raise ValueError(f"bias must be float32, got {bias.dtype}")
-    if bias is not None and not bias.is_contiguous():
-        raise ValueError("bias must be contiguous")
+    if bias is not None:
+        if bias.dtype != torch.float32:
+            raise ValueError(f"bias must be float32, got {bias.dtype}")
+        if not bias.is_contiguous():
+            raise ValueError("bias must be contiguous")
+        if bias.data_ptr() % 16:
+            raise ValueError("q, k, v and bias must be 16-byte aligned")
     per_16_bytes = 16 // q.element_size()
-    for t in tensors:
+    for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("q, k, v and bias must be 16-byte aligned")
-    for t in (q, k, v):
-        if t.stride(-1) != 1 or any(st % per_16_bytes
-                                    for st in t.stride()[:-1]):
+        *outer, last = t.stride()
+        if last != 1 or any(st % per_16_bytes for st in outer):
             raise ValueError("q, k, v need a contiguous head dim and other "
                              "strides of whole 16-byte units")
     bh, s = math.prod(q.shape[:-2]), q.shape[-2]
@@ -114,38 +122,66 @@ def _bhs_strides(t):
     return (0, *t.stride()[:2]) if t.ndim == 3 else t.stride()[:3]
 
 
-def flash_attention(q, k, v, bias=None, scale=None):
-    """softmax(q kᵀ·scale + bias)·v.  q, k, v: [BH, S, D], or [B, H, S, D]
-    with any strides over a contiguous head dim; bias: optional additive
-    [1|BH, S, S] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape
-    in q's dtype: [BH, S, D] contiguous, or [B, H, S, D] stored
-    token-major (a view of [B, S, H, D])."""
-    _check_shapes(q, k, v, bias)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, scale)
-    _check_kernel_inputs(q, k, v, bias)
+def _launch_kernel(q, k, v, bias, scale):
+    """One kernel launch: [BH, S, D] contiguous, or [B, S, H, D] (the
+    token-major store of a 4D call), in q's dtype."""
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return _launch_kernel(q, k, v, bias, scale)
     s, d = q.shape[-2:]
     batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
-    scale = d ** -0.5 if scale is None else float(scale)
     fn = _kernel_fn()
     if q.ndim == 3:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     else:
-        out = q.new_empty(batch, s, heads, d).transpose(1, 2)
+        out = q.new_empty(batch, s, heads, d)
+    view = out if q.ndim == 3 else out.transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
-        *(x for t in (q, k, v, out) for x in _bhs_strides(t)))
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                batch, heads, s, d, strides,
-                int(bias is not None and bias.shape[0] == batch * heads),
-                scale, _KERNEL_DTYPES[q.dtype],
-                torch.cuda.current_stream().cuda_stream)
+        *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v),
+        *_bhs_strides(view))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            batch, heads, s, d, strides,
+            int(bias is not None and bias.shape[0] == batch * heads),
+            scale, _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{_error_string(rc)} ({rc})")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel as an autograd node: forward launches it; backward has
+    no kernel yet and raises rather than hand back zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        return _launch_kernel(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "flash_attention on the card has no backward kernel yet "
+            "(ROADMAP queue 2 item 2); gradients through attention are "
+            "taken on the CPU only")
+
+
+def flash_attention(q, k, v, bias=None, scale=None):
+    """softmax(q kᵀ·scale + bias)·v.  q, k, v: [BH, S, D], or [B, H, S, D]
+    with any strides over a contiguous head dim; bias: optional additive
+    [1|BH, S, S] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape
+    in q's dtype: [BH, S, D] contiguous, or [B, H, S, D] stored
+    token-major (a view of [B, S, H, D]).  On the card the result has a
+    ``grad_fn`` whose backward raises ``NotImplementedError``."""
+    _check_shapes(q, k, v, bias)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, bias, scale)
+    _check_kernel_inputs(q, k, v, bias)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    out = _FlashAttention.apply(q, k, v, bias, scale)
+    return out if q.ndim == 3 else out.transpose(1, 2)
 
 
 flash_attention.launches = 0  # kernel launches since the last reset

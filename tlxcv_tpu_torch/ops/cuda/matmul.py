@@ -185,8 +185,10 @@ def bf16_matmul(a, b):
     ldb = -(-n // BF16_ALIGN) * BF16_ALIGN
     a = _pad_to(a.contiguous(), m, kp)
     b = _pad_to(b.contiguous(), kp, ldb)
+    if m >= 2 ** 31:
+        raise ValueError(f"the kernel takes M < 2**31 rows, got {m}")
     _launch(bf16_matmul, "tlx_bf16_matmul", "tlx_bf16_error_string",
-            (a, b, out), m, (n, kp, ldb), tile_n=128)
+            (a, b, out), m, (n, kp, ldb), tile_n=256)
     return out
 
 

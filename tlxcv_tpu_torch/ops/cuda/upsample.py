@@ -26,6 +26,16 @@ output dtype.  It is differentiable: ``d_skip = g`` and ``dx =
 sep_resize(g, Ahᵀ, Awᵀ)``, as ``_fused_up_add_bwd``.  Every function here
 takes the plain versions for CPU tensors; for CUDA tensors it launches the
 kernels or raises, never falling back.
+
+Rounding contract: every result here, forward and gradient, sums its taps
+(and the skip) in f32 and rounds once to the output dtype.  In bf16 that is
+a documented divergence from the reference, which has no single bf16
+answer: its Pallas kernels round between their two passes and before the
+add (weights cast to bf16), its ``upsample2x_bilinear`` rounds each bf16
+op, and its default XLA route rounds elsewhere again.  The port stays
+within 2^-5 of the largest magnitude of each route
+(``tests/test_torch_train_ops.py``, ``*_is_a_documented_divergence``); the
+nearest forward is bitwise equal to both.
 """
 from __future__ import annotations
 
@@ -331,8 +341,9 @@ class _UpsampleAdd(torch.autograd.Function):
 def upsample_add_fused(x, skip, mode="bilinear"):
     """``resize(x, skip.shape[1:3]) + skip``: x [N, H, W, C], skip [N, OH,
     OW, C] with OH >= H and OW >= W, any strides; f32 or bf16, one dtype.
-    Returns a contiguous [N, OH, OW, C] tensor of that dtype;
-    differentiable in x and skip."""
+    Returns a contiguous [N, OH, OW, C] tensor of that dtype, summed in f32
+    and rounded once; differentiable in x and skip (the x-gradient also
+    summed in f32 and rounded once)."""
     _check(x, skip, mode)
     return _UpsampleAdd.apply(x, skip, mode)
 
@@ -359,11 +370,14 @@ class _Upsample2x(torch.autograd.Function):
 
 def upsample2x_fused(x):
     """2× half-pixel bilinear upsample, x [N, H, W, C] -> [N, 2H, 2W, C],
-    f32 or bf16, differentiable (the reference's ``upsample2x_fused``)."""
+    f32 or bf16, summed in f32 and rounded once, differentiable (the
+    reference's ``upsample2x_fused``)."""
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     return _Upsample2x.apply(x)
 
 
-# The reference's shift-and-interleave kernel computes the same function.
+# The reference's shift-and-interleave kernel computes the same function;
+# in bf16 it rounds each op, where the port rounds once (see the module's
+# rounding contract).
 upsample2x_bilinear = upsample2x_fused
