@@ -13,6 +13,18 @@
     python3 chip_smoke.py --vit       # only ViT-B/16, checked and served
                                       # (to compare two trees: copy this
                                       # file into the other's root)
+    python3 chip_smoke.py --int8      # only the int8 GEMM (both routes,
+                                      # checked and timed) and the int8
+                                      # ResNet-50 and YOLOv3 legs, checked
+                                      # and served; with --profile, their
+                                      # device-time profiles; no contract
+                                      # line
+    python3 chip_smoke.py --mask-rcnn # only the row gather and the
+                                      # upsample-add, checked and timed, and
+                                      # Mask R-CNN, checked and served; with
+                                      # --profile, its device time and idle
+                                      # share (copy this file into another
+                                      # tree's root to compare the two)
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -21,7 +33,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    nvcc for sm_90a, one nvcc per source, all started together.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the edge cases of its contract (flash
-   attention also at S = 1, 65, 129 and 577 for every head dim), with the
+   attention also at S = 1, 65, 129 and 577 for every head dim; the int8
+   GEMM's fused epilogue bitwise for every output kind, with and without
+   bias, N from 1 to 1000, Kp from 16 to 4608, ties), with the
    tolerance and its reason; a backward through the card's attention must
    raise NotImplementedError; then the kernel's, the plain version's and
    the library call's times beside the bound (flash attention and the
@@ -37,10 +51,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    on the CPU; ``quantize_for_serving`` on the CPU in f32 with 4
    calibration images, as the JAX package's bench does; the int8 model on
    the card against the same int8 model on the CPU (plain int8 GEMM),
-   with exactly 54 int8 GEMM launches per forward.  Then both paths,
-   b256 bf16 ``predict`` on cuDNN and full int8 through the kernel, are
-   served and timed, and the int8 GEMM is timed at every shape of the
-   int8 forward.
+   with exactly 54 int8 GEMM launches per forward (each int8 layer one
+   launch of the kernel with its requantize epilogue fused).  Then both
+   paths, b256 bf16 ``predict`` on cuDNN and full int8 through the kernel,
+   are served and timed, and the int8 GEMM is checked and timed at every
+   shape of the int8 forward in both routes: the int32 contract beside
+   ``torch._int_mm``, and the fused epilogue with each layer's own scale,
+   bias, ReLU and output dtype beside ``torch._int_mm`` plus the PyTorch
+   epilogue, each with its bound.
 5. Mask R-CNN (``create_model("mask_rcnn")``: ResNet-50 + FPN, 80
    classes, random weights and BatchNorm statistics from a seed): the row
    gather and the upsample-add kernels against their plain versions first
@@ -410,11 +428,13 @@ INT8_SHAPES = [
 ]
 
 
-def int8_bound_ms(m, k, n):
-    """Least time of one [M, K] @ [K, N] int8 -> int32 product: a, b read
-    once and the int32 output written once against the card's memory
-    rate; 2*M*N*K operations against its dense int8 rate."""
-    by_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+def int8_bound_ms(m, k, n, out_bytes=4):
+    """Least time of one [M, K] @ [K, N] int8 product: a, b read once and
+    the output written once, ``out_bytes`` an element (4 for the int32
+    sums; 1 or 2 for the fused epilogue's int8 or bf16, 4 for its f32),
+    against the card's memory rate; 2*M*N*K operations against its dense
+    int8 rate."""
+    by_bytes = (m * k + k * n + out_bytes * m * n) / HBM_BYTES_PER_S
     by_ops = 2 * m * n * k / PEAK_OPS_PER_S[torch.int8]
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
@@ -429,41 +449,191 @@ def int8_operands(m, k, n, seed, fill=None):
             for shape, v in (((m, k), fill[0]), ((k, n), fill[1]))]
 
 
-def time_int8_shape(m, k, n, seed, reps=20):
+def _times(fn, reps):
+    """Device time of one call from CUDA-graph replays, and the median of
+    CUDA events around each call (which also counts the host's launch
+    cost where it exceeds the call's device time)."""
+    return graph_ms(fn, reps=max(2, reps // 2), calls=5), \
+        time_ms(fn, reps=reps)
+
+
+def _int_mm_ms(ap, w, reps, epilogue=None):
+    """torch._int_mm on the padded operands (followed by the PyTorch
+    epilogue, if one is given), timed as ``_times``; its shape rules may
+    refuse them: then (None, None, its message)."""
+    from tlxcv_tpu_torch.ops.cuda.matmul import requantize
+
+    def library():
+        acc = torch._int_mm(ap, w.t())
+        return acc if epilogue is None else requantize(acc, **epilogue)
+
+    try:
+        library()
+    except RuntimeError as err:
+        return None, None, str(err).splitlines()[0][:160]
+    return (*_times(library, reps), None)
+
+
+def time_int8_shape(m, k, n, seed, reps=20, epilogue=None):
     """Kernel, plain and library ms of one product as the int8 layers
     hand it over: K zero-padded for the kernel, the weight packed [N, Kp].
     The kernel's product is first held to the plain one, bitwise, so every
     shape timed is a shape checked.  The library call is torch._int_mm on
     the same padded operands; its shape rules may refuse them (then null,
-    with its message)."""
+    with its message).  ``ms`` and ``library_ms`` are device times from
+    CUDA-graph replays, ``event_ms`` and ``library_event_ms`` CUDA events
+    around each call (the wrapper's host time shows there).  With ``epilogue`` (the keyword arguments of
+    ``int8_matmul_requant`` past the operands: a layer's own scale, bias,
+    ReLU, out_scale and output dtype), the fused route too: checked bitwise
+    against the plain product followed by ``requantize``, then timed beside
+    ``torch._int_mm`` followed by ``requantize`` (what a PyTorch user would
+    write) and its bound with the output's own bytes."""
     from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul_nt,
-                                                 int8_matmul_plain, pad_k)
+                                                 int8_matmul_plain,
+                                                 int8_matmul_requant, pad_k,
+                                                 requantize)
 
     a, b = int8_operands(m, k, n, seed)
     ap, w = pad_k(a), pad_k(b.t().contiguous())
-    if not torch.equal(int8_matmul_nt(ap, w), int8_matmul_plain(a, b)):
+    want = int8_matmul_plain(a, b)
+    if not torch.equal(int8_matmul_nt(ap, w), want):
         emit({"phase": "int8_kernels", "failed": "timed shape",
               "shape": [m, k, n]})
         raise AssertionError(f"int8_matmul {m}x{k}x{n} differs from its "
                              f"plain version")
-    out = {"exact": True,
-           "ms": time_ms(lambda: int8_matmul_nt(ap, w), reps=reps),
-           "plain_ms": time_ms(lambda: int8_matmul_plain(a, b),
-                               reps=max(3, reps // 4), warmup=1)}
-    try:
-        torch._int_mm(ap, w.t())
-        out["library_ms"] = time_ms(lambda: torch._int_mm(ap, w.t()),
-                                    reps=reps)
-    except RuntimeError as err:
-        out["library_ms"] = None
-        out["library_refused"] = str(err).splitlines()[0][:160]
+    out = {"exact": True}
+    out["ms"], out["event_ms"] = _times(lambda: int8_matmul_nt(ap, w), reps)
+    out["plain_ms"] = time_ms(lambda: int8_matmul_plain(a, b),
+                              reps=max(3, reps // 4), warmup=1)
+    out["library_ms"], out["library_event_ms"], refused = _int_mm_ms(
+        ap, w, reps)
+    if refused:
+        out["library_refused"] = refused
     out["bound_ms"], out["bound_by"] = int8_bound_ms(m, k, n)
+    if epilogue is not None:
+        got = int8_matmul_requant(ap, w, **epilogue)
+        ref = requantize(want, **epilogue)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            emit({"phase": "int8_kernels", "failed": "timed fused shape",
+                  "shape": [m, k, n], "out_dtype": str(ref.dtype)[6:]})
+            raise AssertionError(f"int8_matmul_requant {m}x{k}x{n} differs "
+                                 f"from its plain version")
+        fused = {"out_dtype": str(got.dtype)[6:],
+                 "bias": epilogue["bias"] is not None,
+                 "relu": epilogue["relu"], "bitwise": True}
+        fused["ms"], fused["event_ms"] = _times(
+            lambda: int8_matmul_requant(ap, w, **epilogue), reps)
+        fused["library_ms"], fused["library_event_ms"], _ = _int_mm_ms(
+            ap, w, reps, epilogue)
+        fused["bound_ms"], fused["bound_by"] = int8_bound_ms(
+            m, k, n, got.element_size())
+        out["fused"] = fused
+        del got, ref
     return out
+
+
+# The fused epilogue's edge cases: every output kind, with and without a
+# bias, at N across the three tile widths (1, 17, 64; 255, 256; 1000 over
+# four 256-column tiles) and K from one 16-byte step to 36 slices
+INT8_EPILOGUE_N = (1, 17, 64, 255, 256, 1000)
+INT8_EPILOGUE_KP = (16, 64, 576, 4608)
+INT8_EPILOGUE_OUT = (("int8_relu", torch.int8, True),
+                     ("int8", torch.int8, False),
+                     ("bf16", torch.bfloat16, False),
+                     ("f32", torch.float32, False))
+
+
+def epilogue_operands(n, kp, out_dtype, relu, bias, seed):
+    """A scale that brings the sums of random int8 operands to a spread of
+    about 40 (so int8 codes span their range and some clamp), a bias of
+    spread 10, and an out_scale of 0.37."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    acc_std = 127 ** 2 / 3 * math.sqrt(kp)
+    scale = (0.5 + 1.5 * torch.rand(n, generator=g, device="cuda")) \
+        * (40 / acc_std)
+    return {"scale": scale,
+            "bias": 10 * torch.randn(n, generator=g, device="cuda")
+            if bias else None,
+            "relu": relu,
+            "out_scale": torch.tensor(0.37, device="cuda")
+            if out_dtype == torch.int8 else None,
+            "out_dtype": out_dtype}
+
+
+def phase_int8_epilogue():
+    """int8_matmul_requant against int8_matmul_requant_plain on the card,
+    bitwise: every output kind with and without a bias, N in
+    INT8_EPILOGUE_N, Kp in INT8_EPILOGUE_KP, M ragged; and ties, where
+    round-half-to-even decides every code.  Also how many of the plain
+    version's quotients y / out_scale differ from y * (1 / out_scale): the
+    check can tell the two divisions apart."""
+    from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul_plain,
+                                                 int8_matmul_requant,
+                                                 int8_matmul_requant_plain)
+
+    cases, worst, differ, total = 0, 0.0, 0, 0
+    i = 0
+    for name, out_dtype, relu in INT8_EPILOGUE_OUT:
+        for bias in (True, False):
+            for n in INT8_EPILOGUE_N:
+                for kp in INT8_EPILOGUE_KP:
+                    m = (333, 1, 129, 4099)[i % 4]
+                    a, b = int8_operands(m, kp, n, seed=300 + i)
+                    w = b.t().contiguous()
+                    ep = epilogue_operands(n, kp, out_dtype, relu, bias,
+                                           seed=600 + i)
+                    got = int8_matmul_requant(a, w, **ep)
+                    torch.cuda.synchronize()
+                    want = int8_matmul_requant_plain(a, w, **ep)
+                    err = (got.float() - want.float()).abs().max().item()
+                    if got.dtype != want.dtype or got.shape != (m, n) \
+                            or not torch.equal(got, want):
+                        emit({"phase": "int8_epilogue", "failed": name,
+                              "bias": bias, "shape": [m, kp, n],
+                              "max_abs_err": err})
+                        raise AssertionError(
+                            f"int8_matmul_requant {name} bias={bias} "
+                            f"{m}x{kp}x{n}: max |err| {err}, expected "
+                            f"bitwise")
+                    if ep["out_scale"] is not None:
+                        y = int8_matmul_plain(a, b).float() * ep["scale"]
+                        if bias:
+                            y = y + ep["bias"]
+                        differ += int((y / ep["out_scale"]
+                                       != y * (1 / ep["out_scale"])).sum())
+                        total += y.numel()
+                    worst = max(worst, err)
+                    cases += 1
+                    i += 1
+    # ties: codes in {-1, 0, 1}, y = acc + 0.5 and out_scale 1, so every
+    # quotient lies halfway between two integers
+    ties = 0
+    for relu in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(900 + relu)
+        a, w = (torch.randint(-1, 2, s, generator=g, device="cuda",
+                              dtype=torch.int8) for s in ((257, 16), (33, 16)))
+        ep = {"scale": torch.ones(33, device="cuda"),
+              "bias": torch.full((33,), 0.5, device="cuda"), "relu": relu,
+              "out_scale": torch.tensor(1.0, device="cuda"),
+              "out_dtype": torch.int8}
+        got = int8_matmul_requant(a, w, **ep)
+        if not torch.equal(got, int8_matmul_requant_plain(a, w, **ep)):
+            raise AssertionError(f"int8_matmul_requant ties (relu={relu}) "
+                                 f"differ from the plain version")
+        ties += 1
+    emit({"phase": "int8_epilogue", "cases": cases + ties,
+          "max_abs_err": worst, "tolerance": 0,
+          "why": "the kernel runs the plain version's f32 operations one by "
+                 "one in its order, each rounded to nearest (no FMA), and "
+                 "rounds half to even as torch.round",
+          "division_differs_from_reciprocal_product": differ,
+          "of_quotients": total})
 
 
 def phase_int8_kernels():
     """int8_matmul against int8_matmul_plain on the card, exactly, at the
-    main path's shapes and at the edges of its contract; then the times."""
+    main path's shapes and at the edges of its contract; the fused
+    epilogue's cases; then the times."""
     from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul,
                                                  int8_matmul_plain)
 
@@ -472,7 +642,9 @@ def phase_int8_kernels():
               for m in (1, 17, 33) for k in (1, 17, 33) for n in (1, 17, 33)]
     cases += [("all_minus_127", 300, 4096, 70, (-127, -127)),
               ("k4096_plus_minus_127", 129, 4096, 65, (127, -127)),
-              ("k4096_random_sign", 257, 4096, 130, None)]
+              ("k4096_random_sign", 257, 4096, 130, None),
+              ("n255_ragged_m", 1000, 512, 255, None),
+              ("n1000_ragged_m", 333, 2048, 1000, None)]
     worst = 0
     for i, (name, m, k, n, fill) in enumerate(cases):
         a, b = int8_operands(m, k, n, seed=i, fill=fill)
@@ -492,6 +664,7 @@ def phase_int8_kernels():
         del a, b, got, want
     emit({"phase": "int8_kernels", "cases": len(cases), "max_abs_err": worst,
           "tolerance": 0, "why": "int32 sums of int8 products are exact"})
+    phase_int8_epilogue()
 
     timings = {}
     for i, (name, m, k, n) in enumerate(INT8_SHAPES):
@@ -756,21 +929,9 @@ def data_bn_statistics(model, x):
         m.momentum = v
 
 
-def phase_resnet(int8_record):
-    """ResNet-50: float and int8 logits on the card against the CPU, then
-    the two serving paths at b256."""
-    from tlxcv_tpu_torch import create_model
-    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
-    from tlxcv_tpu_torch.ops.quant import quantize_for_serving
-    from tlxcv_tpu_torch.tasks import ImageClassification
-
-    name = "resnet50"
-    gen = torch.Generator().manual_seed(0)
-    cpu = ImageClassification(create_model(name, device="cpu",
-                                           generator=gen)).eval()
-    random_bn_statistics(cpu, gen)
-    x4 = torch.randn(4, 224, 224, 3, generator=gen)
-    card = copy.deepcopy(cpu).cuda()
+def resnet_float_check(name, cpu, card, x4):
+    """f32 and bf16 logits of ``card`` against f32 on the CPU; ``card`` is
+    left with bf16 parameters."""
     with torch.inference_mode():
         want = cpu(x4)
         scale = want.abs().max().item()
@@ -792,6 +953,26 @@ def phase_resnet(int8_record):
     if not (err32 <= 1e-3 * scale and err16 <= 3e-2 * scale):
         raise AssertionError(f"ResNet-50 logits disagree with the CPU: "
                              f"{check}")
+
+
+def phase_resnet(int8_record, floats=True):
+    """ResNet-50: float and int8 logits on the card against the CPU, then
+    the two serving paths at b256 (with ``floats`` False, the int8 check
+    and the int8 path alone)."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+    from tlxcv_tpu_torch.ops.quant import quantize_for_serving
+    from tlxcv_tpu_torch.tasks import ImageClassification
+
+    name = "resnet50"
+    gen = torch.Generator().manual_seed(0)
+    cpu = ImageClassification(create_model(name, device="cpu",
+                                           generator=gen)).eval()
+    random_bn_statistics(cpu, gen)
+    x4 = torch.randn(4, 224, 224, 3, generator=gen)
+    card = copy.deepcopy(cpu).cuda() if floats else None
+    if floats:
+        resnet_float_check(name, cpu, card, x4)
 
     # full int8: prepared on the CPU in f32, served on the card
     calib = torch.randn(4, 224, 224, 3, generator=gen)
@@ -832,7 +1013,8 @@ def phase_resnet(int8_record):
     batch = 256
     x = torch.randn(batch, 224, 224, 3, generator=gen).to(
         "cuda", torch.bfloat16)
-    serve(card, x, {}, name, "bfloat16")
+    if floats:
+        serve(card, x, {}, name, "bfloat16")
     counts, _ = serve(card8, x, {"int8_matmul": 54}, name + "_int8",
                       "int8 (bf16 input)")
     int8_record["launches"] = counts["int8_matmul"]
@@ -842,10 +1024,15 @@ def phase_resnet(int8_record):
 
 def int8_forward_times(model, x, name="int8_matmul_per_forward"):
     """The int8 GEMM at every shape one int8 forward hands it (read from
-    hooks on the int8 layers), timed alone; summed over the forward."""
+    hooks on the int8 layers, with each layer's epilogue: its scale, bias,
+    ReLU, out_scale and output dtype), checked and timed alone in both
+    routes; summed over the forward.  Returns the int32 route's totals (the
+    contract of the TPU kernel it replaces, beside torch._int_mm) and the
+    fused route's as ``fused_*`` (beside torch._int_mm and the PyTorch
+    epilogue)."""
     from tlxcv_tpu_torch.nn import Conv2d, Linear
 
-    shapes = []
+    seen = []
 
     def hook(mod, args, out):
         if mod.weight.dtype != torch.int8:
@@ -855,7 +1042,13 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
             k_fn = mod.kernel_size[0] * mod.kernel_size[1] * args[0].shape[-1]
         else:
             k_fn = mod.in_features
-        shapes.append((out.numel() // out.shape[-1], k_fn, out.shape[-1], k))
+        out_scale = getattr(mod, "out_scale", None)
+        key = (out.numel() // out.shape[-1], k_fn, out.shape[-1], k,
+               str(out.dtype)[6:], mod.bias is not None,
+               out_scale is not None and getattr(mod, "relu_fused", False))
+        seen.append((key, {"scale": mod.a_scale * mod.w_scale,
+                           "bias": mod.bias, "relu": key[-1],
+                           "out_scale": out_scale, "out_dtype": out.dtype}))
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, (Conv2d, Linear))]
@@ -863,26 +1056,38 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
         model(x)
     for h in handles:
         h.remove()
-    distinct = sorted(set(shapes))
+    keys = [key for key, _ in seen]
+    epilogues = dict(seen)  # one layer's epilogue per distinct key
     per_shape = []
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    total = {k: 0.0 for k in (
+        "ms", "event_ms", "plain_ms", "bound_ms", "library_ms",
+        "library_event_ms", "fused_ms", "fused_event_ms", "fused_bound_ms",
+        "fused_library_ms", "fused_library_event_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
-    for i, (m, k_fn, n, kp) in enumerate(distinct):
-        t = time_int8_shape(m, kp, n, seed=1000 + i, reps=10)
+    for i, key in enumerate(sorted(set(keys))):
+        m, k_fn, n, kp = key[:4]
+        with torch.inference_mode():
+            t = time_int8_shape(m, kp, n, seed=1000 + i, reps=10,
+                                epilogue=epilogues[key])
         t["bound_ms"], t["bound_by"] = int8_bound_ms(m, k_fn, n)
-        calls = shapes.count((m, k_fn, n, kp))
+        fused = t.pop("fused")
+        fused["bound_ms"], fused["bound_by"] = int8_bound_ms(
+            m, k_fn, n, {"int8": 1, "bfloat16": 2}.get(key[4], 4))
+        calls = keys.count(key)
         per_shape.append({"m": m, "k": k_fn, "kp": kp, "n": n,
-                          "calls": calls, **t})
-        for key in ("ms", "plain_ms", "bound_ms"):
-            total[key] += calls * t[key]
+                          "calls": calls, **t, "fused": fused})
+        for part, src in (("", t), ("fused_", fused)):
+            for k in ("ms", "event_ms", "bound_ms", "library_ms",
+                      "library_event_ms"):
+                if total[part + k] is None or src[k] is None:
+                    total[part + k] = None
+                else:
+                    total[part + k] += calls * src[k]
+        total["plain_ms"] += calls * t["plain_ms"]
         by[t["bound_by"]] += calls * t["bound_ms"]
-        if total["library_ms"] is not None and t["library_ms"] is not None:
-            total["library_ms"] += calls * t["library_ms"]
-        else:
-            total["library_ms"] = None
         torch.cuda.empty_cache()
     emit({"phase": "kernel_times", name: {
-        "batch": x.shape[0], "calls": len(shapes), "totals_ms": total,
+        "batch": x.shape[0], "calls": len(keys), "totals_ms": total,
         "shapes": per_shape}})
     return {**total, "bound_by": max(by, key=by.get)}
 
@@ -1367,26 +1572,11 @@ YOLO_SHARE_FLOOR = {"float32": 0.9, "bfloat16": 0.25}
 YOLO_NMS_SHARE_FLOOR = 0.9
 
 
-def phase_yolov3():
-    """YOLOv3 (``create_model("yolov3", num_classes=80,
-    use_matrix_nms=True)``, random weights from a seed, BatchNorm
-    statistics from one train-mode forward of 2 seeded images): f32 and
-    bf16 at b2 416^2 against f32 on the CPU stage by stage (bf16 beside the
-    CPU's own bf16 model); int8 on the card against int8 on the CPU; then
-    the bench legs ``yolov3`` and ``yolov3_int8``, b128 416^2 ``predict``,
-    served."""
-    from tlxcv_tpu_torch import create_model
-    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
-                                           quantize_weights)
-    from tlxcv_tpu_torch.tasks import ObjectDetection
-
+def yolo_float_check(cpu, card, x2):
+    """f32 and bf16 YOLOv3 on the card against f32 on the CPU, stage by
+    stage (bf16 beside the CPU's own bf16 model); ``card`` is left with
+    bf16 parameters."""
     name = "yolov3"
-    gen = torch.Generator().manual_seed(0)
-    cpu = create_model(name, device="cpu", generator=gen, num_classes=80,
-                       use_matrix_nms=True)
-    data_bn_statistics(cpu, torch.randn(2, 416, 416, 3, generator=gen))
-    card = copy.deepcopy(cpu).cuda()
-    x2 = torch.randn(2, 416, 416, 3, generator=gen)
     t0 = time.perf_counter()
     want = yolo_stages(cpu, x2)
     cpu_s = time.perf_counter() - t0
@@ -1464,6 +1654,30 @@ def phase_yolov3():
                                  f"NMS alone")
     del want, want16, got
 
+
+def phase_yolov3(floats=True):
+    """YOLOv3 (``create_model("yolov3", num_classes=80,
+    use_matrix_nms=True)``, random weights from a seed, BatchNorm
+    statistics from one train-mode forward of 2 seeded images): f32 and
+    bf16 at b2 416^2 against f32 on the CPU stage by stage (bf16 beside the
+    CPU's own bf16 model); int8 on the card against int8 on the CPU; then
+    the bench legs ``yolov3`` and ``yolov3_int8``, b128 416^2 ``predict``,
+    served (with ``floats`` False, the int8 check and leg alone)."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                           quantize_weights)
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+
+    name = "yolov3"
+    gen = torch.Generator().manual_seed(0)
+    cpu = create_model(name, device="cpu", generator=gen, num_classes=80,
+                       use_matrix_nms=True)
+    data_bn_statistics(cpu, torch.randn(2, 416, 416, 3, generator=gen))
+    card = copy.deepcopy(cpu).cuda() if floats else None
+    x2 = torch.randn(2, 416, 416, 3, generator=gen)
+    if floats:
+        yolo_float_check(cpu, card, x2)
+
     # full int8, built as the JAX package's bench builds it: weights, then
     # activations calibrated through head_outputs on 2 images, on the CPU
     cpu8 = copy.deepcopy(cpu)
@@ -1490,8 +1704,10 @@ def phase_yolov3():
         if not torch.isfinite(dets).all() or int(counts.min()) <= 0:
             raise AssertionError("non-finite or empty YOLOv3 detections")
 
-    task, task8 = ObjectDetection(card), ObjectDetection(card8)
-    _, step = serve(task, x, {}, name, "bfloat16", check=check_dets)
+    task = ObjectDetection(card) if floats else None
+    task8 = ObjectDetection(card8)
+    step = serve(task, x, {}, name, "bfloat16", check=check_dets)[1] \
+        if floats else None
     _, step8 = serve(task8, x, {"int8_matmul": 75}, name + "_int8",
                      "int8 (bf16 input)", check=check_dets)
     int8_forward_times(card8, x, "int8_matmul_per_yolov3_forward")
@@ -1973,6 +2189,29 @@ def main():
         phase_model({})
         print(card_line(), flush=True)
         return 0
+    profile = "--profile" in sys.argv[1:]
+    if "--int8" in sys.argv[1:]:  # the int8 GEMM and its two int8 paths
+        int8 = phase_int8_kernels()
+        _, resnet8, resnet_x = phase_resnet(int8, floats=False)
+        if profile:
+            phase_profile("resnet50_int8", resnet8, resnet_x)
+        del resnet8, resnet_x
+        torch.cuda.empty_cache()
+        _, yolo8, yolo_x, _, yolo8_step = phase_yolov3(floats=False)
+        if profile:
+            phase_profile("yolov3_int8", yolo8, yolo_x, step_s=yolo8_step)
+        emit({"kernels": [int8]})
+        print(card_line(), flush=True)
+        return 0
+    if "--mask-rcnn" in sys.argv[1:]:  # its two kernels and its serving
+        gather = phase_gather_kernels()
+        upsample = phase_upsample_kernels()
+        mrcnn, mrcnn_x, mrcnn_step = phase_mask_rcnn(gather, upsample)
+        if profile:
+            phase_profile("mask_rcnn", mrcnn, mrcnn_x, step_s=mrcnn_step)
+        emit({"kernels": [gather, upsample]})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
     if "--kernels" in sys.argv[1:]:  # the redesigned kernels alone
         bf16 = phase_bf16_kernels()
@@ -1988,7 +2227,6 @@ def main():
     gather = phase_gather_kernels()
     upsample = phase_upsample_kernels()
     sep = phase_train_kernels()
-    profile = "--profile" in sys.argv[1:]
     vit, vit_x = phase_model(flash)
     resnet16, resnet8, resnet_x = phase_resnet(int8)
     mrcnn, mrcnn_x, mrcnn_step = phase_mask_rcnn(gather, upsample)
@@ -2009,7 +2247,8 @@ def main():
     phase_train(sep, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{key: r[key] for key in keys}
+    fused = ("fused_ms", "fused_bound_ms", "fused_library_ms")
+    emit({"kernels": [{key: r[key] for key in keys + fused if key in r}
                       for r in (flash, int8, bf16, gather, upsample, sep)]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

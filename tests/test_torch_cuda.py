@@ -15,7 +15,9 @@ from tlxcv_tpu_torch.ops.cuda.attention import (flash_attention,
                                                 flash_attention_plain)
 from tlxcv_tpu_torch.ops.cuda.matmul import (bf16_matmul, bf16_matmul_plain,
                                              int8_matmul, int8_matmul_nt,
-                                             int8_matmul_plain)
+                                             int8_matmul_plain,
+                                             int8_matmul_requant,
+                                             int8_matmul_requant_plain)
 from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
                                        quantize_for_serving, quantize_weights)
 
@@ -186,10 +188,14 @@ def test_vit_forward_launches_the_kernel_once_per_block(cuda):
 @pytest.mark.parametrize("m,k,n", [
     (1, 16, 1), (17, 32, 17), (33, 48, 33), (130, 144, 70), (257, 160, 64),
     (1000, 2048, 1000), (300, 4096, 129), (4096, 576, 64),
+    (1000, 512, 255), (129, 16, 256), (333, 2048, 1000), (4099, 64, 1),
+    (65, 4608, 17), (130, 576, 128), (1, 16, 2048),
 ])
 def test_int8_kernel_matches_plain_exactly(cuda, m, k, n):
-    """Ragged M and N on both tile widths (N <= 64 and N > 64), K a
-    multiple of 16 with and without a partial 64-byte slice."""
+    """Ragged M and N on every tile width (64, 128, 256), K a multiple of
+    16 with and without a partial 128-byte slice; N = 255 in one
+    256-column tile (its row stride no multiple of 16 bytes), N over
+    several tiles, one K step of 16."""
     g = torch.Generator(device=cuda).manual_seed(m * n + k)
     a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
                       dtype=torch.int8)
@@ -230,6 +236,74 @@ def test_int8_kernel_rejects_what_it_does_not_take(cuda):
                        torch.zeros(4, 32, dtype=torch.int8))
 
 
+_REQUANT_OUT = [("int8_relu", torch.int8, True), ("int8", torch.int8, False),
+                ("bf16", torch.bfloat16, False), ("f32", torch.float32, False)]
+
+
+@pytest.mark.parametrize("kind,out_dtype,relu", _REQUANT_OUT,
+                         ids=[o[0] for o in _REQUANT_OUT])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("n", [1, 17, 64, 255, 256, 1000])
+def test_int8_requant_kernel_matches_plain_bitwise(cuda, kind, out_dtype,
+                                                   relu, bias, n):
+    """The fused epilogue against the plain product and the PyTorch
+    epilogue, bitwise, at Kp = 16, 64, 576 and 4608 and a ragged M: one
+    launch each, counted on int8_matmul."""
+    for i, kp in enumerate((16, 64, 576, 4608)):
+        m = (333, 1, 129, 4099)[i]
+        g = torch.Generator(device=cuda).manual_seed(n * kp + i)
+        a = torch.randint(-127, 128, (m, kp), generator=g, device=cuda,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, kp), generator=g, device=cuda,
+                          dtype=torch.int8)
+        spread = 40 / (127 ** 2 / 3 * kp ** 0.5)  # y of spread ~40
+        ep = {"scale": (0.5 + 1.5 * torch.rand(n, generator=g, device=cuda))
+              * spread,
+              "bias": 10 * torch.randn(n, generator=g, device=cuda)
+              if bias else None, "relu": relu,
+              "out_scale": torch.tensor(0.37, device=cuda)
+              if out_dtype == torch.int8 else None, "out_dtype": out_dtype}
+        before = int8_matmul.launches
+        got = int8_matmul_requant(a, w, **ep)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + 1
+        want = int8_matmul_requant_plain(a, w, **ep)
+        assert got.dtype == want.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want), (kind, m, kp, n)
+
+
+def test_int8_requant_kernel_rounds_ties_to_even(cuda):
+    """y = acc + 0.5 over out_scale 1: every quotient a tie."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a, w = (torch.randint(-1, 2, s, generator=g, device=cuda,
+                          dtype=torch.int8) for s in ((300, 16), (70, 16)))
+    for relu in (False, True):
+        ep = {"scale": torch.ones(70, device=cuda),
+              "bias": torch.full((70,), 0.5, device=cuda), "relu": relu,
+              "out_scale": torch.tensor(1.0, device=cuda),
+              "out_dtype": torch.int8}
+        assert torch.equal(int8_matmul_requant(a, w, **ep),
+                           int8_matmul_requant_plain(a, w, **ep))
+
+
+def test_int8_requant_kernel_refuses_grad_and_bad_inputs(cuda):
+    a = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    w = torch.zeros(4, 32, dtype=torch.int8, device=cuda)
+    scale = torch.ones(4, device=cuda)
+    bias = torch.nn.Parameter(torch.zeros(4, device=cuda))
+    with pytest.raises(RuntimeError, match="no backward"):
+        int8_matmul_requant(a, w, scale, bias)
+    with pytest.raises(ValueError):  # the scale on another device
+        int8_matmul_requant(a, w, scale.cpu())
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        int8_matmul_requant(a[:, :24], w[:, :24].contiguous(), scale)
+    with pytest.raises(ValueError), torch.inference_mode():  # K = 0
+        int8_matmul_requant(a[:, :0].contiguous(), w[:, :0].contiguous(),
+                            scale)
+    with torch.inference_mode():
+        assert int8_matmul_requant(a, w, scale, bias).abs().max() == 0
+
+
 def _int8_resnet18():
     """resnet18 quantized for serving on the CPU in f32, as a user would,
     and a copy moved to the card."""
@@ -262,6 +336,44 @@ def test_int8_resnet_launches_the_kernel_per_layer_and_matches_cpu(cuda):
     step = float(cpu.fc.a_scale * 127 * cpu.fc.w_scale.max())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=4 * step)
     assert got16.dtype == torch.bfloat16 and torch.isfinite(got16).all()
+
+
+def test_int8_resnet_layers_take_the_fused_kernel_bitwise(cuda):
+    """Each int8 layer of a micro int8 ResNet, given the CPU's input to it,
+    launches the fused kernel once and returns the CPU's output bitwise
+    (int8 codes, bf16 or f32): the epilogue runs the CPU's f32 operations
+    in its order.  A forward with autograd recording raises, since the
+    fused route has no backward."""
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+
+    cpu, card = _int8_resnet18()
+    x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(2))
+    seen = []
+    layers = [m for m in cpu.modules() if isinstance(m, (Conv2d, Linear))
+              and m.weight.dtype == torch.int8]
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in layers]
+    with torch.inference_mode():
+        cpu(x)
+    for h in handles:
+        h.remove()
+    names = {id(m): p for p, m in cpu.named_modules()}
+    card_mods = dict(card.named_modules())
+    assert len(seen) == 21
+    kinds = set()
+    with torch.inference_mode():
+        for mod, xin, yout in seen:
+            before = int8_matmul.launches
+            got = card_mods[names[id(mod)]](xin.to(cuda))
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == before + 1
+            assert got.dtype == yout.dtype
+            assert torch.equal(got.cpu(), yout), names[id(mod)]
+            kinds.add(yout.dtype)
+    assert torch.int8 in kinds and len(kinds) >= 2
+    with pytest.raises(RuntimeError, match="no backward"):
+        card(x.to(cuda))
 
 
 def test_int8_maxpool_on_the_card_matches_cpu(cuda):
@@ -327,6 +439,32 @@ def test_gather_kernel_misaligned_rows_and_64_bit_offsets(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, gather_rows_plain(big, idx))
     assert int(got[0, 0]) == 9 and int(got[3, -1]) == 7
+
+
+@pytest.mark.parametrize("dtype,c_bytes", [
+    (dtype, c_bytes)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8)
+    for c_bytes in (16, 48, 2048, 16384, 32768, 6, 24)
+    if c_bytes % torch.tensor([], dtype=dtype).element_size() == 0])
+def test_gather_bulk_and_warp_paths_byte_exact(cuda, dtype, c_bytes):
+    """Row widths through both paths of the kernel: 16-byte multiples up to
+    a whole 8 KB slot by bulk async copies (32, 32 and 4 rows a chunk, the
+    ring wrapping many times), wider rows and rows of 6 or 24 bytes (no
+    multiple of 16) by the warp copy; and a
+    base one row in, 16-byte aligned or not."""
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+    c = c_bytes // torch.tensor([], dtype=dtype).element_size()
+    n = 3000 if c_bytes <= 2048 else 300
+    table = _table(n + 1, c, dtype, cuda, seed=c_bytes)
+    g = torch.Generator(device=cuda).manual_seed(c_bytes)
+    for r in (1, 31, 33, 5000):
+        idx = torch.randint(0, n, (r,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        for t in (table[:n], table[1:]):
+            got = gather_rows(t, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, gather_rows_plain(t, idx)), (r, c_bytes)
 
 
 def test_gather_kernel_rejects_what_it_does_not_take(cuda):

@@ -22,7 +22,7 @@ from tlxcv_tpu_torch import create_model
 from tlxcv_tpu_torch.models.detection import YOLOv3
 from tlxcv_tpu_torch.nn import layers as T
 from tlxcv_tpu_torch.ops import quant as TQ
-from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul_plain
+from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul_plain, requantize
 from tlxcv_tpu_torch.ops.yolo import yolo_box
 from tlxcv_tpu_torch.tasks import ObjectDetection
 from tlxcv_tpu_torch.utils import load_jax_params
@@ -319,12 +319,12 @@ def test_jax_quantized_yolov3_carried_across(rng, monkeypatch):
     def record(mod, args):
         codes.append((mod, T._quantize_input(args[0], mod.a_scale)))
 
-    def counted(cols, w):
+    def counted(cols, w, *epilogue):
         sums.append(int8_matmul_plain(cols, w.t()))
-        return sums[-1]
+        return requantize(sums[-1], *epilogue)
 
     handles = [mod.register_forward_pre_hook(record) for _, mod in convs]
-    monkeypatch.setattr(T, "int8_matmul_nt", counted)
+    monkeypatch.setattr(T, "int8_matmul_requant", counted)
     try:
         with torch.no_grad():
             got = tm.head_outputs(torch.from_numpy(x))

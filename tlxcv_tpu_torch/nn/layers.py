@@ -10,10 +10,12 @@ for its initial weights.
 int8 serving (``ops.quant``): a quantized Conv2d or Linear holds its weight
 as int8 codes packed once as ``[out, Kp]``, K-contiguous in ``(kh, kw,
 Cin)`` order and zero-padded to ``Kp`` (a multiple of 16), with a per-out
-channel ``w_scale``.  With a calibrated ``a_scale`` the product runs
-through ``ops.cuda.matmul.int8_matmul_nt`` (the hand-written kernel on the
-card), a conv as im2col plus that product; without one, the weight is
-dequantized and the layer runs in float.  The QAT branches belong to the
+channel ``w_scale``.  With a calibrated ``a_scale`` a conv runs as im2col
+plus the int8 product and the reference's epilogue (scale, bias, fused
+ReLU, requantize): on the card one launch of the hand-written kernel,
+``ops.cuda.matmul.int8_matmul_requant``, which writes no int32 sums; on the
+CPU its plain version, the int32 product, then ``requantize``.  Without
+``a_scale``, the weight is dequantized and the layer runs in float.  The QAT branches belong to the
 training slice.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 
 from ..core import init as I
 from ..device import resolve_device
-from ..ops.cuda.matmul import int8_matmul_nt, pad_k, padded_k
+from ..ops.cuda.matmul import int8_matmul_requant, pad_k, padded_k
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm", "BatchNorm2d",
            "LayerNorm", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
@@ -166,19 +168,16 @@ def _quantize_input(x, s_in):
     return torch.round(x.float() / s_in).clamp(-127, 127).to(torch.int8)
 
 
-def _requantize(mod, acc, s_in, out_dtype):
-    """The reference's epilogue, in its op order: scale the int32 sums, add
-    the bias; with ``out_scale``, ReLU if it was fused and requantize to
-    int8 (round half to even, as jnp.round)."""
-    y = acc.float() * (s_in * mod.w_scale)
-    if mod.bias is not None:
-        y = y + mod.bias
+def _int8_product(mod, cols, w, s_in, out_dtype):
+    """int8 patches [M, Kp] times the packed weight, then the reference's
+    epilogue in its op order (scale the int32 sums, add the bias; with
+    ``out_scale``, ReLU if it was fused and requantize to int8, round half
+    to even as jnp.round).  On the card one kernel does both, writing no
+    int32 sums; on the CPU the plain product, then the same arithmetic."""
     out_scale = getattr(mod, "out_scale", None)
-    if out_scale is not None:
-        if getattr(mod, "relu_fused", False):
-            y = torch.clamp_min(y, 0.0)
-        return torch.round(y / out_scale).clamp(-127, 127).to(torch.int8)
-    return y.to(out_dtype)
+    relu = out_scale is not None and getattr(mod, "relu_fused", False)
+    return int8_matmul_requant(cols, w, s_in * mod.w_scale, mod.bias, relu,
+                               out_scale, out_dtype)
 
 
 def _int8_weight(w_int8):
@@ -293,8 +292,7 @@ class Conv2d(nn.Module):
                     "int8 Conv2d with groups > 1 (ResNeXt) is not ported")
             xq = x if int8_in else _quantize_input(x, a_scale)
             cols, (n, ho, wo) = self._patches(xq)
-            acc = int8_matmul_nt(cols, w)
-            y = _requantize(self, acc, a_scale, out_dtype)
+            y = _int8_product(self, cols, w, a_scale, out_dtype)
             return y.reshape(n, ho, wo, -1)
         wf = (self._unpacked().float()
               * self.w_scale[:, None, None, None]).to(out_dtype)
@@ -389,8 +387,7 @@ class Linear(nn.Module):
         a_scale = getattr(self, "a_scale", None)
         if a_scale is not None:
             xq = _quantize_input(x, a_scale).reshape(-1, self.in_features)
-            acc = int8_matmul_nt(pad_k(xq), w)
-            y = _requantize(self, acc, a_scale, out_dtype)
+            y = _int8_product(self, pad_k(xq), w, a_scale, out_dtype)
             return y.reshape(*x.shape[:-1], -1)
         wf = (w[:, :self.in_features].float()
               * self.w_scale[:, None]).to(out_dtype)

@@ -11,9 +11,15 @@ the H100 and how its design meets that.  The TPU block sizes and
 ``interpret`` of the references have no counterpart.
 
 ``int8_matmul(a, b)`` keeps the reference contract, ``[M, K] int8 @ [K, N]
-int8 -> [M, N] int32``, exact.  The int8 Conv2d and Linear call
-``int8_matmul_nt`` instead, with the weight packed once as ``[N, Kp]``
-(K-contiguous, ``Kp`` a multiple of ``K_ALIGN``), so no call transposes it.
+int8 -> [M, N] int32``, exact.  ``int8_matmul_nt`` takes the weight packed
+once as ``[N, Kp]`` (K-contiguous, ``Kp`` a multiple of ``K_ALIGN``), as
+the int8 Conv2d and Linear keep it, so no call transposes it.
+``int8_matmul_requant`` is the same product followed by the reference's
+int8 epilogue (``tlxcv_tpu/nn/layers.py:251-260``: scale, bias, ReLU,
+requantize to int8 or cast), which the kernel runs in its output stage so
+that no int32 tensor is written; the int8 layers take it on the card.
+``requantize`` is that epilogue alone, in PyTorch, the arithmetic of the
+plain versions and of the layers on the CPU.
 
 ``bf16_matmul(a, b)`` keeps its reference's contract, ``[M, K] bf16 @ [K,
 N] bf16 -> [M, N] bf16``: the products summed in f32 and rounded to bf16
@@ -32,9 +38,11 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["bf16_matmul", "bf16_matmul_plain", "int8_matmul", "int8_matmul_nt",
-           "int8_matmul_plain", "K_ALIGN", "padded_k", "pad_k"]
+           "int8_matmul_plain", "int8_matmul_requant",
+           "int8_matmul_requant_plain", "requantize", "K_ALIGN", "padded_k",
+           "pad_k"]
 
-K_ALIGN = 16  # the kernel's K granularity: one 16-byte cp.async chunk
+K_ALIGN = 16  # the kernel's K granularity: TMA's 16-byte row stride
 
 
 def padded_k(k: int) -> int:
@@ -84,33 +92,48 @@ def _check_device(name, a, b):
                          f"got {a.device} and {b.device}")
 
 
-def _launch(wrapper, symbol, errors, tensors, m, ints, tile_n):
+def _launch(wrapper, symbol, errors, pointers, m, ints, aligned):
     """Launch the C entry ``symbol`` of ``wrapper``'s kernel library on the
-    current stream: the tensors' addresses (the output last), ``m`` as a
-    long long, the ``ints`` (N first), the stream.  The grid is
-    ``ceil(m / 128) x ceil(N / tile_n)`` blocks.  Raises with the library's
-    error string ``errors`` if the launch failed; counts a launch on
-    ``wrapper`` otherwise."""
-    if any(t.data_ptr() % 16 for t in tensors):
+    current stream: the ``pointers`` (tensors, or None for null), ``m`` as
+    a long long, the ``ints``, the stream.  The ``aligned`` tensors must be
+    16-byte aligned (TMA and 16-byte stores); each wrapper checks its own
+    kernel's shape limits first.  Raises with the library's error string
+    ``errors`` if the launch failed; counts a launch on ``wrapper``
+    otherwise."""
+    if any(t.data_ptr() % 16 for t in aligned):
         raise ValueError("the kernel takes 16-byte aligned operands")
-    if -(-m // 128) >= 2 ** 31 or -(-ints[0] // tile_n) > 65535:
-        raise ValueError(f"shape {m} x {ints[0]} exceeds the kernel's grid")
     lib = _build.library(wrapper.__name__)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = ([p] * len(tensors) + [ctypes.c_longlong]
+        fn.argtypes = ([p] * len(pointers) + [ctypes.c_longlong]
                        + [ctypes.c_int] * len(ints) + [p])
         fn.restype = ctypes.c_int
-    with torch.cuda.device(tensors[0].device):
-        rc = fn(*(t.data_ptr() for t in tensors), m, *ints,
-                torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(aligned[0].device):
+        rc = fn(*(None if t is None else t.data_ptr() for t in pointers), m,
+                *ints, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         err = getattr(lib, errors)
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"{err(rc).decode()} ({rc})")
     wrapper.launches += 1
+
+
+def _check_int8_kernel(a, w):
+    """What the int8 kernel takes beyond the contract: one device, K a
+    multiple of ``K_ALIGN``, contiguous operands, M below 2**31 (TMA's
+    32-bit coordinates).  Returns (M, N, K)."""
+    _check_device("int8_matmul", a, w)
+    m, n, k = a.shape[0], w.shape[0], a.shape[1]
+    if k % K_ALIGN:
+        raise ValueError(f"the kernel takes K a multiple of {K_ALIGN}, got "
+                         f"{k}; pad with pad_k")
+    if not (a.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the kernel takes contiguous operands")
+    if m >= 2 ** 31:
+        raise ValueError(f"the kernel takes M < 2**31 rows, got {m}")
+    return m, n, k
 
 
 def int8_matmul_nt(a, w):
@@ -120,18 +143,106 @@ def int8_matmul_nt(a, w):
     _check_operands(a, w, 1)
     if a.device.type == "cpu":
         return int8_matmul_plain(a, w.t())
-    _check_device("int8_matmul", a, w)
-    m, n, k = a.shape[0], w.shape[0], a.shape[1]
-    if k % K_ALIGN:
-        raise ValueError(f"the kernel takes K a multiple of {K_ALIGN}, got "
-                         f"{k}; pad with pad_k")
-    if not (a.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the kernel takes contiguous operands")
+    m, n, k = _check_int8_kernel(a, w)
     out = torch.empty(m, n, dtype=torch.int32, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
     _launch(int8_matmul, "tlx_int8_matmul_nt", "tlx_int8_error_string",
-            (a, w, out), m, (n, k), tile_n=64)
+            (a, w, out), m, (n, k), aligned=(a, w, out))
+    return out
+
+
+# ------------------------------------------------- int8 with its epilogue
+_OUT_KIND = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
+
+
+def requantize(acc, scale, bias=None, relu=False, out_scale=None,
+               out_dtype=torch.float32):
+    """The reference's int8 epilogue on int32 sums ``acc`` [M, N], in its
+    op order, each op a separate f32 pass: ``acc * scale`` (``scale`` [N]
+    is ``s_in * w_scale``), ``+ bias``, ReLU if ``relu``; with
+    ``out_scale``, requantize to int8 (round half to even, as jnp.round,
+    clamp to +-127), else cast to ``out_dtype``."""
+    y = acc.float() * scale
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    if out_scale is not None:
+        return torch.round(y / out_scale).clamp(-127, 127).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def _check_requant(a, w, scale, bias, out_scale, out_dtype):
+    """The epilogue's operands: f32 ``scale`` [N], a float ``bias`` [N],
+    one f32 ``out_scale``, a float ``out_dtype``, all on ``a``'s device."""
+    n = w.shape[0]
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (n,):
+        raise TypeError(f"scale must be f32 [{n}], got {scale.dtype} "
+                        f"{tuple(scale.shape)}")
+    if bias is not None and (not bias.is_floating_point()
+                             or tuple(bias.shape) != (n,)):
+        raise TypeError(f"bias must be a float [{n}], got {bias.dtype} "
+                        f"{tuple(bias.shape)}")
+    if out_scale is not None and (out_scale.dtype != torch.float32
+                                  or out_scale.numel() != 1):
+        raise TypeError(f"out_scale must be one f32, got {out_scale.dtype} "
+                        f"{tuple(out_scale.shape)}")
+    if out_scale is None and out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16 without "
+                        f"out_scale, got {out_dtype}")
+    for t in (scale, bias, out_scale):
+        if t is not None and t.device != a.device:
+            raise ValueError(f"the epilogue's tensors must lie on "
+                             f"{a.device}, got {t.device}")
+
+
+def _refuse_grad(*tensors):
+    """The kernel has no backward: raise where autograd would record."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError("int8_matmul_requant has no backward: call it "
+                           "under torch.no_grad() or torch.inference_mode()")
+
+
+def int8_matmul_requant_plain(a, w, scale, bias=None, relu=False,
+                              out_scale=None, out_dtype=torch.float32):
+    """``int8_matmul_plain`` of ``a`` and ``w.t()``, then ``requantize``."""
+    _check_operands(a, w, 1)
+    _check_requant(a, w, scale, bias, out_scale, out_dtype)
+    return requantize(int8_matmul_plain(a, w.t()), scale, bias, relu,
+                      out_scale, out_dtype)
+
+
+def int8_matmul_requant(a, w, scale, bias=None, relu=False, out_scale=None,
+                        out_dtype=torch.float32):
+    """``a``: [M, Kp] int8, ``w``: [N, Kp] int8 -> ``requantize`` of their
+    int32 product: [M, N] int8 with ``out_scale``, else ``out_dtype`` (f32
+    or bf16).  On the CPU the plain version, differentiable in ``scale``
+    and ``bias``.  On the card one kernel launch, counted on
+    ``int8_matmul.launches``, bitwise equal to the plain version; K must
+    be a positive multiple of ``K_ALIGN``, and it raises where autograd
+    would record (the kernel has no backward)."""
+    _check_operands(a, w, 1)
+    _check_requant(a, w, scale, bias, out_scale, out_dtype)
+    if a.device.type == "cpu":
+        return int8_matmul_requant_plain(a, w, scale, bias, relu, out_scale,
+                                         out_dtype)
+    _refuse_grad(scale, bias, out_scale)
+    m, n, k = _check_int8_kernel(a, w)
+    if k == 0:
+        raise ValueError("the fused kernel takes K > 0")
+    out_dtype = torch.int8 if out_scale is not None else out_dtype
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    scale = scale.contiguous()
+    bias = None if bias is None else bias.float().contiguous()
+    out_scale = None if out_scale is None else out_scale.reshape(())
+    _launch(int8_matmul, "tlx_int8_matmul_requant", "tlx_int8_error_string",
+            (a, w, out, scale, bias, out_scale), m,
+            (n, k, int(bool(relu)), _OUT_KIND[out_dtype]),
+            aligned=(a, w, out))
     return out
 
 
@@ -185,10 +296,10 @@ def bf16_matmul(a, b):
     ldb = -(-n // BF16_ALIGN) * BF16_ALIGN
     a = _pad_to(a.contiguous(), m, kp)
     b = _pad_to(b.contiguous(), kp, ldb)
-    if m >= 2 ** 31:
-        raise ValueError(f"the kernel takes M < 2**31 rows, got {m}")
+    if m >= 2 ** 31 or -(-n // 256) > 65535:  # TMA coordinates, grid.y
+        raise ValueError(f"shape {m} x {n} exceeds the kernel's grid")
     _launch(bf16_matmul, "tlx_bf16_matmul", "tlx_bf16_error_string",
-            (a, b, out), m, (n, kp, ldb), tile_n=256)
+            (a, b, out), m, (n, kp, ldb), aligned=(a, b, out))
     return out
 
 
