@@ -25,6 +25,12 @@
                                       # --profile, its device time and idle
                                       # share (copy this file into another
                                       # tree's root to compare the two)
+    python3 chip_smoke.py --resize    # only the three resize kernels: the
+                                      # upsample-add, the transposed resize
+                                      # and the 2x upsample's forward and
+                                      # VJP, checked; the 2x kernels timed
+                                      # beside the transposed resize on the
+                                      # 2x taps; no contract line
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -90,10 +96,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    416^2 ``predict``, served and timed, and the int8 GEMM timed at every
    shape of the int8 forward.
 8. train_kernels (run with phase 2): the transposed resize
-   (``csrc/sep_resize.cu``, the FPN upsample-add's backward and the 2x
-   bilinear upsample) against its plain version, bitwise, at the FPN
-   backward's b8 shapes, 38 -> 75 at C = 3, 8 and 256, a stride-0 and a
-   permuted gradient, and the upsample2x cases.
+   (``csrc/sep_resize.cu``, the FPN upsample-add's backward) against its
+   plain version, bitwise, at the FPN backward's b8 shapes, 38 -> 75 at
+   C = 3, 8 and 256, a stride-0 and a permuted gradient.  Then
+   upsample2x_kernels: the 2x bilinear upsample's forward and VJP kernels
+   (``csrc/upsample2x.cu``, on no model's path) against their plain
+   versions, bitwise, at H, W in {1, 2, 3}, 5 x 7, C = 3, 4, 6, 8 and
+   256, [8, 80, 80, 256], stride-0, permuted and sliced inputs, in bf16
+   and f32; ``upsample2x_fused`` forward and backward at [8, 80, 80, 256]
+   bf16 with the counts set to 0 just before (one launch of each kernel,
+   nothing else); both timed at [8, 80, 80, 256] bf16 and f32 and
+   [8, 160, 160, 256] bf16 (CUDA-graph replays, events, and with the L2
+   flushed before each call) beside the generic route (``sep_resize`` on
+   the 2x taps, which the 2x path used before its own kernels), the plain
+   versions, the library calls and the bounds.
 9. train_check: gradients on the card against f32 on the CPU, through the
    Trainer's compute policy: Mask R-CNN at b2 640^2 (the CPU's proposals
    substituted straight through) and ResNet-50 at b4, in f32 and bf16; the
@@ -835,13 +851,17 @@ def _counted():
     from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
     from tlxcv_tpu_torch.ops.cuda.matmul import bf16_matmul, int8_matmul
     from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
+                                                   upsample2x_fused,
+                                                   upsample2x_vjp,
                                                    upsample_add_fused)
 
     return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
             "bf16_matmul": bf16_matmul,
             "gather_rows": gather_rows,
             "upsample_add_fused": upsample_add_fused,
-            "sep_resize": sep_resize}
+            "sep_resize": sep_resize,
+            "upsample2x_fused": upsample2x_fused,
+            "upsample2x_vjp": upsample2x_vjp}
 
 
 def reset_launches():
@@ -1769,48 +1789,35 @@ def sep_bound_ms(g, out_hw):
 def phase_train_kernels():
     """sep_resize (the transposed resize) against sep_resize_plain on the
     card: the FPN backward's b8 shapes in bf16 and f32, nearest and
-    bilinear, 38 -> 75 at C = 3, 8 and 256, a stride-0 and a permuted g,
-    and the upsample2x cases (forward taps and transposed)."""
+    bilinear, 38 -> 75 at C = 3, 8 and 256, a stride-0 and a permuted g."""
     from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
                                                    sep_resize_plain, sep_taps)
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(13)
-    cases = []  # name, tensor, (fwd out, fwd in) per axis, mode, transposed
+    cases = []  # name, g, dx's (height, width), mode
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
         for gshape, in_hw in SEP_STEPS:
             for mode in ("nearest", "bilinear"):
                 cases.append((f"fpn_{gshape[1]}_{mode}_{dn}",
                               torch.randn(*gshape, generator=g, device=dev)
-                              .to(dtype), in_hw, mode, True))
+                              .to(dtype), in_hw, mode))
         for c in (3, 8, 256):
             for mode in ("nearest", "bilinear"):
                 cases.append((f"75to38_c{c}_{mode}_{dn}",
                               torch.randn(2, 75, 75, c, generator=g,
                                           device=dev).to(dtype), (38, 38),
-                              mode, True))
+                              mode))
         cases.append((f"stride0_{dn}", torch.tensor(0.5, device=dev).to(
-            dtype).expand(8, 40, 40, 256), (20, 20), "nearest", True))
+            dtype).expand(8, 40, 40, 256), (20, 20), "nearest"))
         cases.append((f"permuted_{dn}", torch.randn(
             8, 256, 40, 40, generator=g, device=dev).to(dtype).permute(
-            0, 2, 3, 1), (20, 20), "bilinear", True))
-        for shape in ((2, 8, 16, 8), (2, 8, 8, 128)):     # upsample2x
-            x = torch.randn(*shape, generator=g, device=dev).to(dtype)
-            h, w = shape[1:3]
-            cases.append((f"up2x_fwd_{shape[3]}_{dn}", x, (2 * h, 2 * w),
-                          "bilinear", False))
-            cases.append((f"up2x_bwd_{shape[3]}_{dn}", torch.randn(
-                shape[0], 2 * h, 2 * w, shape[3], generator=g, device=dev)
-                .to(dtype), (h, w), "bilinear", True))
+            0, 2, 3, 1), (20, 20), "bilinear"))
     results = []
-    for name, t, hw, mode, transposed in cases:
-        if transposed:   # g [N, OH, OW, C] -> dx [N, IH, IW, C]
-            th = sep_taps(t.shape[1], hw[0], mode, True, dev)
-            tw = sep_taps(t.shape[2], hw[1], mode, True, dev)
-        else:            # x [N, H, W, C] -> [N, 2H, 2W, C]
-            th = sep_taps(hw[0], t.shape[1], mode, False, dev)
-            tw = sep_taps(hw[1], t.shape[2], mode, False, dev)
+    for name, t, hw, mode in cases:  # g [N, OH, OW, C] -> dx [N, IH, IW, C]
+        th = sep_taps(t.shape[1], hw[0], mode, True, dev)
+        tw = sep_taps(t.shape[2], hw[1], mode, True, dev)
         got = sep_resize(t, th, tw)
         torch.cuda.synchronize()
         want = sep_resize_plain(t, th, tw)
@@ -1825,23 +1832,194 @@ def phase_train_kernels():
     emit({"phase": "train_kernels", "cases": results, "tolerance": 0,
           "why": "the plain version takes the same taps in the same order "
                  "with IEEE multiply and add and rounds once"})
-    # upsample2x_fused (no model calls it) at the FPN's P3 size, bf16
-    x = torch.randn(8, 80, 80, 256, generator=g, device=dev).to(
-        torch.bfloat16)
-    th = sep_taps(160, 80, "bilinear", False, dev)
-    nchw = x.permute(0, 3, 1, 2)
-    emit({"phase": "kernel_times", "upsample2x_fused": {
-        "x": list(x.shape), "dtype": "bfloat16",
-        "ms": graph_ms(lambda: sep_resize(x, th, th)),
-        "plain_ms": graph_ms(lambda: sep_resize_plain(x, th, th), reps=5,
-                             calls=2),
-        "library_ms": graph_ms(lambda: torch.nn.functional.interpolate(
-            nchw, scale_factor=2, mode="bilinear")),
-        "bound_ms": sep_bound_ms(x, (160, 160))}})
     return {"name": "sep_resize", "route": "cuda",
             "source": "tlxcv_tpu_torch/csrc/sep_resize.cu",
             "replaces": "tlxcv_tpu/ops/pallas/upsample.py:164",
             "max_abs_err": 0.0}
+
+
+# ---------------------------------------------------- 2x bilinear upsample
+# No model calls it.  Timed at the FPN's P3 size in bf16 and f32, and at
+# P2's, whose 105 MB input cannot stay in the 50 MB L2 between calls.
+UP2X_TIMED = [((8, 80, 80, 256), torch.bfloat16),
+              ((8, 80, 80, 256), torch.float32),
+              ((8, 160, 160, 256), torch.bfloat16)]
+
+
+def cold_ms(fn, flush, reps=10, calls=5):
+    """Device time of one call that finds the L2 cold: each call captured
+    after ``flush`` (a read of a buffer larger than the L2), less the
+    flushes alone."""
+    return graph_ms(lambda: (flush(), fn()), reps, calls) \
+        - graph_ms(flush, reps, calls)
+
+
+def up2x_sep_route():
+    """The generic 2x route, forward and VJP: the CSR resize
+    (``sep_resize``) on the 2x bilinear taps and on their transposes, which
+    the 2x path used before its own kernels."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import sep_resize, sep_taps
+
+    def forward(x):
+        h, w = x.shape[1:3]
+        return sep_resize(x, sep_taps(2 * h, h, "bilinear", False, x.device),
+                          sep_taps(2 * w, w, "bilinear", False, x.device))
+
+    def vjp(g):
+        h, w = g.shape[1] // 2, g.shape[2] // 2
+        return sep_resize(g, sep_taps(2 * h, h, "bilinear", True, g.device),
+                          sep_taps(2 * w, w, "bilinear", True, g.device))
+
+    return forward, vjp
+
+
+def up2x_times(routes, plain):
+    """Each route's (forward, VJP) pair at every UP2X_TIMED shape: device
+    time from CUDA-graph replays (``ms``), CUDA events around each call
+    (``event_ms``), the call with the L2 flushed before it (``cold_ms``),
+    beside the plain version, the library call
+    (``F.interpolate`` / ``aten.upsample_bilinear2d_backward`` on the
+    channels-last NCHW views) and the bound (input read once, output
+    written once)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    scratch = torch.zeros(64 * 2 ** 20, device="cuda")  # 256 MB
+    flush = scratch.sum
+    rows = []
+    for shape, dtype in UP2X_TIMED:
+        n, h, w, c = shape
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(n, 2 * h, 2 * w, c, generator=gen,
+                        device="cuda").to(dtype)
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        library = (
+            lambda: torch.nn.functional.interpolate(
+                xn, scale_factor=2, mode="bilinear"),
+            lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                gn, [2 * h, 2 * w], [n, c, h, w], False))
+        for k, (part, t) in enumerate((("forward", x), ("vjp", g))):
+            row = {"part": part, "x": list(shape), "dtype": str(dtype)[6:],
+                   "bound_ms": sep_bound_ms(t, (2 * h, 2 * w) if k == 0
+                                            else (h, w))}
+            for name, fns in routes.items():
+                fn = fns[k]
+                row[f"{name}_ms"] = graph_ms(lambda: fn(t))
+                row[f"{name}_event_ms"] = time_ms(lambda: fn(t))
+                row[f"{name}_cold_ms"] = cold_ms(lambda: fn(t), flush)
+            row["plain_ms"] = graph_ms(lambda: plain[k](t), reps=3, calls=2)
+            row["library_ms"] = graph_ms(library[k])
+            row["library_event_ms"] = time_ms(library[k])
+            row["library_cold_ms"] = cold_ms(library[k], flush)
+            rows.append(row)
+        del x, g, xn, gn
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_times", "upsample2x": rows})
+    return rows
+
+
+def up2x_cases(gen):
+    """(name, part, tensor) for the 2x kernels' bitwise check: the sizes
+    with special edges (H, W in {1, 2, 3}) and a non-square one at C = 3,
+    4, 6, 8 and 256 (one element a thread; 8 bytes: 4 bf16 or 2 of 6 f32;
+    16 bytes with one or many threads a pixel), the older micro cases, the
+    timed P3 shape, a stride-0 g (from ``.sum()``), permuted x and g
+    (channels not contiguous) and sliced ones (channels contiguous, rows
+    not dense: the VJP's pointer route at 16 bytes), in bf16 and f32."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        shapes = [(2, h, w, c) for h in (1, 2, 3) for w in (1, 2, 3)
+                  for c in (3, 4, 6, 8, 256)]
+        shapes += [(1, 5, 7, c) for c in (3, 4, 6, 8, 256)]
+        shapes += [(2, 8, 16, 8), (2, 8, 8, 128), (8, 80, 80, 256)]
+        for n, h, w, c in shapes:
+            name = f"{n}x{h}x{w}x{c}_{dn}"
+            cases.append((name, "forward", torch.randn(
+                n, h, w, c, generator=gen, device="cuda").to(dtype)))
+            cases.append((name, "vjp", torch.randn(
+                n, 2 * h, 2 * w, c, generator=gen, device="cuda").to(dtype)))
+        cases.append((f"stride0_{dn}", "vjp", torch.tensor(
+            0.5, device="cuda").to(dtype).expand(2, 40, 48, 64)))
+        for part, hw in (("forward", (20, 24)), ("vjp", (40, 48))):
+            cases.append((f"sliced_{dn}", part, torch.randn(   # not dense
+                2, *hw, 128, generator=gen, device="cuda").to(dtype)[
+                ..., 32:96]))
+        for part, hw in (("forward", (20, 24)), ("vjp", (40, 48))):
+            cases.append((f"permuted_{dn}", part, torch.randn(
+                2, 64, *hw, generator=gen, device="cuda").to(dtype).permute(
+                0, 2, 3, 1)))
+    return cases
+
+
+def phase_upsample2x_kernels():
+    """The 2x bilinear upsample's forward and VJP kernels
+    (``csrc/upsample2x.cu``) against their plain versions on the card,
+    bitwise; then its path, ``upsample2x_fused`` forward and backward
+    through autograd at [8, 80, 80, 256] bf16 with the launch counts set to
+    0 just before, which must launch each kernel once and nothing else;
+    then both kernels timed beside the generic route (the CSR
+    ``sep_resize`` on the 2x taps), the plain versions, the library calls
+    and the bounds."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample2x_fused,
+                                                   upsample2x_plain,
+                                                   upsample2x_vjp,
+                                                   upsample2x_vjp_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    kernel = {"forward": upsample2x_fused, "vjp": upsample2x_vjp}
+    plain = {"forward": upsample2x_plain, "vjp": upsample2x_vjp_plain}
+    results = []
+    for name, part, t in up2x_cases(gen):
+        got = kernel[part](t)
+        torch.cuda.synchronize()
+        same = torch.equal(got, plain[part](t)) and got.is_contiguous()
+        results.append({"case": name, "part": part, "in": list(t.shape),
+                        "in_stride": list(t.stride()), "bitwise": same})
+        if not same:
+            emit({"phase": "upsample2x_kernels", "failed": results[-1]})
+            raise AssertionError(f"upsample2x {part} {name} differs from "
+                                 f"plain")
+    emit({"phase": "upsample2x_kernels", "cases": results, "tolerance": 0,
+          "why": "the plain version takes the same taps in the same order "
+                 "with IEEE multiply and add and rounds once"})
+
+    x = torch.randn(8, 80, 80, 256, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    gy = torch.randn(8, 160, 160, 256, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    reset_launches()
+    y = upsample2x_fused(x)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    counts = launches()
+    want = {k: int(k in ("upsample2x_fused", "upsample2x_vjp"))
+            for k in counts}
+    right = (torch.equal(y, upsample2x_plain(x.detach()))
+             and torch.equal(x.grad, upsample2x_vjp_plain(gy)))
+    emit({"phase": "upsample2x_path", "x": list(x.shape), "dtype": "bfloat16",
+          "launches": counts, "bitwise": right})
+    if counts != want or not right:
+        raise AssertionError(f"upsample2x path: launches {counts}, "
+                             f"expected {want}; bitwise {right}")
+    del x, gy, y
+    torch.cuda.empty_cache()
+
+    rows = up2x_times({"upsample2x": (upsample2x_fused, upsample2x_vjp),
+                       "sep_resize": up2x_sep_route()},
+                      (upsample2x_plain, upsample2x_vjp_plain))
+    step = [r for r in rows if r["x"] == [8, 80, 80, 256]
+            and r["dtype"] == "bfloat16"]  # the path's shape: forward, vjp
+    record = {"name": "upsample2x", "route": "cuda",
+              "source": "tlxcv_tpu_torch/csrc/upsample2x.cu",
+              "replaces": "tlxcv_tpu/ops/pallas/upsample.py:164",
+              "launches": counts["upsample2x_fused"]
+              + counts["upsample2x_vjp"],
+              "max_abs_err": 0.0, "bound_by": "bytes"}
+    for key, col in (("ms", "upsample2x_ms"), ("plain_ms", "plain_ms"),
+                     ("bound_ms", "bound_ms"), ("library_ms", "library_ms")):
+        record[key] = sum(r[col] for r in step)
+    record["forward_ms"], record["vjp_ms"] = (r["upsample2x_ms"]
+                                              for r in step)
+    return record
 
 
 def _rel_err(got, want):
@@ -2212,6 +2390,12 @@ def main():
         emit({"kernels": [gather, upsample]})
         print(card_line(), flush=True)
         return 0
+    if "--resize" in sys.argv[1:]:  # the three resize kernels alone
+        records = [phase_upsample_kernels(), phase_train_kernels(),
+                   phase_upsample2x_kernels()]
+        emit({"kernels": records})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
     if "--kernels" in sys.argv[1:]:  # the redesigned kernels alone
         bf16 = phase_bf16_kernels()
@@ -2227,6 +2411,7 @@ def main():
     gather = phase_gather_kernels()
     upsample = phase_upsample_kernels()
     sep = phase_train_kernels()
+    up2x = phase_upsample2x_kernels()
     vit, vit_x = phase_model(flash)
     resnet16, resnet8, resnet_x = phase_resnet(int8)
     mrcnn, mrcnn_x, mrcnn_step = phase_mask_rcnn(gather, upsample)
@@ -2247,9 +2432,11 @@ def main():
     phase_train(sep, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    fused = ("fused_ms", "fused_bound_ms", "fused_library_ms")
-    emit({"kernels": [{key: r[key] for key in keys + fused if key in r}
-                      for r in (flash, int8, bf16, gather, upsample, sep)]})
+    extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
+             "vjp_ms")
+    emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
+                      for r in (flash, int8, bf16, gather, upsample, sep,
+                                up2x)]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

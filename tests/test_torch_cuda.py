@@ -678,18 +678,136 @@ def test_sep_resize_kernel_takes_stride0_and_permuted(cuda, dtype):
 
 def test_upsample2x_on_the_card_matches_the_cpu(cuda):
     """``upsample2x_fused`` forward and backward on the card, through the
-    transposed-resize kernel both ways, bitwise against the CPU."""
-    from tlxcv_tpu_torch.ops.cuda.upsample import upsample2x_fused
+    2x kernels (one launch each; the generic transposed resize is not
+    launched), bitwise against the CPU."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
+                                                   upsample2x_fused,
+                                                   upsample2x_vjp)
 
     x = torch.randn(2, 8, 8, 128, generator=torch.Generator().manual_seed(8))
     outs = []
     for dev in ("cpu", cuda):
         t = x.detach().to(dev).requires_grad_()
+        before = [f.launches for f in (upsample2x_fused, upsample2x_vjp,
+                                       sep_resize)]
         y = upsample2x_fused(t)
         (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        moved = [f.launches - b for f, b in zip(
+            (upsample2x_fused, upsample2x_vjp, sep_resize), before)]
+        assert moved == ([0, 0, 0] if dev == "cpu" else [1, 1, 0])
         outs.append((y.detach().cpu(), t.grad.cpu()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 4, 6, 8, 256])
+def test_upsample2x_kernels_match_plain_bitwise(cuda, dtype, c):
+    """Both 2x kernels against their plain versions on the card, bitwise,
+    at every height and width in {1, 2, 3} (the taps' edges) and at 5 x 7;
+    C = 3, 4, 6, 8, 256 take one element a thread, 4 or 8 bytes, and 16
+    bytes with one or many threads a pixel (the dense 16-byte inputs take
+    the bulk-copy routes)."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample2x_fused,
+                                                   upsample2x_plain,
+                                                   upsample2x_vjp,
+                                                   upsample2x_vjp_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for h, w in [(h, w) for h in (1, 2, 3) for w in (1, 2, 3)] + [(5, 7)]:
+        x = torch.randn(2, h, w, c, generator=gen, device=cuda).to(dtype)
+        g = torch.randn(2, 2 * h, 2 * w, c, generator=gen, device=cuda).to(
+            dtype)
+        before = upsample2x_fused.launches, upsample2x_vjp.launches
+        y, dx = upsample2x_fused(x), upsample2x_vjp(g)
+        torch.cuda.synchronize()
+        assert (upsample2x_fused.launches, upsample2x_vjp.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert y.shape == (2, 2 * h, 2 * w, c) and y.dtype == dtype
+        assert torch.equal(y, upsample2x_plain(x)), (h, w)
+        assert dx.shape == x.shape and dx.dtype == dtype
+        assert torch.equal(dx, upsample2x_vjp_plain(g)), (h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample2x_kernels_take_strided_views(cuda, dtype):
+    """A stride-0 g (the gradient of a ``.sum()``), permuted x and g
+    (channels not contiguous) and sliced ones (channels contiguous, rows
+    not dense: the pointer routes at 16 bytes) give the contiguous call's
+    result and the plain version's, bitwise; the P3 shape in both routes."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample2x_fused,
+                                                   upsample2x_plain,
+                                                   upsample2x_vjp,
+                                                   upsample2x_vjp_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    big = torch.randn(8, 80, 80, 256, generator=gen, device=cuda).to(dtype)
+    cases = [
+        (upsample2x_vjp, upsample2x_vjp_plain,
+         torch.tensor(0.75, device=cuda).to(dtype).expand(2, 40, 48, 64)),
+        (upsample2x_fused, upsample2x_plain, torch.randn(
+            2, 64, 20, 24, generator=gen, device=cuda).to(dtype).permute(
+            0, 2, 3, 1)),
+        (upsample2x_vjp, upsample2x_vjp_plain, torch.randn(
+            2, 64, 40, 48, generator=gen, device=cuda).to(dtype).permute(
+            0, 2, 3, 1)),
+        (upsample2x_fused, upsample2x_plain, torch.randn(
+            2, 20, 24, 128, generator=gen, device=cuda).to(dtype)[..., 32:96]),
+        (upsample2x_vjp, upsample2x_vjp_plain, torch.randn(
+            2, 40, 48, 128, generator=gen, device=cuda).to(dtype)[..., 32:96]),
+        (upsample2x_fused, upsample2x_plain, big),
+        (upsample2x_fused, upsample2x_plain, big[:, :, 8:72]),  # not dense
+    ]
+    for fn, plain, v in cases:
+        got = fn(v)
+        assert got.is_contiguous()
+        assert torch.equal(got, fn(v.contiguous()))
+        assert torch.equal(got, plain(v))
+
+
+def test_upsample2x_carries_gradients(cuda):
+    """Through ``upsample2x_fused`` on the card a tensor that requires grad
+    gets a ``grad_fn``; the gradient autograd hands the VJP kernel after a
+    ``.sum()`` (stride 0) and after ``y * gy`` gives the CPU's, bitwise, in
+    f32 and bf16."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample2x_fused
+
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn(2, 6, 10, 16, generator=g)
+    gy = torch.randn(2, 12, 20, 16, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        for loss in (lambda y, w: y.sum(), lambda y, w: (y * w).sum()):
+            grads = []
+            for dev in ("cpu", cuda):
+                t = x.to(dev, dtype).detach().requires_grad_()
+                y = upsample2x_fused(t)
+                assert y.grad_fn is not None
+                loss(y, gy.to(dev, dtype)).backward()
+                grads.append(t.grad.cpu())
+            assert torch.equal(*grads)
+
+
+def test_upsample2x_rejects_what_its_kernels_do_not_take(cuda):
+    """Not NHWC, not f32 or bf16, a g of odd height or width, a tensor on
+    neither the CPU nor a CUDA device: ValueError, no launch."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (_upsample2x_kernel,
+                                                   upsample2x_fused,
+                                                   upsample2x_vjp)
+
+    before = upsample2x_fused.launches, upsample2x_vjp.launches
+    for bad in (torch.zeros(2, 4, 4, device=cuda),
+                torch.zeros(1, 2, 2, 8, dtype=torch.float16, device=cuda)):
+        for fn in (upsample2x_fused, upsample2x_vjp):
+            with pytest.raises(ValueError):
+                fn(bad)
+    with pytest.raises(ValueError, match="2H, 2W"):
+        upsample2x_vjp(torch.zeros(1, 3, 4, 8, device=cuda))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        upsample2x_fused(torch.zeros(1, 2, 2, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):  # the kernel's
+        _upsample2x_kernel(torch.zeros(1, 2, 2, 8), vjp=False)  # own check
+    assert (upsample2x_fused.launches, upsample2x_vjp.launches) == before
 
 
 def test_mask_rcnn_training_step_launches_all_three_kernels(cuda):

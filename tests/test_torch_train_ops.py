@@ -20,8 +20,10 @@ from tlxcv_tpu.ops.roi_align import roi_align as j_roi_align
 from tlxcv_tpu_torch.ops import image as TI
 from tlxcv_tpu_torch.ops import losses as TL
 from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
+from tlxcv_tpu_torch.ops.cuda import upsample as up
 from tlxcv_tpu_torch.ops.cuda.upsample import (resize_matrix, sep_resize,
-                                               sep_taps, upsample2x_bilinear,
+                                               sep_resize_plain, sep_taps,
+                                               upsample2x_bilinear,
                                                upsample2x_fused)
 from tlxcv_tpu_torch.ops.roi_align import multilevel_roi_align, roi_align
 
@@ -123,13 +125,20 @@ def test_sep_resize_takes_stride0_and_permuted_gradients():
     np.testing.assert_allclose(x.grad[0, ..., 0].numpy(), want, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 16, 8), (2, 8, 8, 128)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 8), (2, 8, 8, 128),               # tests/test_pallas_ops.py
+    (1, 1, 1, 8), (1, 2, 2, 8), (2, 3, 5, 4),    # the 2x taps' edge sizes
+    (1, 4, 1, 3), (2, 2, 7, 5)])
 def test_upsample2x_matches_both_pallas_kernels(shape):
     """``upsample2x_fused`` / ``upsample2x_bilinear`` against the Pallas
-    kernels interpreted (the cases of tests/test_pallas_ops.py), forward
-    and ``jax.grad`` of sum(y^2), f32: the same 2-tap sums per axis in
-    another order (the kernel's dot) -> 2e-6; the gradient sums up to 16
-    taps of 2y -> 2e-5."""
+    kernels interpreted, forward and ``jax.grad`` of sum(y^2), f32, at the
+    reference tests' cases and at the sizes where the 2x taps have edges
+    (H or W of 1, 2 and 3; the first and last output rows take one tap of
+    weight 1, a transposed edge row 3 taps, a size-1 one 2): the same 2-tap
+    sums per axis in another order (the kernel's dot) -> 2e-6; the gradient
+    sums up to 16 taps of 2y -> 2e-5.  The gradient is held against
+    ``upsample2x_fused``'s VJP: ``upsample2x_bilinear``'s bare pallas_call
+    has none in JAX."""
     rng = np.random.default_rng(3)
     x = rng.normal(size=shape).astype(np.float32)
     xt = torch.from_numpy(x).requires_grad_()
@@ -143,6 +152,60 @@ def test_upsample2x_matches_both_pallas_kernels(shape):
     want = jax.grad(lambda v: (j_up2x(v, interpret=True) ** 2).sum())(
         jnp.asarray(x))
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 40, 80, 97])
+def test_the_2x_kernels_taps_are_the_resize_matrix(n):
+    """The taps that ``csrc/upsample2x.cu`` works out from the output index
+    (``_rule_2x``) are ``resize_matrix(2n, n)``, which the plain version
+    reads: one tap of weight 1 on the first and last output rows, 0.25 and
+    0.75 elsewhere.  The wrapper checks it once per size."""
+    np.testing.assert_array_equal(up._rule_2x(n),
+                                  resize_matrix(2 * n, n, "bilinear"))
+    up._check_2x_taps(n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1, 1, 3), (1, 3, 2, 8), (2, 5, 7, 4)])
+def test_upsample2x_plain_is_sep_resize_plain_on_the_2x_taps(dtype, shape):
+    """The 2x kernels' plain versions, forward and VJP, are
+    ``sep_resize_plain`` on the 2x bilinear taps and their transposes,
+    bitwise, and the wrappers give them for CPU tensors: a stride-0 g (from
+    ``.sum()``) and a permuted one give the contiguous result."""
+    rng = np.random.default_rng(4)
+    n, h, w, c = shape
+    cpu = torch.device("cpu")
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * h, 2 * w, c)).astype(
+        np.float32)).to(dtype)
+    want = sep_resize_plain(x, sep_taps(2 * h, h, "bilinear", False, cpu),
+                            sep_taps(2 * w, w, "bilinear", False, cpu))
+    assert torch.equal(up.upsample2x_plain(x), want)
+    assert torch.equal(upsample2x_fused(x), want)
+    want = sep_resize_plain(g, sep_taps(2 * h, h, "bilinear", True, cpu),
+                            sep_taps(2 * w, w, "bilinear", True, cpu))
+    assert torch.equal(up.upsample2x_vjp_plain(g), want)
+    assert torch.equal(up.upsample2x_vjp(g), want)
+    gp = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert torch.equal(up.upsample2x_vjp(gp), want)
+    g0 = torch.tensor(1.5, dtype=dtype).expand(n, 2 * h, 2 * w, c)
+    assert torch.equal(up.upsample2x_vjp(g0),
+                       up.upsample2x_vjp(g0.contiguous()))
+
+
+def test_upsample2x_refuses_what_its_kernels_do_not_take():
+    """NHWC f32 or bf16 only, a VJP input of even height and width, and a
+    tensor on the CPU or a CUDA device."""
+    for bad in (torch.zeros(2, 4, 4), torch.zeros(1, 2, 2, 3,
+                                                  dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            upsample2x_fused(bad)
+        with pytest.raises(ValueError):
+            up.upsample2x_vjp(bad)
+    with pytest.raises(ValueError, match="2H, 2W"):
+        up.upsample2x_vjp(torch.zeros(1, 3, 4, 2))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        upsample2x_fused(torch.zeros(1, 2, 2, 3, device="meta"))
 
 
 def _bf16_bound(*arrays):

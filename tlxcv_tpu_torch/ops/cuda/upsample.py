@@ -1,17 +1,21 @@
 """Separable resizes: the Hopper kernels' wrappers, their plain versions and
 their gradients.
 
-Two kernels replace the Pallas TPU kernels of
+Three kernel sources replace the Pallas TPU kernels of
 ``tlxcv_tpu/ops/pallas/upsample.py``:
 
 - ``csrc/upsample_add.cu``: ``upsample_add_fused`` :242, kernel
   ``_make_sep_kernel(with_skip=True)`` :117 via ``_apply_sep_matrices_add``
   :183 (the forward of the fused resize + add).
-- ``csrc/sep_resize.cu``: ``_apply_sep_matrices`` :158 (pallas_call :164),
-  the body of ``upsample_add_fused``'s backward (``_fused_up_add_bwd``
-  :228) and of ``upsample2x_fused`` and its VJP (:275-299); through it the
-  port also computes ``upsample2x_bilinear`` (:372, pallas_call :376), the
-  same function.
+- ``csrc/sep_resize.cu``: ``_apply_sep_matrices`` :158 (pallas_call :164)
+  as the body of ``upsample_add_fused``'s backward (``_fused_up_add_bwd``
+  :228), a generic separable resize by sparse matrices.
+- ``csrc/upsample2x.cu``: the same ``_apply_sep_matrices`` as the body of
+  ``upsample2x_fused`` (:303) and its VJP (``_fused_2x_bwd`` :288), and
+  ``upsample2x_bilinear`` (:372, pallas_call :376), the same function: a
+  forward and a VJP kernel that work the 2× taps out from the output index
+  and reuse each vertical sum, bitwise equal to ``sep_resize_plain`` on the
+  2× taps.
 
 Each source note says what bounds its kernel on the H100 and how its design
 meets that.  The TPU's VMEM gates (``upsample_add_fits``,
@@ -50,7 +54,8 @@ from . import _build
 
 __all__ = ["upsample_add_fused", "upsample_add_plain", "sep_resize",
            "sep_resize_plain", "sep_taps", "upsample2x_fused",
-           "upsample2x_bilinear", "resize_matrix", "resize_taps",
+           "upsample2x_bilinear", "upsample2x_plain", "upsample2x_vjp",
+           "upsample2x_vjp_plain", "resize_matrix", "resize_taps",
            "apply_taps"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -351,31 +356,132 @@ def upsample_add_fused(x, skip, mode="bilinear"):
 upsample_add_fused.launches = 0  # forward kernel launches since the last reset
 
 
+def _rule_2x(n):
+    """The 2× taps that ``csrc/upsample2x.cu`` works out from the output
+    index, as the dense [2n, n] matrix: output row 2k reads x[k-1]·0.25 +
+    x[k]·0.75 (row 0: x[0]·1), row 2k+1 x[k]·0.75 + x[k+1]·0.25 (row 2n-1:
+    x[n-1]·1); the VJP reads its transpose."""
+    a = np.zeros((2 * n, n), np.float32)
+    k = np.arange(n)
+    a[2 * k, k] = 0.75
+    a[2 * k[1:], k[:-1]] = 0.25
+    a[2 * k + 1, k] = 0.75
+    a[2 * k[:-1] + 1, k[:-1] + 1] = 0.25
+    a[0, 0] = a[2 * n - 1, n - 1] = 1.0
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def _check_2x_taps(n):
+    """The kernels' taps for size n are the non-zeros of
+    ``resize_matrix(2n, n)``, which the plain version reads; checked once
+    per size."""
+    if not np.array_equal(_rule_2x(n), resize_matrix(2 * n, n, "bilinear")):
+        raise RuntimeError(f"the 2x kernels' taps differ from "
+                           f"resize_matrix({2 * n}, {n})")
+
+
+def _check_2x(t, vjp):
+    if t.ndim != 4:
+        raise ValueError(f"{'g' if vjp else 'x'} must be NHWC, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the 2x upsample takes f32 or bf16, got {t.dtype}")
+    if vjp and (t.shape[1] % 2 or t.shape[2] % 2):
+        raise ValueError(f"g must be [N, 2H, 2W, C], got {tuple(t.shape)}")
+
+
+def upsample2x_plain(x):
+    """The 2× kernel's arithmetic in plain torch: :func:`sep_resize_plain`
+    on the 2× bilinear taps, x [N, H, W, C] -> [N, 2H, 2W, C]."""
+    _check_2x(x, False)
+    h, w = x.shape[1:3]
+    return sep_resize_plain(x, sep_taps(2 * h, h, "bilinear", False,
+                                        x.device),
+                            sep_taps(2 * w, w, "bilinear", False, x.device))
+
+
+def upsample2x_vjp_plain(g):
+    """The 2× VJP kernel's arithmetic in plain torch: the transposed taps,
+    g [N, 2H, 2W, C] -> dx [N, H, W, C]."""
+    _check_2x(g, True)
+    h, w = g.shape[1] // 2, g.shape[2] // 2
+    return sep_resize_plain(g, sep_taps(2 * h, h, "bilinear", True,
+                                        g.device),
+                            sep_taps(2 * w, w, "bilinear", True, g.device))
+
+
+def _upsample2x_kernel(t, vjp):
+    """Launches ``csrc/upsample2x.cu``'s forward (x -> [N, 2H, 2W, C]) or
+    VJP (g -> dx [N, H, W, C]) kernel on t's strides."""
+    name = "upsample2x_vjp" if vjp else "upsample2x_fused"
+    _cuda_only(name, t)
+    n, th, tw, c = t.shape
+    h, w = (th // 2, tw // 2) if vjp else (th, tw)
+    out = torch.empty((n, h, w, c) if vjp else (n, 2 * h, 2 * w, c),
+                      dtype=t.dtype, device=t.device)
+    if out.numel() == 0:
+        return out
+    span = sum((s - 1) * st for s, st in zip(t.shape[1:], t.stride()[1:]))
+    if max(span, 4 * h * w * c) >= 2 ** 31:
+        raise ValueError(f"{name}: one image of {tuple(t.shape)} (strides "
+                         f"{t.stride()}) exceeds the kernel's 32-bit offsets")
+    _check_2x_taps(h)
+    _check_2x_taps(w)
+    strides = (ctypes.c_longlong * 4)(*t.stride())
+    fn = _lib_fn("upsample2x", "tlx_" + ("upsample2x_vjp" if vjp
+                                         else "upsample2x"),
+                 [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P])
+    with torch.cuda.device(t.device):
+        rc = fn(t.data_ptr(), out.data_ptr(), n, h, w, c, strides,
+                _KERNEL_DTYPES[t.dtype], _vector_width(t, out),
+                torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "upsample2x", "upsample2x")
+    if vjp:
+        upsample2x_vjp.launches += 1
+    else:
+        upsample2x_fused.launches += 1
+    return out
+
+
+def upsample2x_vjp(g):
+    """The 2× upsample's VJP, g [N, 2H, 2W, C] -> dx [N, H, W, C], f32 or
+    bf16 with any strides (a stride-0 gradient included), summed in f32
+    and rounded once: the kernel on a CUDA tensor, the plain version on a
+    CPU one.  Not differentiable itself."""
+    _check_2x(g, True)
+    if g.device.type == "cpu":
+        return upsample2x_vjp_plain(g)
+    return _upsample2x_kernel(g, vjp=True)
+
+
+upsample2x_vjp.launches = 0  # kernel launches since the last reset
+
+
 class _Upsample2x(torch.autograd.Function):
-    """``_fused_2x`` with its VJP: ``sep_resize`` with the 2× bilinear
-    matrices forward and with their transposes backward."""
+    """``_fused_2x`` with its VJP: the 2× kernels of
+    ``csrc/upsample2x.cu`` (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x):
-        h, w = x.shape[1:3]
-        return sep_resize(x, sep_taps(2 * h, h, "bilinear", False, x.device),
-                          sep_taps(2 * w, w, "bilinear", False, x.device))
+        if x.device.type == "cpu":
+            return upsample2x_plain(x)
+        return _upsample2x_kernel(x, vjp=False)
 
     @staticmethod
     def backward(ctx, g):
-        h, w = g.shape[1] // 2, g.shape[2] // 2
-        return sep_resize(g, sep_taps(2 * h, h, "bilinear", True, g.device),
-                          sep_taps(2 * w, w, "bilinear", True, g.device))
+        return upsample2x_vjp(g)
 
 
 def upsample2x_fused(x):
     """2× half-pixel bilinear upsample, x [N, H, W, C] -> [N, 2H, 2W, C],
-    f32 or bf16, summed in f32 and rounded once, differentiable (the
-    reference's ``upsample2x_fused``)."""
-    if x.ndim != 4:
-        raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
+    f32 or bf16 with any strides, summed in f32 and rounded once,
+    differentiable (the reference's ``upsample2x_fused``)."""
+    _check_2x(x, False)
     return _Upsample2x.apply(x)
 
+
+upsample2x_fused.launches = 0  # forward kernel launches since the last reset
 
 # The reference's shift-and-interleave kernel computes the same function;
 # in bf16 it rounds each op, where the port rounds once (see the module's
