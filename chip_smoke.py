@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of the repository
     python3 chip_smoke.py --profile   # adds per-kernel device-time profiles
-                                      # and the idle shares of Mask R-CNN
-                                      # and YOLOv3, served, and of a Mask
-                                      # R-CNN training step
+                                      # and the idle shares of Mask R-CNN,
+                                      # YOLOv3, ViT-B/16 int8, HRNet-W18
+                                      # seg and Swin-B, served, and of a
+                                      # Mask R-CNN training step
     python3 chip_smoke.py --kernels   # only the flash-attention and bf16
                                       # GEMM kernels, checked, timed and
                                       # profiled, the GEMM probe, and
@@ -14,11 +15,15 @@
                                       # (to compare two trees: copy this
                                       # file into the other's root)
     python3 chip_smoke.py --int8      # only the int8 GEMM (both routes,
-                                      # checked and timed) and the int8
-                                      # ResNet-50 and YOLOv3 legs, checked
-                                      # and served; with --profile, their
-                                      # device-time profiles; no contract
-                                      # line
+                                      # checked and timed), the int8
+                                      # ResNet-50, YOLOv3 and ViT-B/16
+                                      # legs, checked and served, and the
+                                      # grouped int8 conv; with --profile,
+                                      # their device-time profiles; no
+                                      # contract line
+    python3 chip_smoke.py --seg       # only HRNet-W18 segmentation, both
+                                      # graphs checked and served
+    python3 chip_smoke.py --transformers  # only DeiT-B and Swin-B
     python3 chip_smoke.py --mask-rcnn # only the row gather and the
                                       # upsample-add, checked and timed, and
                                       # Mask R-CNN, checked and served; with
@@ -39,7 +44,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    nvcc for sm_90a, one nvcc per source, all started together.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at the edge cases of its contract (flash
-   attention also at S = 1, 65, 129 and 577 for every head dim; the int8
+   attention also at the served DeiT-B b64 (S = 198) and int8 ViT-B/16
+   b256 grids, and at S = 1, 65, 129 and 577 for every head dim; the int8
    GEMM's fused epilogue bitwise for every output kind, with and without
    bias, N from 1 to 1000, Kp from 16 to 4608, ties), with the
    tolerance and its reason; a backward through the card's attention must
@@ -122,6 +128,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     (the bench's training leg, the same counts, no kernel of ours); train
     img/s, step ms and peak memory; the transposed resize timed on the
     gradients one step hands it.
+11. (run after phase 7) vit_int8: ViT-B/16 quantized as the JAX
+    package's bench leg does (``quantize_weights``, then
+    ``calibrate_activations`` on 4 images, on the CPU), checked against
+    the CPU layer by layer and end to end (``vit_int8_check``) with float
+    and with int8 attention, 50 int8 GEMM and 12 flash launches a
+    forward; the int8 attention's products bitwise at [256, 12, 197, 64]
+    with TF32 on globally; served at b256 with either attention, and the
+    int8 GEMM timed at every shape of the forward.  grouped_int8: a
+    grouped int8 conv at ResNeXt-50's 3x3 (32 groups, b32 56^2, bf16)
+    bitwise against the CPU, 32 launches, timed.  hrnet_seg: HRNet-W18
+    segmentation at b1 512^2 against the CPU, converted to space-to-depth
+    branches and not, then both graphs served at b16 512^2 bf16.
+    transformers: DeiT-B (12 flash launches a forward) and Swin-B (window
+    packs 2 and 1, no launch of ours) at b2 against the CPU, served at
+    b64 bf16.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -261,6 +282,10 @@ def phase_kernels():
         cases += [
             ("vit_b16_b64_packed", 768, 197, 64, dtype, None),
             ("vit_b16_b64", 768, 197, 64, dtype, None),
+            # the served DeiT-B b64 (S = 198, its distillation token) and
+            # int8 ViT-B/16 b256 grids
+            ("deit_b64_packed", 768, 198, 64, dtype, None),
+            ("vit_int8_b256_packed", 3072, 197, 64, dtype, None),
             ("s577_d64", 96, 577, 64, dtype, None),
             ("d32_bias_per_bh", 64, 197, 32, dtype, "per_bh"),
             ("d32_bias_shared", 64, 197, 32, dtype, "shared"),
@@ -949,30 +974,58 @@ def data_bn_statistics(model, x):
         m.momentum = v
 
 
-def resnet_float_check(name, cpu, card, x4):
-    """f32 and bf16 logits of ``card`` against f32 on the CPU; ``card`` is
-    left with bf16 parameters."""
+def float_logit_check(name, cpu, card, x4, depth="53 convs", expect=None,
+                      chaotic=False):
+    """f32 and bf16 outputs of ``card`` against f32 on the CPU; ``card`` is
+    left with bf16 parameters.  With ``expect``, the kernel launches of
+    each card forward must be exactly those (kernels not named: 0).  With
+    ``chaotic``, bf16 is held as ``yolo_float_check`` holds YOLOv3's: to
+    the CPU's own bf16 model's rms error against the f32 model."""
     with torch.inference_mode():
         want = cpu(x4)
         scale = want.abs().max().item()
-        got32 = card(x4.cuda()).cpu()
+        reset_launches()
+        got32 = card(x4.cuda()).float().cpu()
+        per_forward = launches()
     params_to(card, torch.bfloat16)
     with torch.inference_mode():
         got16 = card(x4.cuda().to(torch.bfloat16)).float().cpu()
     err32 = (got32 - want).abs().max().item()
     err16 = (got16 - want).abs().max().item()
     # f32 on the card (TF32 off) differs from the CPU by summation order
-    # only: 1e-3 of the logit scale.  bf16 rounds every activation and
-    # weight to 8 bits of mantissa through 53 convs: 3e-2 of the scale.
+    # only: 1e-3 of the output scale.  bf16 rounds every activation and
+    # weight to 8 bits of mantissa through the net: 3e-2 of the scale.
     check = {"logit_scale": scale, "f32_max_abs_err": err32,
              "f32_bound": 1e-3 * scale, "bf16_max_abs_err": err16,
-             "bf16_bound": 3e-2 * scale}
-    emit({"phase": "model_check", "model": name, "batch": 4, **check})
+             "bf16_bound": 3e-2 * scale, "depth": depth,
+             "launches_per_forward": {k: v for k, v in per_forward.items()
+                                      if v}}
+    bf16_ok = err16 <= 3e-2 * scale
+    if chaotic:
+        cpu16 = params_to(copy.deepcopy(cpu), torch.bfloat16)
+        with torch.inference_mode():
+            want16 = cpu16(x4.to(torch.bfloat16)).float()
+        del cpu16
+        check.update({"bf16_bound": None,
+                      "rms_bf16_card_f32_cpu": _rms(got16, want),
+                      "rms_bf16_cpu_f32_cpu": _rms(want16, want),
+                      "rms_bf16_card_bf16_cpu": _rms(got16, want16)})
+        bf16_ok = (check["rms_bf16_card_f32_cpu"]
+                   <= YOLO_BF16_RMS[0] * check["rms_bf16_cpu_f32_cpu"]
+                   and check["rms_bf16_card_bf16_cpu"]
+                   <= YOLO_BF16_RMS[1] * check["rms_bf16_cpu_f32_cpu"])
+    emit({"phase": "model_check", "model": name, "batch": x4.shape[0],
+          **check})
     if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
-        raise AssertionError("non-finite ResNet-50 logits on the card")
-    if not (err32 <= 1e-3 * scale and err16 <= 3e-2 * scale):
-        raise AssertionError(f"ResNet-50 logits disagree with the CPU: "
+        raise AssertionError(f"non-finite {name} outputs on the card")
+    if not (err32 <= 1e-3 * scale and bf16_ok):
+        raise AssertionError(f"{name} outputs disagree with the CPU: "
                              f"{check}")
+    if expect is not None and per_forward != {
+            k: expect.get(k, 0) for k in per_forward}:
+        raise AssertionError(f"{name}: kernel launches {per_forward} in one "
+                             f"forward, expected {expect}")
+    return got32
 
 
 def phase_resnet(int8_record, floats=True):
@@ -992,7 +1045,7 @@ def phase_resnet(int8_record, floats=True):
     x4 = torch.randn(4, 224, 224, 3, generator=gen)
     card = copy.deepcopy(cpu).cuda() if floats else None
     if floats:
-        resnet_float_check(name, cpu, card, x4)
+        float_logit_check(name, cpu, card, x4)
 
     # full int8: prepared on the CPU in f32, served on the card
     calib = torch.randn(4, 224, 224, 3, generator=gen)
@@ -2300,6 +2353,391 @@ def phase_train(sep_record, profile):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------ ViT-B/16 int8, grouped int8 conv
+# End-to-end limits of ``vit_int8_check``, set from the readings in PERF.md:
+# the card's int8 model's rms distance to the CPU's, in units of the int8
+# model's own error sigma, and in units of the CPU witness's drift.
+VIT_INT8_RMS = 1.0
+VIT_INT8_WITNESS = 2.0
+
+
+def vit_int8_check(cpu8, cpu32, card8, x4, attention):
+    """int8 ViT-B/16 on the card against the same int8 model on the CPU,
+    as ``yolo_int8_check`` holds int8 YOLOv3, with either attention.  Layer
+    by layer it must be exact: each of the 50 int8 layers on the card,
+    given the CPU's input to it, returns the CPU's output bitwise (an exact
+    int32 GEMM and the IEEE epilogue), no step apart, tighter than the 4
+    head steps of the ResNet-50 check.  End to end the chains drift apart:
+    the float ops between the int8 layers (LayerNorm, GELU, the attention's
+    softmax and products) round differently on the two devices, a code
+    flipped by one moves the next layer's inputs across further rounding
+    boundaries, and through 12 blocks the difference grows to the size of
+    the quantization noise itself.  A witness on the CPU alone shows that
+    this is the chain's and not the card's: the CPU's int8 model on the
+    input moved by one ulp drifts from itself by as much.  So the logits
+    are held, with sigma the int8 model's rms error against the f32 model
+    (float attention) on the CPU: the card's int8 model within 1.25 sigma
+    of the f32 model (as accurate as the CPU's), within VIT_INT8_RMS sigma
+    of the CPU's int8 model, and within VIT_INT8_WITNESS times the
+    witness's drift.  Exactly 50 int8 GEMM launches a forward, and 12
+    flash launches with float attention."""
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+    from tlxcv_tpu_torch.nn.attention import use_int8_attention
+
+    seen = []
+    layers = [m for m in cpu8.modules() if isinstance(m, (Conv2d, Linear))]
+    with torch.inference_mode():
+        want32 = cpu32(x4)
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in layers]
+    use_int8_attention(attention == "int8")
+    try:
+        with torch.inference_mode():
+            want8 = cpu8(x4)
+            for h in handles:
+                h.remove()
+            witness = cpu8(torch.nextafter(x4, torch.full_like(x4, math.inf)))
+            reset_launches()
+            got8 = card8(x4.cuda()).cpu()
+            per_forward = launches()
+    finally:
+        use_int8_attention(False)
+        for h in handles:
+            h.remove()
+    names = {id(m): p for p, m in cpu8.named_modules()}
+    card_mods = dict(card8.named_modules())
+    layers_equal = 0
+    with torch.inference_mode():
+        for mod, xin, yout in seen:
+            got = card_mods[names[id(mod)]](xin.cuda()).cpu()
+            if not torch.equal(got, yout):
+                raise AssertionError(f"int8 layer {names[id(mod)]} differs "
+                                     f"from the CPU on the CPU's input "
+                                     f"({attention} attention)")
+            layers_equal += 1
+    head = cpu8.backbone.head
+    step = float(head.a_scale * 127 * head.w_scale.max())
+    diff = (got8 - want8).abs()
+    expect = {"int8_matmul": 50,
+              "flash_attention": 12 if attention == "float" else 0}
+    sigma = _rms(want8, want32)
+    check = {"attention": attention, "batch": x4.shape[0],
+             "layers_bitwise_equal": layers_equal,
+             "rms_card_cpu": _rms(got8, want8),
+             "rms_card_f32_cpu": _rms(got8, want32),
+             "rms_int8_f32_cpu": sigma,
+             "rms_cpu_ulp_witness": _rms(witness, want8),
+             "logit_scale": want8.abs().max().item(),
+             "max_abs_err": diff.max().item(), "head_step": step,
+             "share_within_4_steps": (diff <= 4 * step).float().mean().item(),
+             "argmax_agrees_with_cpu_int8":
+                 (got8.argmax(-1) == want8.argmax(-1)).float().mean().item(),
+             "launches_per_forward": {k: v for k, v in per_forward.items()
+                                      if v}}
+    check["card_cpu_over_sigma"] = check["rms_card_cpu"] / sigma
+    check["card_cpu_over_witness"] = (check["rms_card_cpu"]
+                                      / check["rms_cpu_ulp_witness"])
+    emit({"phase": "model_check", "model": "vit_base_patch16_224_int8",
+          **check})
+    if not bool(torch.isfinite(got8).all()) or \
+            check["rms_card_f32_cpu"] > 1.25 * sigma or \
+            check["rms_card_cpu"] > VIT_INT8_RMS * sigma or \
+            check["card_cpu_over_witness"] > VIT_INT8_WITNESS:
+        raise AssertionError(f"int8 ViT-B/16 disagrees with the CPU: {check}")
+    if layers_equal != 50 or \
+            per_forward != {k: expect.get(k, 0) for k in per_forward}:
+        raise AssertionError(f"int8 ViT-B/16 ({attention} attention): "
+                             f"{layers_equal} layers equal, launches "
+                             f"{per_forward}, expected 50 and {expect}")
+
+
+def int8_products_check():
+    """The int8 attention's two products (``nn.attention.int8_products``,
+    the f32 product of the codes) at ViT-B/16 b256's shapes, [256, 12, 197,
+    64] codes, with TF32 switched on globally: bitwise against the same
+    products on the CPU, the CPU's f32 route tied to its int32 sums on a
+    slice, and TF32 still on after the calls.  The plain f32 product with
+    TF32 on is computed beside it to show what the guard keeps out."""
+    from tlxcv_tpu_torch.nn.attention import (int8_products,
+                                              int8_products_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k = (torch.randint(-127, 128, (256, 12, 197, 64), generator=g,
+                          device="cuda", dtype=torch.int8) for _ in range(2))
+    p = torch.randint(0, 128, (256, 12, 197, 197), generator=g,
+                      device="cuda", dtype=torch.int8)
+    kt = k.transpose(-1, -2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            scores = int8_products(q, kt).cpu()
+            pv = int8_products(p, k).cpu()
+            kept = torch.backends.cuda.matmul.allow_tf32
+            tf32 = torch.matmul(q.float(), kt.float()).cpu()
+            products_ms = graph_ms(lambda: int8_products(q, kt), reps=5,
+                                   calls=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    qc, kc, pc = q.cpu(), k.cpu(), p.cpu()
+    want_scores = int8_products(qc, kc.transpose(-1, -2))
+    want_pv = int8_products(pc, kc)
+    tied = (torch.equal(want_scores[:2].to(torch.int32),
+                        int8_products_plain(qc[:2], kc[:2].transpose(-1, -2)))
+            and torch.equal(want_pv[:2].to(torch.int32),
+                            int8_products_plain(pc[:2], kc[:2])))
+    check = {"shape": [256, 12, 197, 64], "tf32_on_globally": True,
+             "scores_bitwise": torch.equal(scores, want_scores),
+             "pv_bitwise": torch.equal(pv, want_pv),
+             "cpu_f32_equals_int32": tied, "tf32_flag_restored": kept,
+             "tf32_product_max_abs_err": (tf32 - want_scores).abs().max()
+             .item(), "scores_ms": products_ms}
+    emit({"phase": "int8_attention_products", **check})
+    if not (check["scores_bitwise"] and check["pv_bitwise"] and tied
+            and kept):
+        raise AssertionError(f"int8 attention products: {check}")
+
+
+def phase_vit_int8(int8_record):
+    """ViT-B/16 int8 as the JAX package's bench leg builds it:
+    ``quantize_weights``, then ``calibrate_activations`` on 4 images, on
+    the CPU in f32; attention stays float (the flash kernel).  The int8
+    model on the card against the same model on the CPU, with exactly 50
+    int8 GEMM and 12 flash launches a forward, then served at b256.  The
+    same with the opt-in int8 attention (``use_int8_attention``): checked,
+    its products bitwise (``int8_products_check``), served and timed
+    beside the float attention."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.nn.attention import use_int8_attention
+    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                           quantize_weights)
+    from tlxcv_tpu_torch.tasks import ImageClassification
+
+    name = "vit_base_patch16_224"
+    gen = torch.Generator().manual_seed(0)
+    cpu = ImageClassification(create_model(name, device="cpu",
+                                           generator=gen)).eval()
+    cpu32 = copy.deepcopy(cpu)
+    calib = torch.randn(4, 224, 224, 3, generator=gen)
+    t0 = time.perf_counter()
+    counts = (quantize_weights(cpu.backbone),
+              calibrate_activations(cpu.backbone, [calib]))
+    prep_s = time.perf_counter() - t0
+    if counts != (50, 50):
+        raise AssertionError(f"ViT-B/16 quantized {counts} layers, "
+                             f"expected (50, 50): 48 block Linears, the "
+                             f"head and the patch conv")
+    emit({"phase": "int8_prep", "model": name, "counts": list(counts),
+          "prep_s": prep_s})
+    card = copy.deepcopy(cpu).cuda()
+    x4 = torch.randn(4, 224, 224, 3, generator=gen)
+    for attention in ("float", "int8"):
+        vit_int8_check(cpu, cpu32, card, x4, attention)
+    del cpu, cpu32
+    int8_products_check()
+
+    # the leg: b256 224^2, bf16 images, float attention; then int8 attention
+    x = torch.randn(256, 224, 224, 3, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+    served, float_step = serve(card, x, {"int8_matmul": 50,
+                                         "flash_attention": 12},
+                               name + "_int8", "int8 (bf16 input)")
+    int8_record["vit_launches"] = served["int8_matmul"]
+    use_int8_attention(True)
+    try:
+        _, int8_step = serve(card, x, {"int8_matmul": 50},
+                             name + "_int8_attention",
+                             "int8, int8 attention (bf16 input)")
+    finally:
+        use_int8_attention(False)
+    emit({"phase": "vit_int8_attention", "batch": 256,
+          "float_attention_step_ms": 1e3 * float_step,
+          "int8_attention_step_ms": 1e3 * int8_step,
+          "int8_over_float": int8_step / float_step})
+    int8_forward_times(card, x, name="int8_matmul_per_forward_vit")
+    return card, x, float_step
+
+
+def phase_grouped_int8(int8_record):
+    """A grouped full-int8 conv at a ResNeXt-50 shape (3x3, 128 -> 128, 32
+    groups, 56^2, b32, bf16 input), quantized and calibrated on the CPU:
+    on the card bitwise equal to the same conv on the CPU (the plain
+    route), with exactly 32 int8 GEMM launches (one a group); then timed:
+    the conv, and its 32 fused GEMMs alone beside their plain versions and
+    the bound; cuDNN's bf16 grouped conv of the dequantized weight beside
+    it for scale (no library call computes the int8 function)."""
+    from tlxcv_tpu_torch.nn.layers import Conv2d
+    from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul_requant,
+                                                 int8_matmul_requant_plain)
+    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                           quantize_weights)
+
+    gen = torch.Generator().manual_seed(21)
+    conv = Conv2d(128, 128, 3, padding=1, groups=32, device="cpu",
+                  generator=gen)
+    with torch.no_grad():
+        conv.bias.copy_(0.1 * torch.randn(128, generator=gen))
+    x = torch.randn(32, 56, 56, 128, generator=gen).to(torch.bfloat16)
+    if (quantize_weights(conv), calibrate_activations(conv, [x[:4].float()])
+            ) != (1, 1):
+        raise AssertionError("the grouped conv was not quantized")
+    card = copy.deepcopy(conv).cuda()
+    xc = x.cuda()
+    reset_launches()
+    with torch.inference_mode():
+        got = card(xc)
+        torch.cuda.synchronize()
+        counts = launches()
+        want = conv(x)
+    bitwise = got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    expect = {k: 32 if k == "int8_matmul" else 0 for k in counts}
+
+    og, groups = 4, 32
+    with torch.inference_mode():
+        cols, _ = card._group_patches(
+            torch.round(xc.float() / card.a_scale).clamp(-127, 127)
+            .to(torch.int8))
+        scale = card.a_scale * card.w_scale
+        args = [(cols[j], card.weight[j * og:(j + 1) * og],
+                 scale[j * og:(j + 1) * og].contiguous(),
+                 card.bias[j * og:(j + 1) * og], False, None,
+                 torch.bfloat16) for j in range(groups)]
+
+        def gemms(fn):
+            return [fn(*a) for a in args]
+
+        conv_ms, conv_event_ms = _times(lambda: card(xc), 10)
+        gemm_ms, gemm_event_ms = _times(lambda: gemms(int8_matmul_requant),
+                                        10)
+        plain_ms = time_ms(lambda: gemms(int8_matmul_requant_plain), reps=5,
+                           warmup=1)
+        wf = (card._unpacked().float()
+              * card.w_scale[:, None, None, None]).to(torch.bfloat16)
+        cudnn_ms = graph_ms(lambda: card._conv(xc, wf))
+    m = 32 * 56 * 56
+    bound, bound_by = int8_bound_ms(m, 36, og, out_bytes=2)
+    record = {"shape": [32, 56, 56, 128], "groups": groups,
+              "m_k_n_per_group": [m, 36, og], "bitwise": bitwise,
+              "launches": counts["int8_matmul"], "conv_ms": conv_ms,
+              "conv_event_ms": conv_event_ms, "gemms_ms": gemm_ms,
+              "gemms_event_ms": gemm_event_ms, "plain_ms": plain_ms,
+              "bound_ms": groups * bound, "bound_by": bound_by,
+              "cudnn_bf16_grouped_conv_ms": cudnn_ms}
+    emit({"phase": "grouped_int8", **record})
+    if not bitwise or counts != expect:
+        raise AssertionError(f"grouped int8 conv on the card: {record}")
+    int8_record.update({"grouped_launches": counts["int8_matmul"],
+                        "grouped_ms": gemm_ms,
+                        "grouped_plain_ms": plain_ms,
+                        "grouped_bound_ms": groups * bound})
+
+
+# --------------------------------------------------- HRNet segmentation
+def check_seg(classes, hw):
+    def check(pred, batch):
+        if pred.shape != (batch, *hw, classes) or \
+                not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"bad segmentation logits {pred.shape}")
+    return check
+
+
+def phase_hrnet_seg():
+    """HRNet-W18 segmentation (``create_model("hrnet_seg_w18",
+    num_classes=19)``, random weights from a seed, BatchNorm statistics
+    from one train-mode forward of 2 seeded 256^2 images on the CPU): f32
+    and bf16 logits at b1 512^2 against f32 on the CPU, unconverted and
+    after ``convert_hrnet_branches_to_s2d``, the two card graphs against
+    each other in f32; no kernel of ours launched.  Like YOLOv3's, the
+    random net is chaotic in bf16 (on one H100 80GB HBM3 the card's bf16
+    logits lay 1.78 rms from the f32 ones, max 19.7, and the CPU's bf16
+    model 1.77), so bf16 is held to the CPU's own bf16 model's error
+    (``float_logit_check``).  Then both graphs served at b16 512^2 bf16,
+    the converted one being the bench leg."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.models.backbones.hrnet import (
+        convert_hrnet_branches_to_s2d)
+    from tlxcv_tpu_torch.tasks import ImageSegmentation
+
+    name = "hrnet_seg_w18"
+    gen = torch.Generator().manual_seed(0)
+    cpu = ImageSegmentation(create_model(name, device="cpu", num_classes=19,
+                                         generator=gen))
+    data_bn_statistics(cpu, torch.randn(2, 256, 256, 3, generator=gen))
+    x1 = torch.randn(1, 512, 512, 3, generator=gen)
+    x = torch.randn(16, 512, 512, 3, generator=gen).to("cuda",
+                                                       torch.bfloat16)
+    cards, f32 = {}, {}
+    for graph in ("plain", "s2d"):
+        if graph == "s2d":
+            converted = convert_hrnet_branches_to_s2d(cpu)
+            if converted != 16:
+                raise AssertionError(f"{converted} branches converted, "
+                                     f"expected 16 (two a module)")
+        cards[graph] = copy.deepcopy(cpu).cuda()
+        f32[graph] = float_logit_check(f"{name}_{graph}", cpu, cards[graph],
+                                       x1, depth="HRNet-W18", expect={},
+                                       chaotic=True)
+    scale = f32["plain"].abs().max().item()
+    gap = (f32["s2d"] - f32["plain"]).abs().max().item()
+    # the blocked 3x3 convs multiply structural zeros and sum in another
+    # order; f32 rounding through the net stays under 1e-4 of the scale
+    emit({"phase": "model_check", "model": name + "_s2d_vs_plain",
+          "batch": 1, "max_abs_err": gap, "bound": 1e-4 * scale,
+          "logit_scale": scale})
+    if not gap <= 1e-4 * scale:
+        raise AssertionError(f"the converted graph moved the logits by "
+                             f"{gap} (scale {scale})")
+    steps = {}
+    for graph in ("plain", "s2d"):
+        _, steps[graph] = serve(cards[graph], x, {}, f"{name}_{graph}",
+                                "bfloat16", check=check_seg(19, (512, 512)))
+    emit({"phase": "hrnet_s2d", "batch": 16,
+          "plain_step_ms": 1e3 * steps["plain"],
+          "s2d_step_ms": 1e3 * steps["s2d"],
+          "s2d_over_plain": steps["s2d"] / steps["plain"]})
+    return cards, x, steps
+
+
+# ------------------------------------------------------ DeiT-B and Swin-B
+def phase_transformers(flash_record):
+    """DeiT-B (``create_model("deit_base")``) at b2 224^2, f32 and bf16
+    against f32 on the CPU with exactly 12 flash launches a forward (S =
+    198), served at b64 bf16; Swin-B (``create_model("swin_base")``) the
+    same at window packs 1 (its default) and 2, with no launch of ours
+    (its window attention is plain PyTorch), served at b64 bf16 at its
+    default pack."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.models.classification import set_window_pack
+    from tlxcv_tpu_torch.tasks import ImageClassification
+
+    gen = torch.Generator().manual_seed(0)
+    x2 = torch.randn(2, 224, 224, 3, generator=gen)
+    x = torch.randn(64, 224, 224, 3, generator=gen).to("cuda",
+                                                       torch.bfloat16)
+    cpu = ImageClassification(create_model("deit_base", device="cpu",
+                                           generator=gen)).eval()
+    card = copy.deepcopy(cpu).cuda()
+    float_logit_check("deit_base", cpu, card, x2, depth="12 blocks",
+                      expect={"flash_attention": 12})
+    del cpu
+    counts, _ = serve(card, x, {"flash_attention": 12}, "deit_base",
+                      "bfloat16")
+    flash_record["deit_launches"] = counts["flash_attention"]
+    del card
+    torch.cuda.empty_cache()
+
+    cpu = ImageClassification(create_model("swin_base", device="cpu",
+                                           generator=gen)).eval()
+    for pack in (2, 1):
+        set_window_pack(cpu, pack)
+        card = copy.deepcopy(cpu).cuda()
+        float_logit_check(f"swin_base_pack{pack}", cpu, card, x2,
+                          depth="24 blocks", expect={})
+    _, step = serve(card, x, {}, "swin_base", "bfloat16")
+    return card, x, step
+
+
 def phase_train_profile(name, trainer, batch, step_s, steps=2):
     """Device time per kernel over a few training steps (torch.profiler),
     and with the timed step's wall time, the share the card idles."""
@@ -2356,6 +2794,37 @@ def emit_profile(prof, name, calls, step_s):
                   for e in top]})
 
 
+def vit_int8_and_grouped(int8, profile):
+    """The ViT-B/16 int8 leg (profiled with ``profile``), then the grouped
+    int8 conv; the card's memory freed after."""
+    vit8, vit8_x, vit8_step = phase_vit_int8(int8)
+    if profile:
+        phase_profile("vit_base_patch16_224_int8", vit8, vit8_x,
+                      step_s=vit8_step)
+    del vit8, vit8_x
+    torch.cuda.empty_cache()
+    phase_grouped_int8(int8)
+    torch.cuda.empty_cache()
+
+
+def hrnet_seg_leg(profile):
+    cards, x, steps = phase_hrnet_seg()
+    if profile:
+        for graph in ("s2d", "plain"):
+            phase_profile(f"hrnet_seg_w18_{graph}", cards[graph], x,
+                          step_s=steps[graph])
+    del cards, x
+    torch.cuda.empty_cache()
+
+
+def transformer_legs(flash, profile):
+    swin, x, step = phase_transformers(flash)
+    if profile:
+        phase_profile("swin_base", swin, x, step_s=step)
+    del swin, x
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2378,7 +2847,18 @@ def main():
         _, yolo8, yolo_x, _, yolo8_step = phase_yolov3(floats=False)
         if profile:
             phase_profile("yolov3_int8", yolo8, yolo_x, step_s=yolo8_step)
+        del yolo8, yolo_x
+        torch.cuda.empty_cache()
+        vit_int8_and_grouped(int8, profile)
         emit({"kernels": [int8]})
+        print(card_line(), flush=True)
+        return 0
+    if "--seg" in sys.argv[1:]:  # HRNet-W18 segmentation alone
+        hrnet_seg_leg(profile)
+        print(card_line(), flush=True)
+        return 0
+    if "--transformers" in sys.argv[1:]:  # DeiT-B and Swin-B alone
+        transformer_legs({}, profile)
         print(card_line(), flush=True)
         return 0
     if "--mask-rcnn" in sys.argv[1:]:  # its two kernels and its serving
@@ -2428,12 +2908,16 @@ def main():
         phase_profile("yolov3_int8", yolo8, yolo_x, step_s=yolo8_step)
     del yolo, yolo8, yolo_x
     torch.cuda.empty_cache()
+    vit_int8_and_grouped(int8, profile)
+    hrnet_seg_leg(profile)
+    transformer_legs(flash, profile)
     phase_train_check()
     phase_train(sep, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
-             "vjp_ms")
+             "vjp_ms", "vit_launches", "grouped_launches", "grouped_ms",
+             "grouped_plain_ms", "grouped_bound_ms", "deit_launches")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, int8, bf16, gather, upsample, sep,
                                 up2x)]})

@@ -926,3 +926,165 @@ def test_int8_yolov3_launches_the_kernel_per_conv(cuda):
         torch.cuda.synchronize()
     assert int8_matmul.launches == before + 75
     assert dets.shape == (2, 20, 6) and torch.isfinite(dets).all()
+
+
+# ------------------------------------------- int8 attention, grouped int8
+def test_int8_attention_products_exact_with_tf32_on(cuda):
+    """The int8 attention's two products on the card (the f32 product of
+    the codes) equal the CPU's int32 sums bitwise at ViT-B/16's shapes,
+    with TF32 switched on globally: the call turns it off for itself and
+    restores it.  The whole int8 attention on the card then agrees with
+    the CPU's on the same inputs: the softmaxes may differ in the last
+    ulp and move a probability code by one."""
+    from tlxcv_tpu_torch.nn.attention import (_int8_sdpa, int8_products,
+                                              int8_products_plain)
+
+    g = torch.Generator().manual_seed(9)
+    q = torch.randint(-127, 128, (4, 12, 197, 64), generator=g,
+                      dtype=torch.int8)
+    k = torch.randint(-127, 128, (4, 12, 197, 64), generator=g,
+                      dtype=torch.int8)
+    p = torch.randint(0, 128, (4, 12, 197, 197), generator=g,
+                      dtype=torch.int8)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for a, b in ((q, k.transpose(-1, -2)), (p, k)):
+            got = int8_products(a.to(cuda), b.to(cuda))
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.equal(got.cpu().to(torch.int32),
+                               int8_products_plain(a, b))
+        x = [torch.randn(2, 12, 197, 64, generator=g) for _ in range(3)]
+        with torch.inference_mode():
+            want = _int8_sdpa(*x, None, 0.125)
+            got = _int8_sdpa(*(t.to(cuda) for t in x), None, 0.125).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max(),
+                               rtol=0)
+
+
+def _grouped_int8_conv(fused, gen):
+    from tlxcv_tpu_torch.nn.layers import Conv2d, set_quant_attr
+
+    conv = Conv2d(128, 128, 3, padding=1, groups=32, device="cpu")
+    conv.load_int8(torch.randint(-127, 128, (128, 4, 3, 3), generator=gen,
+                                 dtype=torch.int8),
+                   0.001 + 0.01 * torch.rand(128, generator=gen))
+    set_quant_attr(conv, "bias", torch.randn(128, generator=gen))
+    set_quant_attr(conv, "a_scale", 0.031)
+    if fused:
+        set_quant_attr(conv, "out_scale", 0.057)
+        conv.relu_fused = True
+    return conv
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_int8_conv_on_the_card_is_bitwise(cuda, fused, dtype):
+    """ResNeXt's grouped 3x3 (128 -> 128, 32 groups) on the card: one int8
+    GEMM launch per group, bitwise equal to the plain route on the CPU on
+    the same input, for a float input and for int8 codes with the fused
+    requantize."""
+    gen = torch.Generator().manual_seed(11)
+    conv = _grouped_int8_conv(fused, gen)
+    card = copy.deepcopy(conv).to(cuda)
+    x = (torch.randint(-127, 128, (2, 14, 14, 128), generator=gen,
+                       dtype=torch.int8) if fused
+         else torch.randn(2, 14, 14, 128, generator=gen).to(dtype))
+    before = int8_matmul.launches
+    with torch.inference_mode():
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+        want = conv(x)
+    assert int8_matmul.launches == before + 32
+    assert got.dtype == want.dtype and got.shape == (2, 14, 14, 128)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_serving_only_int8_paths_raise_on_grad(cuda):
+    """The int8 convs (grouped and not), the int8 Linear and the int8
+    attention have no backward: on the card, an input that requires grad
+    raises where autograd would record, rather than hand back no gradient,
+    also when every parameter is frozen."""
+    from tlxcv_tpu_torch.nn.attention import scaled_dot_product_attention
+    from tlxcv_tpu_torch.nn.layers import Conv2d, Linear, set_quant_attr
+
+    gen = torch.Generator().manual_seed(1)
+    grouped = _grouped_int8_conv(False, gen)
+    plain = Conv2d(128, 16, 3, padding=1, device="cpu", generator=gen)
+    linear = Linear(128, 16, device="cpu", generator=gen)
+    for layer in (plain, linear):
+        layer.load_int8(torch.randint(-127, 128, layer.weight.shape,
+                                      generator=gen, dtype=torch.int8),
+                        0.001 + 0.01 * torch.rand(16, generator=gen))
+        set_quant_attr(layer, "a_scale", 0.031)
+    x = torch.randn(1, 6, 6, 128, device=cuda, requires_grad=True)
+    for layer in (grouped, plain, linear):
+        layer.bias.requires_grad_(False)
+        layer = layer.to(cuda)
+        with pytest.raises(RuntimeError, match="no backward"):
+            layer(x)
+        with torch.no_grad():
+            assert layer(x).shape[:3] == (1, 6, 6)
+    q = torch.randn(1, 2, 16, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="serving-only"):
+        scaled_dot_product_attention(q, q, q, use_int8=True)
+    with torch.no_grad():
+        assert scaled_dot_product_attention(q, q, q, use_int8=True).shape \
+            == q.shape
+
+
+def test_deit_and_swin_on_the_card_match_the_cpu(cuda):
+    """DeiT launches the flash kernel once per block (S = 18 here); Swin's
+    window attention is plain PyTorch and launches nothing of ours; both
+    agree with the CPU in f32 (TF32 off)."""
+    from tlxcv_tpu_torch.models.classification import (SwinTransformer,
+                                                       deit_base)
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul as int8
+
+    gen = torch.Generator().manual_seed(3)
+    for build, kw, flash in (
+            (deit_base, dict(img_size=32, patch_size=8, embed_dim=128,
+                             depth=2, num_heads=4, num_classes=10), 2),
+            (SwinTransformer, dict(img_size=56, embed_dim=32, depths=(2, 2),
+                                   num_heads=(2, 4), num_classes=10), 0)):
+        cpu = build(device="cpu", **kw).eval()
+        card = copy.deepcopy(cpu).to(cuda)
+        x = torch.randn(2, kw["img_size"], kw["img_size"], 3, generator=gen)
+        before = (flash_attention.launches, int8.launches)
+        with torch.inference_mode():
+            got = card(x.to(cuda)).cpu()
+            want = cpu(x)
+        assert (flash_attention.launches - before[0],
+                int8.launches - before[1]) == (flash, 0)
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max(),
+                                   rtol=0)
+
+
+def test_hrnet_seg_on_the_card_matches_the_cpu(cuda):
+    """hrnet_w18_small_v1 under the FCN head at 64 px, unconverted and
+    converted to space-to-depth branches: the card in f32 (TF32 off)
+    against the CPU, and no kernel of ours launched."""
+    from tlxcv_tpu_torch.models.backbones.hrnet import (
+        convert_hrnet_branches_to_s2d, hrnet_w18_small_v1)
+    from tlxcv_tpu_torch.models.segmentation import FCN
+
+    gen = torch.Generator().manual_seed(4)
+    cpu = FCN(5, hrnet_w18_small_v1(device="cpu", generator=gen),
+              device="cpu", generator=gen).eval()
+    x = torch.randn(2, 64, 64, 3, generator=gen)
+    for convert in (False, True):
+        if convert:
+            assert convert_hrnet_branches_to_s2d(cpu) > 0
+        card = copy.deepcopy(cpu).to(cuda)
+        before = (flash_attention.launches, int8_matmul.launches)
+        with torch.inference_mode():
+            got = card(x.to(cuda)).cpu()
+            want = cpu(x)
+        assert (flash_attention.launches, int8_matmul.launches) == before
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max(),
+                                   rtol=0)

@@ -37,7 +37,13 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "data.shapes_det", "ops.losses", "ops.yolo",
                  "models.detection.yolov3",
                  "models.detection.backbones.darknet",
-                 "demo.image_classification.probe_int8_gemm"):
+                 "demo.image_classification.probe_int8_gemm",
+                 "nn.attention", "ops.space_to_depth",
+                 "models.backbones.hrnet", "models.segmentation.layers",
+                 "models.segmentation.hrnet_seg",
+                 "tasks.image_segmentation", "utils.metrics",
+                 "models.classification.deit",
+                 "models.classification.swin_transformer"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

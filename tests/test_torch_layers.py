@@ -135,16 +135,20 @@ def test_dropout_deterministic_under_generator(cls):
 
 
 def test_int8_weight_not_ported():
-    """int8 Linear and Conv2d run (tests/test_torch_quant.py); a grouped
-    int8 conv (ResNeXt) on the full-int8 path does not."""
+    """int8 Linear and Conv2d run (tests/test_torch_quant.py), and so does
+    a grouped int8 conv (ResNeXt) on the full-int8 path (the name is kept
+    from when this test checked its refusal): with all-one codes and inputs each output counts the taps of
+    its group's window that lie inside the image."""
     layer = T.Linear(4, 4, device="cpu")
     layer.load_int8(torch.ones(4, 4, dtype=torch.int8), torch.ones(4))
     assert layer(torch.ones(2, 4)).tolist() == [[4.0] * 4] * 2
     conv = T.Conv2d(8, 8, 3, padding=1, groups=2, bias=False, device="cpu")
     conv.load_int8(torch.ones(8, 4, 3, 3, dtype=torch.int8), torch.ones(8))
     T.set_quant_attr(conv, "a_scale", 1.0)
-    with pytest.raises(NotImplementedError):
-        conv(torch.randn(1, 5, 5, 8))
+    y = conv(torch.ones(1, 5, 5, 8))
+    inside = torch.tensor([2.0, 3, 3, 3, 2])
+    want = 4 * inside[:, None] * inside[None, :]
+    assert torch.equal(y, want[None, :, :, None].expand(1, 5, 5, 8))
 
 
 def test_bridge_raises_on_unmatched_key():

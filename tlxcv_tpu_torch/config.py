@@ -44,10 +44,10 @@ def _populate():
     _POPULATED = True
     from .models import classification as C
     from .models import detection as D
+    from .models import segmentation as S
 
-    for name in C.__all__:
-        obj = getattr(C, name)
-        if callable(obj) and name[0].islower():
-            _MODEL_REGISTRY.setdefault(name, obj)
+    for mod in (C, S):
+        for name in mod.MODELS:
+            _MODEL_REGISTRY.setdefault(name, getattr(mod, name))
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)

@@ -15,8 +15,9 @@ plus the int8 product and the reference's epilogue (scale, bias, fused
 ReLU, requantize): on the card one launch of the hand-written kernel,
 ``ops.cuda.matmul.int8_matmul_requant``, which writes no int32 sums; on the
 CPU its plain version, the int32 product, then ``requantize``.  Without
-``a_scale``, the weight is dequantized and the layer runs in float.  The QAT branches belong to the
-training slice.
+``a_scale``, the weight is dequantized and the layer runs in float.  A
+grouped conv (``groups`` > 1) runs one such product per group.  The QAT
+branches belong to the training slice.
 """
 from __future__ import annotations
 
@@ -168,16 +169,27 @@ def _quantize_input(x, s_in):
     return torch.round(x.float() / s_in).clamp(-127, 127).to(torch.int8)
 
 
-def _int8_product(mod, cols, w, s_in, out_dtype):
-    """int8 patches [M, Kp] times the packed weight, then the reference's
-    epilogue in its op order (scale the int32 sums, add the bias; with
-    ``out_scale``, ReLU if it was fused and requantize to int8, round half
-    to even as jnp.round).  On the card one kernel does both, writing no
-    int32 sums; on the CPU the plain product, then the same arithmetic."""
+def _int8_product(mod, cols, w, s_in, out_dtype, rows=slice(None)):
+    """int8 patches [M, Kp] times the packed weight's ``rows``, then the
+    reference's epilogue in its op order (scale the int32 sums, add the
+    bias; with ``out_scale``, ReLU if it was fused and requantize to int8,
+    round half to even as jnp.round).  On the card one kernel does both,
+    writing no int32 sums; on the CPU the plain product, then the same
+    arithmetic."""
     out_scale = getattr(mod, "out_scale", None)
     relu = out_scale is not None and getattr(mod, "relu_fused", False)
-    return int8_matmul_requant(cols, w, s_in * mod.w_scale, mod.bias, relu,
-                               out_scale, out_dtype)
+    bias = None if mod.bias is None else mod.bias[rows]
+    return int8_matmul_requant(cols, w[rows], s_in * mod.w_scale[rows], bias,
+                               relu, out_scale, out_dtype)
+
+
+def _serving_only(x):
+    """The int8 product has no backward and the quantized input carries no
+    gradient: on the card, an input that requires grad raises where
+    autograd would record, instead of handing back no gradient."""
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("the int8 layer has no backward: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
 
 
 def _int8_weight(w_int8):
@@ -252,11 +264,11 @@ class Conv2d(nn.Module):
         w = self.weight[:, :kh * kw * cin]
         return w.reshape(-1, kh, kw, cin).permute(0, 3, 1, 2)
 
-    def _patches(self, xq):
+    def _patches(self, xq, kp=True):
         """im2col of an NHWC int8 input: [N*Ho*Wo, Kp] rows in (kh, kw, Cin)
-        order, zero columns up to Kp.  Built from shifted slices (torch's
-        unfold has no int8 kernel); a 1x1 stride-1 conv takes the input as
-        it is."""
+        order, zero columns up to Kp (``kp`` False: K columns).  Built from
+        shifted slices (torch's unfold has no int8 kernel); a 1x1 stride-1
+        conv takes the input as it is."""
         n, h, w, c = xq.shape
         (kh, kw), (sh, sw), (dh, dw) = (self.kernel_size, self.stride,
                                         self.dilation)
@@ -265,16 +277,26 @@ class Conv2d(nn.Module):
         wo = _out_size(w, (w0, w1), kw, sw, dw)
         k = kh * kw * c
         if (kh, kw, sh, sw, h0, h1, w0, w1) == (1, 1, 1, 1, 0, 0, 0, 0) \
-                and k == padded_k(k):
+                and (k == padded_k(k) or not kp):
             return xq.reshape(n * h * w, c), (n, ho, wo)
         if h0 or h1 or w0 or w1:
             xq = F.pad(xq, (0, 0, w0, w1, h0, h1))
         cols = [xq[:, i * dh:i * dh + (ho - 1) * sh + 1:sh,
                    j * dw:j * dw + (wo - 1) * sw + 1:sw, :]
                 for i in range(kh) for j in range(kw)]
-        if padded_k(k) > k:
+        if kp and padded_k(k) > k:
             cols.append(xq.new_zeros(n, ho, wo, padded_k(k) - k))
         return torch.cat(cols, dim=-1).reshape(n * ho * wo, -1), (n, ho, wo)
+
+    def _group_patches(self, xq):
+        """im2col of a grouped conv: [G, N*Ho*Wo, Kp] int8, group j's rows
+        in (kh, kw, Cin/G) order over its own input channels, zero columns
+        up to Kp; each group's matrix contiguous."""
+        cols, shape = self._patches(xq, kp=False)
+        m, g = cols.shape[0], self.groups
+        taps = self.kernel_size[0] * self.kernel_size[1]
+        cols = cols.reshape(m, taps, g, -1).permute(2, 0, 1, 3)
+        return pad_k(cols.reshape(g, m, -1)).contiguous(), shape
 
     def _int8_call(self, x, w):
         """Quantized serving path (counterpart of the reference's
@@ -287,10 +309,10 @@ class Conv2d(nn.Module):
             else (torch.bfloat16 if int8_in else torch.float32)
         a_scale = getattr(self, "a_scale", None)
         if a_scale is not None:
-            if self.groups != 1:
-                raise NotImplementedError(
-                    "int8 Conv2d with groups > 1 (ResNeXt) is not ported")
+            _serving_only(x)
             xq = x if int8_in else _quantize_input(x, a_scale)
+            if self.groups != 1:
+                return self._grouped_int8(xq, w, a_scale, out_dtype)
             cols, (n, ho, wo) = self._patches(xq)
             y = _int8_product(self, cols, w, a_scale, out_dtype)
             return y.reshape(n, ho, wo, -1)
@@ -300,6 +322,19 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y.to(out_dtype)
+
+    def _grouped_int8(self, xq, w, a_scale, out_dtype):
+        """The reference's int8 conv with ``feature_group_count``: group j's
+        patches times rows j*Cout/G.. of the packed weight, each group one
+        call of the fused GEMM (one kernel launch on the card) with its
+        slice of the epilogue's scale and bias, the outputs side by side in
+        channel order."""
+        cols, (n, ho, wo) = self._group_patches(xq)
+        og = w.shape[0] // self.groups
+        y = torch.cat([_int8_product(self, cols[j], w, a_scale, out_dtype,
+                                     slice(j * og, (j + 1) * og))
+                       for j in range(self.groups)], dim=-1)
+        return y.reshape(n, ho, wo, -1)
 
 
 class ConvTranspose2d(nn.Module):
@@ -386,6 +421,7 @@ class Linear(nn.Module):
             else torch.float32
         a_scale = getattr(self, "a_scale", None)
         if a_scale is not None:
+            _serving_only(x)
             xq = _quantize_input(x, a_scale).reshape(-1, self.in_features)
             y = _int8_product(self, pad_k(xq), w, a_scale, out_dtype)
             return y.reshape(*x.shape[:-1], -1)

@@ -23,13 +23,13 @@ slice.
 """
 from __future__ import annotations
 
-import contextlib
 import typing as tp
 
 import numpy as np
 import torch
 
 from .. import nn
+from ..device import full_f32
 from ..nn import layers as L
 
 __all__ = ["quantize_weights", "calibrate_activations", "dequantize_check",
@@ -48,20 +48,6 @@ def _int8_layer(mod) -> bool:
 
 def _int8_conv(mod) -> bool:
     return isinstance(mod, nn.Conv2d) and mod.weight.dtype == torch.int8
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """TF32 off for convolutions and matrix products, restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _runner(model, forward):
@@ -206,7 +192,7 @@ def fold_batchnorm(model, example, forward=None, tol=1e-2):
     equivalence and trips it); on failure every fold is undone and
     ``ValueError`` raised.  Returns the number folded."""
     run = _runner(model, forward)
-    with _full_f32():
+    with full_f32():
         y0 = run(example).float()
     events = _trace(model, example, forward)
     produced = {}
@@ -263,7 +249,7 @@ def fold_batchnorm(model, example, forward=None, tol=1e-2):
         bn._folded = True
         count += 1
 
-    with _full_f32():
+    with full_f32():
         y1 = run(example).float()
     err = float((y1 - y0).abs().max())
     ref = float(y0.abs().max()) + 1e-12
@@ -301,7 +287,7 @@ def fuse_requantize(model, example, forward=None, tol=0.05):
     run = _runner(model, forward)
 
     def output(x):
-        with _full_f32():
+        with full_f32():
             return run(x).float()
 
     y0s = [output(x) for x in examples]

@@ -77,7 +77,9 @@ def load_jax_params(model: torch.nn.Module, flat: dict, strict: bool = True,
             for path, arr in flat.items()}
     _take_quantized(model, flat)
     targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    persistent = model.state_dict().keys()  # not derived tables (Swin's)
+    targets.update((k, b) for k, b in model.named_buffers()
+                   if k in persistent)
     unmatched, seen = [], set()
     for key, arr in flat.items():
         if key not in targets:
