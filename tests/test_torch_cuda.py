@@ -1088,3 +1088,80 @@ def test_hrnet_seg_on_the_card_matches_the_cpu(cuda):
         assert (flash_attention.launches, int8_matmul.launches) == before
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max(),
                                    rtol=0)
+
+
+# (sq, sk): one query row, keys about the 64-key tiles, DETR-R50's cross
+# grid (100 queries over 1050 keys) and fewer keys than queries
+_SQ_SK = [(1, 1), (1, 63), (100, 65), (100, 1050), (65, 1), (129, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("sq,sk", _SQ_SK)
+def test_kernel_matches_plain_at_its_own_key_length(cuda, dtype, d, sq, sk):
+    """Sq != Sk launches the kernel (counted), at every head dim: [BH, S,
+    D] tensors with no, per-BH and shared bias, and [B, H, S, D] views into
+    token-major projections (q from [B, Sq, H, D], k and v from one packed
+    [B, Sk, 2, H, D]), as DETR's cross-attention hands them over."""
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + sk + d)
+    b, h = 2, 3
+    q = torch.randn(b, sq, h, d, generator=g, device=cuda).to(dtype)
+    kv = torch.randn(b, sk, 2, h, d, generator=g, device=cuda).to(dtype)
+    q4 = q.transpose(1, 2)
+    k4, v4 = kv.permute(2, 0, 3, 1, 4)
+    flat = [t.reshape(b * h, -1, d).contiguous() for t in (q4, k4, v4)]
+    per_bh = torch.randn(b * h, sq, sk, generator=g, device=cuda)
+    for args, bias in ((flat, None), (flat, per_bh), (flat, per_bh[:1]),
+                       ((q4, k4, v4), None), ((q4, k4, v4), per_bh)):
+        before = flash_attention.launches
+        out = flash_attention(*args, bias=bias)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == args[0].shape
+        ref = flash_attention_plain(*(t.float() for t in args), bias)
+        torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype],
+                                   rtol=0)
+
+
+def _frozen_bn_statistics_from_data(model, x):
+    """Each FrozenBatchNorm takes the mean and variance of its own input in
+    one forward, so the random backbone's activations stay O(1)."""
+    from tlxcv_tpu_torch.models.detection.detr import FrozenBatchNorm
+
+    def hook(mod, args):
+        xf = args[0].float()
+        mod.running_mean.copy_(xf.mean((0, 1, 2)))
+        mod.running_var.copy_(xf.var((0, 1, 2), correction=0))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, FrozenBatchNorm)]
+    with torch.no_grad():
+        model(x)
+    for h in handles:
+        h.remove()
+
+
+def test_detr_forward_launches_the_kernel_18_times(cuda):
+    """DETR-R50 (``create_model("detr")``) at 256^2 (an 8 x 8 C5 grid): 6
+    encoder, 6 decoder self- and 6 cross-attention launches a forward, in
+    f32 and bf16; the f32 logits and boxes agree with the CPU's."""
+    gen = torch.Generator().manual_seed(5)
+    cpu = create_model("detr", device="cpu", generator=gen).eval()
+    x = torch.randn(1, 256, 256, 3, generator=gen)
+    _frozen_bn_statistics_from_data(cpu, x)
+    card = copy.deepcopy(cpu).to(cuda)
+    with torch.inference_mode():
+        want = cpu(x)
+        for dtype in (torch.float32, torch.bfloat16):
+            for p in card.parameters():
+                p.data = p.data.to(dtype)
+            before = flash_attention.launches
+            got = card(x.to(cuda, dtype))
+            assert flash_attention.launches == before + 18
+            assert got["logits"].shape == (1, 100, 92)
+            assert torch.isfinite(got["logits"]).all()
+            if dtype == torch.float32:
+                for key in ("logits", "boxes"):
+                    torch.testing.assert_close(
+                        got[key].cpu(), want[key],
+                        atol=1e-3 * want[key].abs().max(), rtol=0)

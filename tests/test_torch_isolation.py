@@ -43,7 +43,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.segmentation.hrnet_seg",
                  "tasks.image_segmentation", "utils.metrics",
                  "models.classification.deit",
-                 "models.classification.swin_transformer"):
+                 "models.classification.swin_transformer",
+                 "models.classification.mobilenetv1", "ops.anchors",
+                 "ops.post_process", "models.detection.ssd",
+                 "models.detection.ppyoloe", "models.detection.detr"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -2,6 +2,7 @@
 table of model factories keyed by name."""
 from __future__ import annotations
 
+import functools
 import typing as tp
 
 from .device import resolve_device
@@ -51,3 +52,8 @@ def _populate():
             _MODEL_REGISTRY.setdefault(name, getattr(mod, name))
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)
+    _MODEL_REGISTRY.setdefault("ssd", D.SSD)
+    _MODEL_REGISTRY.setdefault("detr", D.detr_resnet50)
+    for arch in ("ppyoloe_s", "ppyoloe_m", "ppyoloe_l", "ppyoloe_x"):
+        _MODEL_REGISTRY.setdefault(
+            arch, functools.partial(D.ppyoloe, arch))

@@ -2,19 +2,26 @@
 //
 // Replaces the Pallas TPU kernel tlxcv_tpu/ops/pallas/attention.py
 // (`flash_attention` :108, kernel `_kernel` :39).  Same function:
-//   out = softmax(q k^T * scale + bias) v        q, k, v, out: [BH, S, D]
+//   out = softmax(q k^T * scale + bias) v
+//   q, out: [BH, Sq, D]; k, v: [BH, Sk, D]; bias: [1 or BH, Sq, Sk]
 // with the bias added in f32 and clamped at -0.7 * FLT_MAX, key columns at
-// or past S excluded, softmax statistics and the accumulator in f32, P cast
-// to v's dtype before P.V, and the output in q's dtype.
+// or past Sk excluded, softmax statistics and the accumulator in f32, P
+// cast to v's dtype before P.V, and the output in q's dtype.  The TPU
+// kernel takes one S for queries and keys; this one takes its own key
+// length (DETR's cross-attention: 100 queries over H*W keys): query tiles
+// and row guards run over Sq, the key-tile loop, the k and v tensor maps
+// and the key-column mask over Sk, and bias rows have stride Sk.
 //
 // What bounds it: at ViT-B/16 shapes (BH = 12 * batch, S = 197, D = 64) a
 // call does 4*S*S*D*BH operations on 4*BH*S*D elements, about 100 bf16
 // operations per byte moved, well below the H100's ~295 at which the tensor
 // cores, not memory, become the limit.  So the bound is the bytes of q, k,
 // v and o.  The design reads each q tile once, streams k and v tiles
-// through shared memory, and keeps the S x S scores and probabilities in
+// through shared memory, and keeps the Sq x Sk scores and probabilities in
 // registers: the only device-memory traffic is q, k, v and o, with k and v
-// read again from L2 by a head's other query tiles.
+// read again from L2 by a head's other query tiles.  DETR-R50's encoder
+// (Sq = Sk = 1050, D = 32) does about 520 operations per byte and is bound
+// by the tensor cores; its cross-attention (Sq = 100, Sk = 1050) by bytes.
 //
 // bf16 design (warp-specialised, TMA + wgmma):
 // - one block per (bh, tile of 64 query rows), the query tiles of one head
@@ -35,9 +42,9 @@
 //   touches shared memory;
 // - the bias, whose rows (4 S bytes) TMA cannot address, is read with
 //   plain loads; o is stored from registers through its strides (ViT's
-//   token-major layout), rows past S skipped;
-// - rows and keys past S are computed as padding (at S = 197: 256 of
-//   each); skipping a warp's dead rows, key groups or k16 steps past S in
+//   token-major layout), rows past Sq skipped;
+// - rows past Sq and keys past Sk are computed as padding (at S = 197:
+//   256 of each); skipping a warp's dead rows, key groups or k16 steps in
 //   the last tile measured slower at ViT's shape and is left out;
 // - the exponentials run on the special-function unit in log2 units
 //   (ex2.approx.ftz; without bias, log2(e) is folded into the scale);
@@ -50,8 +57,8 @@
 //
 // Both paths: online softmax per row, rescaled per k/v tile and normalised
 // once at the end (equal in exact arithmetic to the TPU kernel's per-step
-// rescale); columns past S get probability exactly 0, so a row whose every
-// real key is masked averages v over its S keys and stays finite.
+// rescale); columns past Sk get probability exactly 0, so a row whose every
+// real key is masked averages v over its Sk keys and stays finite.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +91,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int S, int H, Strides st,
+              float* __restrict__ o, int Sq, int Sk, int H, Strides st,
               long long bias_bh_stride, float scale) {
   constexpr int LD = D + 1;         // padded rows: column reads hit 32 banks
   constexpr int PLD = kBlockK + 1;
@@ -108,12 +115,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const long long oo = b * st.o[0] + h * st.o[1];
   const int qrow = q0 + r;
   const float* brow =
-      bias ? bias + bh * bias_bh_stride + (size_t)min(qrow, S - 1) * S
+      bias ? bias + bh * bias_bh_stride + (size_t)min(qrow, Sq - 1) * Sk
            : nullptr;
 
   for (int i = tid; i < kBlockQ * D; i += kThreadsF32) {
     const int row = i / D, col = i % D, g = q0 + row;
-    sq[row * LD + col] = g < S ? q[qo + g * st.q[2] + col] : 0.f;
+    sq[row * LD + col] = g < Sq ? q[qo + g * st.q[2] + col] : 0.f;
   }
 
   float acc[ND];
@@ -121,11 +128,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int dd = 0; dd < ND; ++dd) acc[dd] = 0.f;
   float m = -INFINITY, l = 0.f;  // running max; this thread's part of the sum
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
+  for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
     __syncthreads();  // the previous tile is no longer read
     for (int i = tid; i < kBlockK * D; i += kThreadsF32) {
       const int row = i / D, col = i % D, g = k0 + row;
-      const bool ok = g < S;
+      const bool ok = g < Sk;
       sk[row * LD + col] = ok ? k[ko + g * st.k[2] + col] : 0.f;
       sv[row * LD + col] = ok ? v[vo + g * st.v[2] + col] : 0.f;
     }
@@ -145,10 +152,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int col = k0 + sub + 4 * jj;
       float x = s[jj] * scale;
       if (brow) {
-        if (col < S) x += brow[col];
+        if (col < Sk) x += brow[col];
         x = fmaxf(x, kNeg);
       }
-      if (col >= S) x = -INFINITY;
+      if (col >= Sk) x = -INFINITY;
       s[jj] = x;
       mt = fmaxf(mt, x);
     }
@@ -176,7 +183,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
-  if (qrow < S) {
+  if (qrow < Sq) {
     const float inv = 1.f / l;
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd)
@@ -192,18 +199,18 @@ constexpr size_t smem_f32() {
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* bias, void* o, int bh, int s, int heads,
-                       const Strides& st, long long bias_bh_stride,
+                       const float* bias, void* o, int bh, int sq, int sk,
+                       int heads, const Strides& st, long long bias_bh_stride,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_f32<D>();
   static cudaError_t err = cudaFuncSetAttribute(  // once per process
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(bh, (sq + kBlockQ - 1) / kBlockQ);
   flash_fwd_f32<D><<<grid, kThreadsF32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), s, heads,
-      st, bias_bh_stride, scale);
+      static_cast<const float*>(v), bias, static_cast<float*>(o), sq, sk,
+      heads, st, bias_bh_stride, scale);
   return cudaGetLastError();
 }
 
@@ -265,7 +272,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-               int S, int H, long long o_b, long long o_h, long long o_row,
+               int Sq, int Sk, int H, long long o_b, long long o_h,
+               long long o_row,
                long long bias_bh_stride, float scale, int swaps) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -276,11 +284,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   const uint32_t bar_v = bar_k + 8 * kStages;        // + 8 s
   const uint32_t bar_empty = bar_v + 8 * kStages;    // + 8 s
 
-  const int n_qt = (S + kRowsQ - 1) / kRowsQ;
+  const int n_qt = (Sq + kRowsQ - 1) / kRowsQ;
   const int bh = blockIdx.x / n_qt;  // a head's query tiles are adjacent
   const int q0 = (blockIdx.x % n_qt) * kRowsQ;
   const int b = bh / H, h = bh % H;
-  const int n_kv = (S + kKeys - 1) / kKeys;
+  const int n_kv = (Sk + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -328,8 +336,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   const float* br1 = nullptr;
   if (kBias) {
     const float* bb = bias + bh * bias_bh_stride;
-    br0 = bb + static_cast<long long>(min(row0, S - 1)) * S;
-    br1 = bb + static_cast<long long>(min(row1, S - 1)) * S;
+    br0 = bb + static_cast<long long>(min(row0, Sq - 1)) * Sk;
+    br1 = bb + static_cast<long long>(min(row1, Sq - 1)) * Sk;
   }
   // without bias the scores are kept in log2 units (scaled by scale*log2e);
   // with bias in natural units, since the clamp value times log2e would
@@ -373,18 +381,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
     // online softmax on the accumulator: sacc[4 jj + e] is row row0 (e < 2)
     // or row1, key k0 + 8 jj + 2 t + (e & 1)
     float mt0 = -INFINITY, mt1 = -INFINITY;
-    const bool ragged = k0 + kKeys > S;
+    const bool ragged = k0 + kKeys > Sk;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) {
       const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
       float x;
       if (kBias) {
         const float* br = (i & 2) ? br1 : br0;
-        x = fmaxf(fmaf(sacc[i], sc, col < S ? br[col] : 0.f), kNeg);
+        x = fmaxf(fmaf(sacc[i], sc, col < Sk ? br[col] : 0.f), kNeg);
       } else {
         x = sacc[i] * sc;
       }
-      if (ragged && col >= S) x = -INFINITY;
+      if (ragged && col >= Sk) x = -INFINITY;
       sacc[i] = x;
       if (i & 2)
         mt1 = fmaxf(mt1, x);
@@ -449,10 +457,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
     const int col = 8 * jj + 2 * t;
-    if (row0 < S)
+    if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_row + col) =
           __floats2bfloat162_rn(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0);
-    if (row1 < S)
+    if (row1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + row1 * o_row + col) =
           __floats2bfloat162_rn(oacc[4 * jj + 2] * inv1,
                                 oacc[4 * jj + 3] * inv1);
@@ -460,7 +468,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
 }
 
 // A 4D map over the (D, S, H, B) view of a bf16 tensor with element
-// strides st = (batch, head, row), in boxes of 32 columns x `rows` rows.
+// strides st = (batch, head, row), in boxes of 32 columns x `rows` rows;
+// `s` is the tensor's own length (Sq for q, Sk for k and v), so TMA
+// zero-fills the rows past it.
 // The dims are listed by growing stride (H before S for a packed qkv view,
 // whose head stride is below its row stride): *swap says which.
 bool make_view_map(CUtensorMap* map, const void* base, const long long* st,
@@ -486,7 +496,7 @@ bool make_view_map(CUtensorMap* map, const void* base, const long long* st,
 
 template <int D, bool kBias>
 cudaError_t launch_bf16_kind(const CUtensorMap* maps, const float* bias,
-                             void* o, int bh, int s, int heads,
+                             void* o, int bh, int sq, int sk, int heads,
                              const Strides& st, long long bias_bh_stride,
                              float scale, int swaps, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kSmem;
@@ -495,57 +505,59 @@ cudaError_t launch_bf16_kind(const CUtensorMap* maps, const float* bias,
       (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
-      static_cast<long long>(bh) * ((s + kRowsQ - 1) / kRowsQ);
+      static_cast<long long>(bh) * ((sq + kRowsQ - 1) / kRowsQ);
   if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
   flash_fwd_bf16<D, kBias><<<static_cast<unsigned>(blocks), kThreadsBf16,
                              smem, stream>>>(
-      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), s,
-      heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), sq,
+      sk, heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const float* bias, void* o, int batch, int heads,
-                        int s, const Strides& st, long long bias_bh_stride,
-                        float scale, cudaStream_t stream) {
+                        int sq, int sk, const Strides& st,
+                        long long bias_bh_stride, float scale,
+                        cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   const long long* strides[3] = {st.q, st.k, st.v};
   int swaps = 0;
   for (int i = 0; i < 3; ++i) {
     bool swap;
-    if (!make_view_map(&maps[i], bases[i], strides[i], batch, heads, s, D,
-                       i == 0 ? kRowsQ : kKeys, &swap))
+    if (!make_view_map(&maps[i], bases[i], strides[i], batch, heads,
+                       i == 0 ? sq : sk, D, i == 0 ? kRowsQ : kKeys, &swap))
       return cudaErrorInvalidValue;
     swaps |= swap << i;
   }
   const int bh = batch * heads;
   if (bias != nullptr)
-    return launch_bf16_kind<D, true>(maps, bias, o, bh, s, heads, st,
+    return launch_bf16_kind<D, true>(maps, bias, o, bh, sq, sk, heads, st,
                                      bias_bh_stride, scale, swaps, stream);
-  return launch_bf16_kind<D, false>(maps, bias, o, bh, s, heads, st,
+  return launch_bf16_kind<D, false>(maps, bias, o, bh, sq, sk, heads, st,
                                     bias_bh_stride, scale, swaps, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: [batch, heads, s, d] given by element strides (12 values:
-// batch, head and row strides of q, k, v, o in turn), the head dim
-// contiguous; all f32 or all bf16 (is_bf16), every row 16-byte aligned, and
-// for bf16 every stride a whole number of 16-byte units.
-// bias: null or contiguous f32 [1 or batch*heads, s, s] (bias_per_bh).
+// q, o: [batch, heads, sq, d] and k, v: [batch, heads, sk, d], given by
+// element strides (12 values: batch, head and row strides of q, k, v, o in
+// turn), the head dim contiguous; all f32 or all bf16 (is_bf16), every row
+// 16-byte aligned, and for bf16 every stride a whole number of 16-byte
+// units.  bias: null or contiguous f32 [1 or batch*heads, sq, sk]
+// (bias_per_bh).
 // Launches on `stream` without synchronising; returns the cudaError_t of
 // the launch (cudaErrorInvalidValue also when the driver refuses a tensor
 // map).
 extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
-                                       void* o, int batch, int heads, int s,
-                                       int d, const long long* strides,
+                                       void* o, int batch, int heads, int sq,
+                                       int sk, int d, const long long* strides,
                                        int bias_per_bh, float scale,
                                        int is_bf16, void* stream) {
   const float* b = static_cast<const float*>(bias);
-  const long long bs = bias_per_bh ? (long long)s * s : 0;
+  const long long bs = bias_per_bh ? (long long)sq * sk : 0;
   const int bh = batch * heads;
   Strides st;
   for (int i = 0; i < 3; ++i) {
@@ -557,7 +569,8 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
 #define TLX_LAUNCH(D) \
-  return launch_bf16<D>(q, k, v, b, o, batch, heads, s, st, bs, scale, cs)
+  return launch_bf16<D>(q, k, v, b, o, batch, heads, sq, sk, st, bs, scale, \
+                        cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);
@@ -567,7 +580,7 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
 #undef TLX_LAUNCH
   } else {
 #define TLX_LAUNCH(D) \
-  return launch_f32<D>(q, k, v, b, o, bh, s, heads, st, bs, scale, cs)
+  return launch_f32<D>(q, k, v, b, o, bh, sq, sk, heads, st, bs, scale, cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);

@@ -109,9 +109,11 @@ def _int8_sdpa(q, k, v, mask, scale):
 
 def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
                                  use_int8=None):
-    """q, k, v: [..., heads, seq, head_dim].  mask: additive (-inf for
-    disallowed), broadcastable to [..., heads, q_len, k_len].  ``use_int8``
-    (``None``: the ``use_int8_attention`` default) takes the int8 path."""
+    """q: [..., heads, q_len, head_dim]; k, v: [..., heads, k_len,
+    head_dim] (k_len may differ from q_len, as in DETR's cross-attention).
+    mask: additive (-inf for disallowed), broadcastable to [..., heads,
+    q_len, k_len].  ``use_int8`` (``None``: the ``use_int8_attention``
+    default) takes the int8 path."""
     lead = q.shape[:-2]
     s, d = q.shape[-2:]
     scale = d ** -0.5 if scale is None else scale
@@ -126,7 +128,7 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
     if mask is not None:
         kv = k.shape[-2]
         if mask.ndim <= 2 or all(n == 1 for n in mask.shape[:-2]):
-            # batch/head-invariant mask: one [1, S, S] bias, not BH copies
+            # batch/head-invariant mask: one [1, Sq, Sk] bias, not BH copies
             shape = (1, s, kv) if mask.ndim <= 2 else (*mask.shape[:-2], s, kv)
             bias = torch.broadcast_to(mask, shape).reshape(1, s, kv)
         else:

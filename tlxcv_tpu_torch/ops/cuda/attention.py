@@ -35,18 +35,22 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_shapes(q, k, v, bias):
-    if q.ndim not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [BH, S, D] or [B, H, S, D] "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+    """q [BH, Sq, D] or [B, H, Sq, D]; k and v [.., Sk, D] with q's leading
+    dims and D; bias [1|BH, Sq, Sk]."""
+    if (q.ndim not in (3, 4) or k.shape != v.shape or k.ndim != q.ndim
+            or k.shape[:-2] != q.shape[:-2] or k.shape[-1] != q.shape[-1]):
+        raise ValueError(f"q must be [BH, Sq, D] or [B, H, Sq, D] and k, v "
+                         f"one shape [.., Sk, D] with q's leading dims and "
+                         f"D, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    s = q.shape[-2]
+    sq, sk = q.shape[-2], k.shape[-2]
     bh = math.prod(q.shape[:-2])
     if bias is not None:
         if bias.ndim != 3 or bias.shape[0] not in (1, bh):
             raise ValueError(f"bias leading dim {bias.shape[0]} must be 1 or "
                              f"BH={bh} (per-head bias must be pre-broadcast)")
-        if tuple(bias.shape[1:]) != (s, s):
-            raise ValueError(f"bias must be [1|BH, {s}, {s}], got "
+        if tuple(bias.shape[1:]) != (sq, sk):
+            raise ValueError(f"bias must be [1|BH, {sq}, {sk}], got "
                              f"{tuple(bias.shape)}")
 
 
@@ -55,9 +59,9 @@ def flash_attention_plain(q, k, v, bias=None, scale=None):
     clamped at ``NEG``, f32 softmax statistics, P cast to v's dtype before
     P.V, normalised at the end, output in q's dtype."""
     _check_shapes(q, k, v, bias)
-    s, d = q.shape[-2:]
+    d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
-    q3, k3, v3 = (t.reshape(-1, s, d).float() for t in (q, k, v))
+    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d).float() for t in (q, k, v))
     logits = torch.einsum("bqd,bkd->bqk", q3, k3) * scale
     if bias is not None:
         logits = torch.clamp_min(logits + bias.float(), NEG)
@@ -97,8 +101,8 @@ def _check_kernel_inputs(q, k, v, bias):
         if last != 1 or any(st % per_16_bytes for st in outer):
             raise ValueError("q, k, v need a contiguous head dim and other "
                              "strides of whole 16-byte units")
-    bh, s = math.prod(q.shape[:-2]), q.shape[-2]
-    if bh >= 2 ** 31 or -(-s // 64) > 65535:
+    bh, sq = math.prod(q.shape[:-2]), q.shape[-2]
+    if bh >= 2 ** 31 or -(-sq // 64) > 65535 or k.shape[-2] >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
@@ -106,7 +110,8 @@ def _kernel_fn():
     fn = _build.library("flash_attention").tlx_flash_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, i, ctypes.c_float,
+                       i, p]
         fn.restype = i
     return fn
 
@@ -123,25 +128,25 @@ def _bhs_strides(t):
 
 
 def _launch_kernel(q, k, v, bias, scale):
-    """One kernel launch: [BH, S, D] contiguous, or [B, S, H, D] (the
+    """One kernel launch: [BH, Sq, D] contiguous, or [B, Sq, H, D] (the
     token-major store of a 4D call), in q's dtype."""
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return _launch_kernel(q, k, v, bias, scale)
-    s, d = q.shape[-2:]
+    sq, d = q.shape[-2:]
     batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
     fn = _kernel_fn()
     if q.ndim == 3:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     else:
-        out = q.new_empty(batch, s, heads, d)
+        out = q.new_empty(batch, sq, heads, d)
     view = out if q.ndim == 3 else out.transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v),
         *_bhs_strides(view))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            batch, heads, s, d, strides,
+            batch, heads, sq, k.shape[-2], d, strides,
             int(bias is not None and bias.shape[0] == batch * heads),
             scale, _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
@@ -169,12 +174,14 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, bias=None, scale=None):
-    """softmax(q kᵀ·scale + bias)·v.  q, k, v: [BH, S, D], or [B, H, S, D]
-    with any strides over a contiguous head dim; bias: optional additive
-    [1|BH, S, S] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape
-    in q's dtype: [BH, S, D] contiguous, or [B, H, S, D] stored
-    token-major (a view of [B, S, H, D]).  On the card the result has a
-    ``grad_fn`` whose backward raises ``NotImplementedError``."""
+    """softmax(q kᵀ·scale + bias)·v.  q: [BH, Sq, D] or [B, H, Sq, D]; k,
+    v: [BH, Sk, D] or [B, H, Sk, D] with q's leading dims and D (any key
+    length: DETR's cross-attention has 100 queries over H·W keys); any
+    strides over a contiguous head dim; bias: optional additive [1|BH, Sq,
+    Sk] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape in q's
+    dtype: [BH, Sq, D] contiguous, or [B, H, Sq, D] stored token-major (a
+    view of [B, Sq, H, D]).  On the card the result has a ``grad_fn``
+    whose backward raises ``NotImplementedError``."""
     _check_shapes(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
