@@ -5,9 +5,11 @@
     python3 chip_smoke.py --profile   # adds per-kernel device-time profiles
                                       # and the idle shares of Mask R-CNN,
                                       # YOLOv3, ViT-B/16 int8, HRNet-W18
-                                      # seg, Swin-B, DETR-R50, PP-YOLOE-L
-                                      # and SSD, served, and of a Mask
-                                      # R-CNN training step
+                                      # seg, Swin-B, DETR-R50, PP-YOLOE-L,
+                                      # SSD, pose HRNet-W32, PFLD and the
+                                      # QAT-served ResNet-50, served, and
+                                      # of the training steps of Mask
+                                      # R-CNN and of the training legs
     python3 chip_smoke.py --kernels   # only the flash-attention and bf16
                                       # GEMM kernels, checked, timed and
                                       # profiled, the GEMM probe, and
@@ -36,6 +38,13 @@
                                       # --profile, its device time and idle
                                       # share (copy this file into another
                                       # tree's root to compare the two)
+    python3 chip_smoke.py --training  # only the training legs: HRNet-W32
+                                      # pose and PFLD (checked, served,
+                                      # trained), a train-state checkpoint
+                                      # resumed, YOLOv3 training and the
+                                      # QAT-served ResNet-50, and the int8
+                                      # attention's P.V product past 1040
+                                      # keys; no contract line
     python3 chip_smoke.py --resize    # only the three resize kernels: the
                                       # upsample-add, the transposed resize
                                       # and the 2x upsample's forward and
@@ -164,6 +173,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     in f32 and bf16, then served in bf16: DETR-R50 b8 800x1344, PP-YOLOE-L
     b32 640^2, SSD b128 300^2 (``phase_detectors`` says how their random
     weights and statistics are drawn).
+
+13. (run after phase 10) training legs: HRNet-W32 pose (17 joints,
+    256x192, 64x48 heatmaps, sigma 2) and PFLD (68 landmarks, 112^2),
+    each checked at b2 / b4 against the CPU in f32 and bf16 (the pose's
+    argmax decode where it is decided), served in bf16 (b64, b256), its
+    gradients against the CPU (``train_check``), its loss falling on one
+    batch and trained through ``Trainer.train`` (b32, b256; PFLD with its
+    auxiliary net in the loss), no kernel of ours; a full train-state
+    checkpoint of the pose trainer saved after 5 steps, restored bitwise
+    into a fresh Trainer and run on; YOLOv3 training (targets built on
+    the card bitwise the CPU's, gradients, a falling loss, b32 416^2 on
+    ``ShapesDetection``); ResNet-50 QAT (``enable_qat``,
+    ``calibrate_activations``, a fine-tune at b64, ``qat_serving_convert``)
+    served in full int8 at b256, 54 ``int8_matmul`` launches a forward,
+    each int8 layer bitwise the CPU's.  The int8 attention's P.V product
+    at DETR-R50's encoder grid (1050 keys) is checked with phase 11.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -2623,10 +2648,44 @@ def int8_products_check():
              "cpu_f32_equals_int32": tied, "tf32_flag_restored": kept,
              "tf32_product_max_abs_err": (tf32 - want_scores).abs().max()
              .item(), "scores_ms": products_ms}
+    check["detr_encoder_pv"] = int8_products_past_1040()
     emit({"phase": "int8_attention_products", **check})
     if not (check["scores_bitwise"] and check["pv_bitwise"] and tied
             and kept):
         raise AssertionError(f"int8 attention products: {check}")
+
+
+def int8_products_past_1040():
+    """The P.V product at DETR-R50's encoder grid under int8 attention
+    (b8 x 8 heads, 1050 keys): [64, 1050, 1050] probability codes by [64,
+    1050, 32] value codes, more keys than the f32 product holds exactly,
+    so summed in int32 over chunks of at most 1040; with TF32 on globally,
+    bitwise against the CPU and against the plain int32 product."""
+    from tlxcv_tpu_torch.nn.attention import (int8_products,
+                                              int8_products_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    p = torch.randint(0, 128, (64, 1050, 1050), generator=g, device="cuda",
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (64, 1050, 32), generator=g, device="cuda",
+                      dtype=torch.int8)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = int8_products(p, v).cpu()
+            ms = graph_ms(lambda: int8_products(p, v), reps=5, calls=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    pc, vc = p.cpu(), v.cpu()
+    want = int8_products(pc, vc)
+    plain = int8_products_plain(pc[:4], vc[:4]).float()
+    check = {"shape": [[64, 1050, 1050], [64, 1050, 32]],
+             "bitwise": torch.equal(got, want)
+             and torch.equal(want[:4], plain), "ms": ms}
+    if not check["bitwise"]:
+        raise AssertionError(f"int8 P.V past 1040 keys: {check}")
+    return check
 
 
 def phase_vit_int8(int8_record):
@@ -3095,6 +3154,546 @@ def phase_detectors(flash_record, profile):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------- pose, landmarks, YOLOv3 training,
+# QAT served in int8, train-state checkpoints
+class Predict(torch.nn.Module):
+    """A task's ``predict`` as a module's forward (PFLD's landmarks), for
+    the checks that take a module."""
+
+    def __init__(self, task):
+        super().__init__()
+        self.task = task
+
+    def forward(self, x):
+        return self.task.predict(x)
+
+
+def check_shape(*shape):
+    def check(pred, batch):
+        if pred.shape != (batch, *shape) or \
+                not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"bad outputs {tuple(pred.shape)}, "
+                                 f"expected {(batch, *shape)}")
+    return check
+
+
+def pose_targets(batch, seed, size=(256, 192), joints=17):
+    """Heatmap targets (a quarter of the input's size, sigma 2) of seeded
+    keypoints (inside the image, a tenth invisible) through the host
+    transform ``GenerateTarget``, as a data pipeline makes them: (images
+    [B, H, W, 3], (targets, weights))."""
+    import numpy as np
+
+    from tlxcv_tpu_torch.tasks import GenerateTarget
+
+    rng = np.random.default_rng(seed)
+    transform = GenerateTarget(size, joints, (size[0] // 4, size[1] // 4),
+                               2)
+    x = rng.normal(size=(batch, *size, 3)).astype(np.float32)
+    kp = np.concatenate([rng.uniform(0, size[1], (batch, joints, 1)),
+                         rng.uniform(0, size[0], (batch, joints, 1)),
+                         rng.random((batch, joints, 1)) > 0.1], -1)
+    pairs = [transform((None, k))[1] for k in kp.astype(np.float32)]
+    return x, (np.stack([p[0] for p in pairs]),
+               np.stack([p[1] for p in pairs]))
+
+
+def pfld_targets(batch, seed):
+    """Seeded landmarks (normalised), Euler angles (radians) and six
+    binary attributes, as PFLD's loss takes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, 112, 112, 3)).astype(np.float32)
+    return x, (rng.uniform(0, 1, (batch, 136)).astype(np.float32),
+               rng.uniform(-0.5, 0.5, (batch, 3)).astype(np.float32),
+               (rng.random((batch, 6)) < 0.3).astype(np.int64))
+
+
+def yolo_targets(batch, seed, size=416, max_gt=50):
+    """``ShapesDetection`` at ``size``, ground truth padded to ``max_gt`` a
+    image, boxes turned into the normalised cxcywh that ``YOLOv3.loss_fn``
+    takes (padding rows stay zero, so zero width)."""
+    from tlxcv_tpu_torch.data import ShapesDetection, pad_targets
+
+    ds = ShapesDetection(num=batch, size=size, max_objects=6, seed=seed)
+    x, t = pad_targets(max_gt)([ds[i] for i in range(batch)])
+    b = t["boxes"]
+    cxcywh = b.copy()
+    cxcywh[..., 0] = (b[..., 0] + b[..., 2]) / 2 / size
+    cxcywh[..., 1] = (b[..., 1] + b[..., 3]) / 2 / size
+    cxcywh[..., 2] = (b[..., 2] - b[..., 0]) / size
+    cxcywh[..., 3] = (b[..., 3] - b[..., 1]) / size
+    cxcywh *= t["mask"][..., None]
+    return x, {"boxes": cxcywh, "class_labels": t["class_labels"]}
+
+
+def _to(dev, y):
+    """A target tree of numpy arrays as tensors on ``dev``."""
+    if isinstance(y, dict):
+        return {k: torch.as_tensor(v, device=dev) for k, v in y.items()}
+    return tuple(torch.as_tensor(v, device=dev) for v in y)
+
+
+def pose_decode_check(got, want, tol):
+    """``get_max_preds`` on the card's f32 heatmaps against the CPU's,
+    compared only where the CPU's top value leads its runner-up by more
+    than ``tol`` (the f32 bound): the 0.001-std head leaves random
+    heatmaps nearly flat, so a peak within the bound of another is decided
+    by rounding.  Returns the share compared and the number that differ."""
+    from tlxcv_tpu_torch.tasks import get_max_preds
+
+    b, h, w, j = want.shape
+    top2 = want.reshape(b, h * w, j).topk(2, dim=1).values
+    decisive = (top2[:, 0] - top2[:, 1] > tol).numpy()
+    pg, _ = get_max_preds(got.numpy())
+    pw, _ = get_max_preds(want.numpy())
+    differ = int((pg != pw).any(-1)[decisive].sum())
+    return float(decisive.mean()), differ
+
+
+def leg_pose(profile, dev="cuda", serve_batch=64, train_batch=32,
+             check_hw=(256, 192)):
+    """HRNet-W32 pose (``create_model("pose_hrnet_w32")``, 17 joints,
+    256x192 input, 64x48 heatmaps, sigma 2: the reference's COCO setting),
+    random weights from a seed, BatchNorm statistics from the checked
+    images: f32 and bf16 heatmaps at b2 against f32 on the CPU (bf16 held
+    to the CPU's own bf16 model's error, as HRNet-W18's), the argmax
+    decode where it is decided, no kernel of ours; served at b64 bf16.
+    Then training: gradients at b2 against the CPU (``train_check``), the
+    loss falling over 20 steps on one batch, and ``Trainer.train`` at b32
+    (bf16 over f32 masters, Adam, 10 steps after 3) with targets from
+    ``GenerateTarget``.  Returns the trainer and a batch for the
+    checkpoint leg."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import HumanPoseEstimation
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "pose_hrnet_w32"
+    gen = torch.Generator().manual_seed(11)
+
+    def build(seed=11):
+        return HumanPoseEstimation(create_model(
+            name, device="cpu", generator=torch.Generator().manual_seed(seed)))
+
+    cpu = build()
+    x2 = torch.from_numpy(pose_targets(2, 0, check_hw)[0])
+    data_bn_statistics(cpu, x2)
+    card = copy.deepcopy(cpu).to(dev)
+    got32 = float_logit_check(name, cpu, card, x2, depth="HRNet-W32",
+                              expect={}, chaotic=True)
+    with torch.inference_mode():
+        want = cpu(x2)
+    tol = 1e-3 * want.abs().max().item()
+    share, differ = pose_decode_check(got32, want, tol)
+    emit({"phase": "model_check", "model": name + "_decode", "batch": 2,
+          "decided_share": share, "decided_differ": differ, "tol": tol})
+    if differ:
+        raise AssertionError(f"{name}: {differ} decided joints decode "
+                             f"elsewhere on the card")
+    x = torch.randn(serve_batch, *check_hw, 3, generator=gen).to(
+        dev, torch.bfloat16)
+    _, step = serve(card, x, {}, name, "bfloat16",
+                    check=check_shape(check_hw[0] // 4, check_hw[1] // 4,
+                                      17))
+    if profile:
+        phase_profile(name, card, x, step_s=step)
+    del card, cpu, x
+    empty_cache(dev)
+
+    xg, yg = pose_targets(2, 1, check_hw)
+
+    def pose_loss(task, o, t):
+        return task.loss_fn(o, _to(o.device, t))
+
+    train_check(name, build, xg, yg, pose_loss,
+                ["backbone.backbone.conv1.conv.weight",
+                 "backbone.backbone.layer1.0.conv1.conv.weight",
+                 "backbone.final_layer.weight"])
+    task = build(12).to(dev)
+    trainer = Trainer(task, optimizer=optimizers.Adam(1e-3),
+                      compute_dtype=torch.bfloat16, device=dev,
+                      ema_decay=0.999)
+    batches = [trainer._put_batch(pose_targets(train_batch, s, check_hw))
+               for s in (2, 3)]
+    falling_loss(trainer, batches[0], name)
+    _, step = timed_train(trainer, batches, {}, name, train_batch)
+    if profile:
+        phase_train_profile(name, trainer, batches[0], step)
+    return trainer, batches
+
+
+def leg_checkpoint(trainer, batches, dev="cuda", steps=5):
+    """A full train-state checkpoint on the pose trainer's network: a
+    ``Trainer`` trains ``steps`` steps and saves; a fresh ``Trainer`` on
+    another initialisation (another seed) restores, and the round trip is
+    bitwise for params, buffers, optimizer state (with its shared count),
+    step, EMA and the generators' states, each on its device and in its
+    dtype.  The first runs ``steps`` more steps, then the resumed one the
+    same steps on the same batches: its losses are the uninterrupted
+    run's within 1e-3 relative (cuDNN's default convolution backward
+    algorithms are not deterministic, so two runs of one step may differ
+    in the last bits; the phase reports whether they came out bitwise)."""
+    import os
+    import tempfile
+
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    def fresh(seed, perturb):
+        net = copy.deepcopy(trainer.network)
+        if perturb:  # another initialisation: restore must overwrite it
+            g = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.add_(0.01 * torch.randn(p.shape, generator=g)
+                           .to(p.device))
+        return Trainer(net, optimizer=optimizers.Adam(1e-3),
+                       compute_dtype=torch.bfloat16, device=dev,
+                       ema_decay=0.999, seed=seed)
+
+    first = fresh(21, False)
+    for i in range(steps):
+        first._train_step(*batches[i % len(batches)])
+        first.step += 1
+
+    def state(t):
+        return {"params": t.params, "buffers": t._buffers(),
+                "optimizer": t._opt_state(), "ema": t.ema_params,
+                "loop": t._loop_state()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pose_state.npz")
+        t0 = time.perf_counter()
+        first.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        snapshot = {k: {n: v.detach().clone() for n, v in tree.items()}
+                    for k, tree in state(first).items()}
+        want = [first._train_step(*batches[i % len(batches)])[0].item()
+                for i in range(steps, 2 * steps)]
+        resumed = fresh(22, True)
+        t0 = time.perf_counter()
+        resumed.restore_checkpoint(path)
+        restore_s = time.perf_counter() - t0
+    equal = {k: all(torch.equal(snapshot[k][n], v) and
+                    snapshot[k][n].device == v.device for n, v in
+                    tree.items())
+             for k, tree in state(resumed).items()}
+    equal["step"] = resumed.step == steps
+    got = [resumed._train_step(*batches[i % len(batches)])[0].item()
+           for i in range(steps, 2 * steps)]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    check = {"phase": "checkpoint", "model": "pose_hrnet_w32",
+             "saved_after_steps": steps, "bytes": size, "save_s": save_s,
+             "restore_s": restore_s, "round_trip_bitwise": equal,
+             "losses_uninterrupted": want, "losses_resumed": got,
+             "max_rel_loss_diff": rel, "bound": 1e-3,
+             "losses_bitwise": got == want}
+    emit(check)
+    if not all(equal.values()) or not rel <= 1e-3:
+        raise AssertionError(f"checkpoint resume: {check}")
+
+
+def leg_pfld(profile, dev="cuda", serve_batch=256, train_batch=256):
+    """PFLD (``create_model("pfld")``, 68 landmarks, 112^2), random weights
+    from a seed, BatchNorm statistics from the checked images: landmarks
+    at b4 in f32 and bf16 against f32 on the CPU, no kernel of ours;
+    served at b256 bf16 (``predict``: the landmarks); gradients with the
+    auxiliary net in the loss at b4 against the CPU, the loss falling on
+    one batch, ``Trainer.train`` at b256 on seeded landmarks, Euler angles
+    and attributes."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import FacialLandmarkDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "pfld"
+
+    def build(seed=13):
+        return FacialLandmarkDetection(create_model(
+            name, device="cpu", generator=torch.Generator().manual_seed(seed)))
+
+    cpu = build()
+    x4 = torch.from_numpy(pfld_targets(4, 0)[0])
+    data_bn_statistics(cpu, x4)
+    card = Predict(copy.deepcopy(cpu).to(dev))
+    float_logit_check(name, Predict(cpu), card, x4, depth="PFLD", expect={},
+                      chaotic=True)
+    x = torch.from_numpy(pfld_targets(serve_batch, 1)[0]).to(
+        dev, torch.bfloat16)
+    _, step = serve(card.task, x, {}, name, "bfloat16",
+                    check=check_shape(136))
+    if profile:
+        phase_profile(name, card.task, x, step_s=step)
+    del card, cpu, x
+    empty_cache(dev)
+
+    xg, yg = pfld_targets(4, 2)
+
+    def pfld_loss(task, o, t):
+        return task.loss_fn(o, _to(o[0].device, t))
+
+    train_check(name, build, xg, yg, pfld_loss,
+                ["backbone.backbone.conv1.weight",
+                 "backbone.backbone.fc.weight",
+                 "backbone.auxiliarynet.fc2.weight"])
+    trainer = Trainer(build(14).to(dev), optimizer=optimizers.Adam(1e-3),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(pfld_targets(train_batch, s))
+               for s in (3, 4)]
+    falling_loss(trainer, batches[0], name)
+    _, step = timed_train(trainer, batches, {}, name, train_batch)
+    if profile:
+        phase_train_profile(name, trainer, batches[0], step)
+    del trainer, batches
+    empty_cache(dev)
+
+
+def leg_yolov3_train(profile, dev="cuda", train_batch=32, size=416,
+                     check_size=256):
+    """YOLOv3 training (DarkNet-53, 80 classes, 416^2): the per-level
+    targets built on the card bitwise the CPU's, at ``gt_iou_thresh`` 1
+    and 0.5, on a ``ShapesDetection`` batch (GT padded to 50 a image);
+    gradients at b2 256^2 against the CPU (``train_check``); the loss
+    falling over 20 steps on one batch; ``Trainer.train`` at b32 416^2,
+    bf16 over f32 masters, no kernel of ours."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.models.detection.yolov3 import (DEFAULT_ANCHORS,
+                                                         DEFAULT_MASKS,
+                                                         DOWNSAMPLES,
+                                                         gt2yolo_targets)
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "yolov3"
+    _, t = yolo_targets(train_batch, 0, size)
+    boxes = torch.from_numpy(t["boxes"])
+    cls = torch.from_numpy(t["class_labels"])
+    score = (boxes[..., 2] > 0).float()
+    same = {}
+    for thresh in (1.0, 0.5):
+        args = (DEFAULT_ANCHORS, DEFAULT_MASKS, DOWNSAMPLES, (size, size),
+                80)
+        want = gt2yolo_targets(boxes, cls, score, *args, iou_thresh=thresh)
+        got = gt2yolo_targets(boxes.to(dev), cls.to(dev), score.to(dev),
+                              *args, iou_thresh=thresh)
+        same[str(thresh)] = {
+            "bitwise": all(torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)),
+            "positives": [int((w[..., 5] > 0).sum()) for w in want]}
+    emit({"phase": "model_check", "model": "yolov3_targets",
+          "batch": train_batch, "gt_slots": int(boxes.shape[1]),
+          "valid_gt": int(score.sum()), "iou_thresh": same})
+    if not all(v["bitwise"] for v in same.values()):
+        raise AssertionError(f"YOLOv3 targets differ on the card: {same}")
+
+    def build(seed=15):
+        return ObjectDetection(create_model(
+            name, device="cpu", num_classes=80,
+            generator=torch.Generator().manual_seed(seed)))
+
+    xg, yg = yolo_targets(2, 1, check_size)
+
+    def yolo_loss(task, o, t):
+        return task.loss_fn(o, _to(o["head_outs"][0].device, t))
+
+    train_check(name, build, xg, yg, yolo_loss,
+                ["backbone.backbone.conv0.conv.weight",
+                 "backbone.neck.yolo_blocks.1.tip.conv.weight",
+                 "backbone.yolo_head.yolo_outputs.2.weight"])
+    trainer = Trainer(build(16).to(dev), optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(yolo_targets(train_batch, s, size))
+               for s in (0, 2)]
+    falling_loss(trainer, batches[0], name)
+    _, step = timed_train(trainer, batches, {}, name + "_train",
+                          train_batch)
+    if profile:
+        phase_train_profile(name, trainer, batches[0], step)
+    del trainer, batches
+    empty_cache(dev)
+
+
+def bf16_fake_quant_codes(w):
+    """The int8 codes inside ``nn.layers._fake_quant_w`` of the bf16 cast
+    of the master ``w``: what a training step under the bf16 compute
+    policy fake-quantizes the weight to."""
+    f = w.detach().to(torch.bfloat16).float()
+    s = torch.clamp_min(f.abs().amax(dim=tuple(range(1, f.ndim)),
+                                     keepdim=True) / 127.0, 1e-12)
+    return torch.round(f / s).clamp(-127, 127)
+
+
+def _rms_t(a, b):
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def leg_resnet50_qat(int8_record, profile, dev="cuda", train_batch=64,
+                     serve_batch=256, calib_batch=8, check_batch=2):
+    """ResNet-50 quantization-aware training, served in int8: random
+    weights from a seed, BatchNorm statistics from seeded images;
+    ``enable_qat`` (54 layers), ``calibrate_activations`` on 2 seeded
+    batches (54), a QAT fine-tune at b64 (bf16 over f32 masters, Adam,
+    10 steps after 3, no kernel of ours: the fake quant is float), then
+    ``qat_serving_convert`` (54) and the full int8 model served at b256
+    with exactly 54 ``int8_matmul`` launches a forward (one a layer).
+
+    Checks: each int8 layer on the card, given the CPU's input to it,
+    returns the CPU's output bitwise, and the float QAT layer's within
+    1e-5 of its largest value (f32 sums of the same products).  End to
+    end the QAT forward and the int8 chain drift apart: BatchNorm stays
+    float between the 54 unfolded int8 layers, so a product summed in
+    another order moves an activation across a rounding boundary of the
+    next layer's input quantization now and then, and the chain amplifies
+    it (on the CPU at b2: 1.8e-6 of the largest value layer by layer,
+    0.44 times the QAT forward's own quantization error end to end, 7% of
+    the logits within 4 fc steps).  So the int8 logits are held within
+    the QAT model's quantization error (its rms distance to the same
+    weights without fake quant) of the QAT forward, and the share within
+    the int8 ResNet-50 leg's 4 steps is reported.  The share of served
+    int8 weight codes equal to the codes the last training step's bf16
+    fake quant used is reported."""
+    import numpy as np
+
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                           enable_qat, qat_serving_convert)
+    from tlxcv_tpu_torch.tasks import ImageClassification
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "resnet50_qat"
+    gen = torch.Generator().manual_seed(17)
+    task = ImageClassification(create_model("resnet50", device=dev,
+                                            generator=gen))
+    data_bn_statistics(task, torch.randn(8, 224, 224, 3, generator=gen)
+                       .to(dev))
+    flagged = enable_qat(task)
+    calib = [torch.randn(calib_batch, 224, 224, 3, generator=gen)
+             for _ in range(2)]
+    calibrated = calibrate_activations(task, calib)
+    trainer = Trainer(task, optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(17)
+    batches = [trainer._put_batch((
+        rng.normal(size=(train_batch, 224, 224, 3)).astype(np.float32),
+        rng.integers(0, 1000, train_batch))) for _ in range(2)]
+    _, step = timed_train(trainer, batches, {}, name, train_batch)
+    if profile:
+        phase_train_profile(name, trainer, batches[0], step)
+    # one more step, the last: the codes its bf16 fake quant used
+    layers = {n: m for n, m in task.named_modules()
+              if isinstance(m, (Conv2d, Linear))}
+    seen = {n: bf16_fake_quant_codes(trainer.params[n + ".weight"])
+            for n in layers}
+    trainer._train_step(*batches[0])
+    trainer._sync_to_network()
+    del trainer, batches
+    empty_cache(dev)
+
+    x = torch.randn(check_batch, 224, 224, 3, generator=gen)
+    task.eval()
+    with torch.inference_mode():
+        qat = task(x.to(dev)).float().cpu()
+        saved = {n: m._qat for n, m in layers.items()}
+        for m in layers.values():
+            m._qat = False
+        plain = task(x.to(dev)).float().cpu()
+        for n, m in layers.items():
+            m._qat = saved[n]
+    qat_layers = {n: copy.deepcopy(m) for n, m in layers.items()}
+    converted = qat_serving_convert(task)
+    codes_equal = codes_total = 0
+    for n, m in layers.items():
+        served = m._unpacked() if isinstance(m, Conv2d) else \
+            m.weight[:, :m.in_features]
+        codes_equal += int((seen[n] == served.float()).sum())
+        codes_total += served.numel()
+
+    cpu8 = copy.deepcopy(task).cpu()
+    recorded = []
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: recorded.append((mod, args[0], out)))
+        for m in cpu8.modules() if isinstance(m, (Conv2d, Linear))]
+    try:
+        with torch.inference_mode():
+            want8 = cpu8(x)
+    finally:
+        for h in handles:
+            h.remove()
+    names = {id(m): n for n, m in cpu8.named_modules()}
+    card_mods = dict(task.named_modules())
+    n_layers, bitwise, worst_qat = len(recorded), 0, 0.0
+    with torch.inference_mode():
+        for mod, xin, yout in recorded:
+            n = names[id(mod)]
+            got = card_mods[n](xin.to(dev)).cpu()
+            if torch.equal(got, yout):
+                bitwise += 1
+            ref = qat_layers[n].to(dev)(xin.to(dev)).float().cpu()
+            worst_qat = max(worst_qat, ((got.float() - ref).abs().max()
+                                        / ref.abs().max()).item())
+        reset_launches()
+        got8 = task(x.to(dev)).float().cpu()
+        per_forward = int8_matmul.launches
+    del recorded, qat_layers
+    fc = cpu8.backbone.fc
+    fc_step = float(fc.a_scale * 127 * fc.w_scale.max())
+    sigma = _rms_t(qat, plain)
+    diff = (got8 - qat).abs()
+    check = {"flagged": flagged, "calibrated": calibrated,
+             "converted": converted, "layers": n_layers,
+             "layers_bitwise_vs_cpu": bitwise,
+             "worst_layer_rel_vs_qat_float": worst_qat,
+             "rms_int8_vs_qat_forward": _rms_t(got8, qat),
+             "rms_qat_vs_float": sigma,
+             "rms_card_vs_cpu_int8": _rms_t(got8, want8),
+             "max_abs_err_vs_qat": diff.max().item(), "fc_step": fc_step,
+             "share_within_4_steps": (diff <= 4 * fc_step).float().mean()
+             .item(), "served_codes_equal_last_step_share":
+             codes_equal / codes_total,
+             "launches_per_forward": per_forward}
+    emit({"phase": "model_check", "model": name, "batch": check_batch,
+          **check})
+    if (flagged, calibrated, converted) != (54, 54, 54) or \
+            n_layers != 54 or bitwise != 54 or per_forward != 54 or not worst_qat <= 1e-5 \
+            or not check["rms_int8_vs_qat_forward"] <= sigma \
+            or not check["rms_card_vs_cpu_int8"] <= math.sqrt(2) * sigma \
+            or not bool(torch.isfinite(got8).all()):
+        raise AssertionError(f"QAT-served ResNet-50: {check}")
+    del cpu8
+    x = torch.randn(serve_batch, 224, 224, 3, generator=gen).to(
+        dev, torch.bfloat16)
+    counts, step = serve(task, x, {"int8_matmul": 54}, name,
+                         "int8 (bf16 input)")
+    if profile:
+        phase_profile(name, task, x, step_s=step)
+    int8_record["qat_launches"] = counts["int8_matmul"]
+    times = int8_forward_times(task, x, name="int8_matmul_per_qat_forward")
+    int8_record.update({"qat_ms": times["fused_ms"],
+                        "qat_bound_ms": times["fused_bound_ms"],
+                        "qat_library_ms": times["fused_library_ms"]})
+    del task, x
+    empty_cache(dev)
+
+
+def empty_cache(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def training_legs(int8_record, profile):
+    """The training legs, in order: pose (with the checkpoint on its
+    trainer), PFLD, YOLOv3 training, the QAT-served ResNet-50."""
+    trainer, batches = leg_pose(profile)
+    leg_checkpoint(trainer, batches)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    leg_pfld(profile)
+    leg_yolov3_train(profile)
+    leg_resnet50_qat(int8_record, profile)
+
+
 def phase_train_profile(name, trainer, batch, step_s, steps=2):
     """Device time per kernel over a few training steps (torch.profiler),
     and with the timed step's wall time, the share the card idles."""
@@ -3233,6 +3832,14 @@ def main():
         emit({"kernels": records})
         print(card_line(), flush=True)
         return 0
+    if "--training" in sys.argv[1:]:  # the training legs alone
+        emit({"phase": "int8_attention_products",
+              "detr_encoder_pv": int8_products_past_1040()})
+        int8 = {"name": "int8_matmul"}
+        training_legs(int8, profile)
+        emit({"kernels": [int8]})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
     if "--detectors" in sys.argv[1:]:  # DETR-R50, PP-YOLOE-L and SSD alone
         phase_detectors(flash, profile)
@@ -3277,12 +3884,14 @@ def main():
     phase_detectors(flash, profile)
     phase_train_check()
     phase_train(sep, profile)
+    training_legs(int8, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
              "vjp_ms", "vit_launches", "grouped_launches", "grouped_ms",
              "grouped_plain_ms", "grouped_bound_ms", "deit_launches",
-             "detr_launches", "detr_grids")
+             "detr_launches", "detr_grids", "qat_launches", "qat_ms",
+             "qat_bound_ms", "qat_library_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, int8, bf16, gather, upsample, sep,
                                 up2x)]})

@@ -166,14 +166,24 @@ def test_no_plain_fallback_off_the_cpu():
 def test_int8_attention_not_ported():
     """The int8 attention runs (the name is kept from when this test
     checked its refusal; its parity with the reference is in
-    tests/test_torch_int8_attention.py): all-zero inputs give zeros, and a
-    head dim past the exact f32 range raises."""
+    tests/test_torch_int8_attention.py): all-zero inputs give zeros, also
+    at a head dim past the exact f32 range (1041), where the products are
+    summed in int32 over chunks of at most 1040 and equal the plain int32
+    product."""
+    from tlxcv_tpu_torch.nn.attention import (int8_products,
+                                              int8_products_plain)
+
     q = torch.zeros(1, 2, 8, 32)
     out = scaled_dot_product_attention(q, q, q, use_int8=True)
     assert out.shape == q.shape and not out.any()
     big = torch.zeros(1, 1, 4, 1041)
-    with pytest.raises(ValueError, match="1040"):
-        scaled_dot_product_attention(big, big, big, use_int8=True)
+    out = scaled_dot_product_attention(big, big, big, use_int8=True)
+    assert out.shape == big.shape and not out.any()
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (1, 4, 1041), generator=g).to(torch.int8)
+    b = torch.randint(-127, 128, (1, 1041, 4), generator=g).to(torch.int8)
+    assert torch.equal(int8_products(a, b),
+                       int8_products_plain(a, b).float())
 
 
 @pytest.mark.parametrize("with_mask", [False, True])

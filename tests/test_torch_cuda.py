@@ -1165,3 +1165,135 @@ def test_detr_forward_launches_the_kernel_18_times(cuda):
                     torch.testing.assert_close(
                         got[key].cpu(), want[key],
                         atol=1e-3 * want[key].abs().max(), rtol=0)
+
+
+# ----------------------------- pose, landmarks, YOLOv3 targets, QAT, resume
+@pytest.mark.parametrize("sk", [1041, 1050, 4096])
+def test_int8_products_past_1040_keys_on_the_card(cuda, sk):
+    """Past the exact f32 range the P.V product sums int32 partials over
+    chunks of at most 1040 keys: bitwise the CPU's and the plain int32
+    product's, with TF32 on globally."""
+    from tlxcv_tpu_torch.nn.attention import (int8_products,
+                                              int8_products_plain)
+
+    g = torch.Generator().manual_seed(sk)
+    p = torch.randint(0, 128, (2, 3, 50, sk), generator=g, dtype=torch.int8)
+    v = torch.randint(-127, 128, (2, 3, sk, 32), generator=g,
+                      dtype=torch.int8)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = int8_products(p.to(cuda), v.to(cuda)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want = int8_products(p, v)
+    assert torch.equal(got, want)
+    assert torch.equal(want, int8_products_plain(p, v).float())
+
+
+@pytest.mark.parametrize("iou_thresh", [1.0, 0.5])
+def test_yolov3_targets_on_the_card_equal_the_cpus(cuda, iou_thresh):
+    """``gt2yolo_targets`` on the card, bitwise the CPU's, on ground
+    truths built to share slots (pairs on one centre and size, a centre
+    past the image, padding) among random ones: the sequential stamps
+    keep the reference's last-writer order on both devices."""
+    from tlxcv_tpu_torch.models.detection.yolov3 import (DEFAULT_ANCHORS,
+                                                         DEFAULT_MASKS,
+                                                         DOWNSAMPLES,
+                                                         gt2yolo_targets)
+
+    g = torch.Generator().manual_seed(3)
+    boxes = torch.rand(8, 50, 4, generator=g) * 0.5 + 0.05
+    boxes[:, 1] = boxes[:, 0] * 1.01
+    boxes[:, 2] = boxes[:, 0]
+    boxes[:, 3, 0] = 1.02
+    boxes[:, 40:] = 0.0
+    cls = torch.randint(0, 80, (8, 50), generator=g)
+    score = torch.rand(8, 50, generator=g) * (boxes[..., 2] > 0)
+    args = (DEFAULT_ANCHORS, DEFAULT_MASKS, DOWNSAMPLES, (416, 416), 80)
+    want = gt2yolo_targets(boxes, cls, score, *args, iou_thresh=iou_thresh)
+    got = gt2yolo_targets(boxes.to(cuda), cls.to(cuda), score.to(cuda),
+                          *args, iou_thresh=iou_thresh)
+    for w, t in zip(want, got):
+        assert t.device.type == "cuda" and torch.equal(t.cpu(), w)
+
+
+def test_qat_fake_quant_on_the_card_is_quantize_weights(cuda):
+    """On the card the QAT weight fake quant gives codes times scale of
+    ``quantize_weights`` bitwise; after ``qat_serving_convert`` the layer
+    launches the int8 kernel and agrees with its QAT forward."""
+    from tlxcv_tpu_torch.nn.layers import Conv2d, _fake_quant_w
+    from tlxcv_tpu_torch.ops.quant import enable_qat, qat_serving_convert
+
+    gen = torch.Generator().manual_seed(4)
+    conv = Conv2d(64, 128, 3, padding=1, device="cpu", generator=gen)
+    card = copy.deepcopy(conv).to(cuda)
+    fq = _fake_quant_w(card.weight.detach()).cpu()
+    quantize_weights(conv)
+    want = conv._unpacked().float() * conv.w_scale[:, None, None, None]
+    assert torch.equal(fq, want)
+    enable_qat(card)
+    calibrate_activations(card, [torch.randn(2, 16, 16, 64, generator=gen)])
+    x = torch.randn(2, 16, 16, 64, generator=gen).to(cuda)
+    with torch.inference_mode():
+        qat = card(x)
+        assert qat_serving_convert(card) == 1
+        before = int8_matmul.launches
+        got = card(x)
+        assert int8_matmul.launches == before + 1
+    torch.testing.assert_close(got, qat, rtol=0,
+                               atol=1e-5 * qat.abs().max().item())
+
+
+def test_pose_and_pfld_on_the_card_match_the_cpu(cuda):
+    """HRNet-W32 pose at 256x192 and PFLD at 112^2, f32 on the card
+    against the CPU within 1e-3 of the largest output, no kernel of
+    ours."""
+    launches = (flash_attention.launches, int8_matmul.launches)
+    for name, shape in (("pose_hrnet_w32", (1, 256, 192, 3)),
+                        ("pfld", (2, 112, 112, 3))):
+        gen = torch.Generator().manual_seed(6)
+        cpu = create_model(name, device="cpu", generator=gen).eval()
+        x = torch.randn(*shape, generator=gen)
+        card = copy.deepcopy(cpu).to(cuda)
+        with torch.inference_mode():
+            want = cpu(x)
+            got = card(x.to(cuda))
+        want = want if name == "pose_hrnet_w32" else want[0]
+        got = got if name == "pose_hrnet_w32" else got[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-3 * want.abs().max().item())
+    assert (flash_attention.launches, int8_matmul.launches) == launches
+
+
+def test_trainer_checkpoint_on_the_card(cuda, tmp_path):
+    """A Trainer on the card saves its full state and a fresh one restores
+    it: every tensor bitwise and back on the card in its dtype."""
+    from tlxcv_tpu_torch.tasks import FacialLandmarkDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    def trainer(seed):
+        task = FacialLandmarkDetection(create_model(
+            "pfld", device=cuda, generator=torch.Generator().manual_seed(seed)))
+        return Trainer(task, optimizer=optimizers.Adam(1e-3),
+                       compute_dtype=torch.bfloat16, ema_decay=0.9,
+                       device=cuda, seed=seed)
+
+    gen = torch.Generator().manual_seed(7)
+    batch = (torch.randn(4, 112, 112, 3, generator=gen),
+             (torch.rand(4, 136, generator=gen),
+              torch.rand(4, 3, generator=gen)))
+    a = trainer(0)
+    for _ in range(2):
+        a._train_step(*a._put_batch(batch))
+        a.step += 1
+    path = str(tmp_path / "state.npz")
+    a.save_checkpoint(path)
+    b = trainer(1).restore_checkpoint(path)
+    assert b.step == 2
+    for ta, tb in ((a.params, b.params), (a.ema_params, b.ema_params),
+                   (a._opt_state(), b._opt_state()),
+                   (a._buffers(), b._buffers())):
+        for k, v in ta.items():
+            assert tb[k].device == v.device and tb[k].dtype == v.dtype
+            assert torch.equal(tb[k], v), k

@@ -135,9 +135,21 @@ def test_int8_products_are_exact_up_to_the_guard(rng):
     want = TA.int8_products_plain(a, b)
     assert want.dtype == torch.int32
     assert torch.equal(got.to(torch.int32), want)
-    with pytest.raises(ValueError, match="1040"):
-        TA.int8_products(torch.zeros(1, 2, k + 1, dtype=torch.int8),
-                         torch.zeros(1, k + 1, 2, dtype=torch.int8))
+    # past the guard: int32 sums over chunks of at most 1040, equal to the
+    # plain int32 product (cast to f32 once), up to the int32 limit
+    for kk in (k + 1, 2 * k + 7):
+        a2 = torch.from_numpy(rng.integers(-127, 128, (2, 3, kk), np.int8))
+        b2 = torch.from_numpy(rng.integers(-127, 128, (2, kk, 5), np.int8))
+        assert torch.equal(TA.int8_products(a2, b2),
+                           TA.int8_products_plain(a2, b2).float())
+    big = TA.INT8_INT32_K
+    assert big * 127 ** 2 < 2 ** 31 <= (big + 1) * 127 ** 2
+    a2 = torch.full((1, 1, 3 * k), 127, dtype=torch.int8)
+    b2 = torch.full((1, 3 * k, 1), 127, dtype=torch.int8)
+    assert TA.int8_products(a2, b2).item() == float(3 * k * 127 ** 2)
+    with pytest.raises(ValueError, match="overflows"):
+        TA.int8_products(torch.zeros(1, 2, big + 1, dtype=torch.int8),
+                         torch.zeros(1, big + 1, 2, dtype=torch.int8))
     with pytest.raises(TypeError):
         TA.int8_products(a.float(), b)
     with pytest.raises(ValueError):
@@ -150,3 +162,39 @@ def test_int8_attention_refuses_gradients(rng):
         TA.scaled_dot_product_attention(q, q, q, use_int8=True)
     with torch.no_grad():
         TA.scaled_dot_product_attention(q, q, q, use_int8=True)
+
+
+@pytest.mark.parametrize("sk", [1041, 1050, 4096])
+def test_int8_sdpa_past_the_exact_f32_range_matches_jax(rng, sk):
+    """More keys than the f32 product holds exactly (1040): q [1, 2, 4,
+    32], k and v [1, 2, Sk, 32] (1050 is DETR-R50's encoder at 800x1344).
+    The codes of q, k and v are bitwise the reference's; the P.V sums over
+    Sk, given the reference's probability codes, bitwise its int32 sums
+    (cast to f32); the outputs within the tolerance of
+    ``test_int8_sdpa_matches_jax``."""
+    q = rng.normal(size=(1, 2, 4, 32)).astype(np.float32) * 2
+    k, v = (rng.normal(size=(1, 2, sk, 32)).astype(np.float32) * 2
+            for _ in range(2))
+    scale = 32 ** -0.5
+    for t in (q, k, v):
+        jq, js = JA._quant_dyn(jnp.asarray(t))
+        tq, ts = TA._quant_dyn(torch.from_numpy(t))
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    _, pcodes = _jax_probability_codes(q, k, None, scale)
+    vi, _ = JA._quant_dyn(jnp.asarray(v))
+    want_pv = jnp.einsum("...qk,...kd->...qd", jnp.asarray(pcodes), vi,
+                         preferred_element_type=jnp.int32)
+    got_pv = TA.int8_products(torch.from_numpy(pcodes),
+                              torch.from_numpy(np.array(vi)))
+    np.testing.assert_array_equal(
+        got_pv.numpy(), np.asarray(want_pv).astype(np.float32))
+
+    want = np.asarray(JA._int8_sdpa(*map(jnp.asarray, (q, k, v)), None,
+                                    scale))
+    with torch.no_grad():
+        got = TA.scaled_dot_product_attention(
+            *map(torch.from_numpy, (q, k, v)), use_int8=True).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())

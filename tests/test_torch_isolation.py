@@ -46,7 +46,11 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.classification.swin_transformer",
                  "models.classification.mobilenetv1", "ops.anchors",
                  "ops.post_process", "models.detection.ssd",
-                 "models.detection.ppyoloe", "models.detection.detr"):
+                 "models.detection.ppyoloe", "models.detection.detr",
+                 "utils.checkpoint", "models.human_pose_estimation.hrnet",
+                 "models.facial_landmark_detection.pfld",
+                 "tasks.human_pose_estimation",
+                 "tasks.facial_landmark_detection", "ops.quant"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

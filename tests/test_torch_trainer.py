@@ -318,11 +318,13 @@ def test_nan_guard_skips_a_poisoned_batch():
     assert all(bool(torch.isfinite(p).all()) for p in ttr.params.values())
 
 
-def test_train_through_the_loader_on_shapes():
+def test_train_through_the_loader_on_shapes(tmp_path):
     """``train()`` over the port's ``DataLoader`` of ``ShapesDetection``
     with the ground truth padded to 8 slots; the samples are the JAX
-    package's bitwise; the trained weights land in the network; the
-    options that are not ported say so."""
+    package's bitwise; the trained weights land in the network; the train
+    state round-trips through ``save_checkpoint`` into a fresh trainer
+    (the resume itself: tests/test_torch_checkpoint.py); the options that
+    are not ported say so."""
     ds = ShapesDetection(num=4, size=128, max_objects=6, return_masks=True)
     jds = JShapes(num=4, size=128, max_objects=6, return_masks=True)
     img, tgt = ds[3]
@@ -348,8 +350,14 @@ def test_train_through_the_loader_on_shapes():
                {"remat": True}, {"metrics": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(tt, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        trainer.save_checkpoint("unused")
+    path = str(tmp_path / "state.npz")
+    trainer.save_checkpoint(path)
+    fresh = Model(network=tt, loss_fn=tt.loss_fn, optimizer=TO.Adam(1e-4),
+                  device="cpu").restore_checkpoint(path)
+    assert fresh.step == 1
+    for k, p in trainer.params.items():
+        assert torch.equal(fresh.params[k], p), k
+    assert torch.equal(fresh.optimizer.count, trainer.optimizer.count)
     with pytest.raises(NotImplementedError):
         trainer.train(1, loader, progress=True)
 
@@ -377,10 +385,10 @@ def test_evaluate_predict_and_save_weights_use_the_eval_params(tmp_path):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     np.testing.assert_allclose(result["loss"], float(ref.loss_fn(
         want, torch.from_numpy(y))), rtol=1e-6)
-    path = tmp_path / "weights.pt"
+    path = tmp_path / "weights.npz"
     ttr.save_weights(str(path))
-    saved = torch.load(path)
+    saved = np.load(path)
     for k, e in ttr.ema_params.items():
-        assert torch.equal(saved[k], e), k
+        assert np.array_equal(saved[k], e.numpy()), k
     assert not torch.equal(ttr.ema_params["backbone.fc.weight"],
                            ttr.params["backbone.fc.weight"])

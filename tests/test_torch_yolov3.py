@@ -232,7 +232,9 @@ def test_iou_aware_branch_matches_jax(rng):
 
 def test_create_model_yolov3():
     """The registry builds the bench's YOLOv3 (80 classes) with the JAX
-    attribute paths; the training loss waits for its slice."""
+    attribute paths; its training loss runs (its parity with the JAX
+    package is in tests/test_torch_yolov3_train.py): with no ground truth
+    only the objectness term is left, finite and positive."""
     m = create_model("yolov3", device="cpu", use_matrix_nms=True)
     assert isinstance(m, YOLOv3) and m.use_matrix_nms
     assert [c.weight.shape[0] for c in m.yolo_head.yolo_outputs] == \
@@ -240,16 +242,20 @@ def test_create_model_yolov3():
     assert sum(isinstance(mod, T.Conv2d) for mod in m.modules()) == 75
     assert "backbone.stages.4.blocks.3.conv2.bn.running_var" in \
         m.state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.loss_fn({}, {})
+    outs = [torch.zeros(1, s, s, 255) for s in (2, 4, 8)]
+    loss = m.loss_fn({"head_outs": outs, "input_hw": HW},
+                     {"boxes": torch.zeros(1, 3, 4),
+                      "class_labels": torch.zeros(1, 3, dtype=torch.int64)})
+    assert loss.ndim == 0 and 0 < loss.item() < float("inf")
 
 
 def test_training_only_options_are_refused():
-    """``gt_iou_thresh`` steers only the training loss's target assignment,
-    which is not ported: the serving model refuses it rather than ignore
-    it."""
-    with pytest.raises(TypeError, match="gt_iou_thresh"):
-        create_model("yolov3", device="cpu", gt_iou_thresh=0.7)
+    """``gt_iou_thresh`` (the name is kept from when the serving model
+    refused it) steers the training loss's target assignment and is
+    accepted with it; the model keeps it for ``loss_fn``."""
+    m = create_model("yolov3", device="cpu", gt_iou_thresh=0.7)
+    assert m.gt_iou_thresh == 0.7
+    assert create_model("yolov3", device="cpu").gt_iou_thresh == 1.0
 
 
 # ------------------------------------------------------------------ int8

@@ -45,6 +45,8 @@ def _populate():
     _POPULATED = True
     from .models import classification as C
     from .models import detection as D
+    from .models import facial_landmark_detection as F
+    from .models import human_pose_estimation as P
     from .models import segmentation as S
 
     for mod in (C, S):
@@ -54,6 +56,8 @@ def _populate():
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)
     _MODEL_REGISTRY.setdefault("ssd", D.SSD)
     _MODEL_REGISTRY.setdefault("detr", D.detr_resnet50)
+    _MODEL_REGISTRY.setdefault("pose_hrnet_w32", P.pose_hrnet_w32)
+    _MODEL_REGISTRY.setdefault("pfld", F.PFLD)
     for arch in ("ppyoloe_s", "ppyoloe_m", "ppyoloe_l", "ppyoloe_x"):
         _MODEL_REGISTRY.setdefault(
             arch, functools.partial(D.ppyoloe, arch))

@@ -25,13 +25,15 @@ from .layers import Dropout, Linear
 
 __all__ = ["scaled_dot_product_attention", "MultiHeadAttention", "Attention",
            "use_int8_attention", "int8_products", "int8_products_plain",
-           "INT8_EXACT_K"]
+           "INT8_EXACT_K", "INT8_INT32_K"]
 
 _INT8_DEFAULT = False
 
 # An int8 x int8 product summed over K stays an integer below 2**24, so
 # exact in f32 whatever the order of the sums, while K * 127**2 < 2**24.
 INT8_EXACT_K = (2 ** 24 - 1) // 127 ** 2  # 1040
+# ... and an int32 sum of them holds while K * 127**2 < 2**31.
+INT8_INT32_K = (2 ** 31 - 1) // 127 ** 2  # 133,144
 
 
 def use_int8_attention(enabled: bool = True):
@@ -49,16 +51,23 @@ def int8_products_plain(a, b):
 
 
 def int8_products(a, b):
-    """[..., M, K] int8 @ [..., K, N] int8 -> the exact int32 sums, held in
-    f32: the f32 product of the codes, exact for K <= ``INT8_EXACT_K``
-    (every partial sum is an integer below 2**24).  On the card TF32 is
-    turned off for the call, whatever the caller set, so that exactness
-    rests on IEEE f32 alone (TF32 keeps 11 significant bits of each
-    operand, which holds an int8 code, and gave the same sums on an H100;
-    but that is the tensor cores' behaviour, not a contract).  A longer K
-    raises rather than round.  (PyTorch has no batched int8 product on
-    CUDA, and ``torch._int_mm`` takes 2-D operands with N a multiple of 8,
-    which S = 197 is not.)"""
+    """[..., M, K] int8 @ [..., K, N] int8 -> the int32 sums, cast to f32
+    once, as the reference's ``preferred_element_type=jnp.int32`` einsums
+    followed by ``.astype(jnp.float32)``.
+
+    Each product is the f32 product of the codes, exact for K <=
+    ``INT8_EXACT_K`` (every partial sum is an integer below 2**24).  A
+    longer K is cut into chunks of at most ``INT8_EXACT_K``; each chunk's
+    exact f32 product becomes int32, the partials are summed in int32, and
+    the total is cast to f32 once (which rounds above 2**24, as the
+    reference's cast does).  int32 holds K * 127**2 only up to K =
+    ``INT8_INT32_K``: a longer K raises.  On the card TF32 is turned off
+    for the call, whatever the caller set, so that exactness rests on
+    IEEE f32 alone (TF32 keeps 11 significant bits of each operand, which
+    holds an int8 code, and gave the same sums on an H100; but that is the
+    tensor cores' behaviour, not a contract).  (PyTorch has no batched
+    int8 product on CUDA, and ``torch._int_mm`` takes 2-D operands with N
+    a multiple of 8, which S = 197 is not.)"""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_products needs int8 operands, got "
                         f"{a.dtype}/{b.dtype}")
@@ -66,12 +75,19 @@ def int8_products(a, b):
     if b.shape[-2] != k:
         raise ValueError(f"inner dims mismatch: {tuple(a.shape)} and "
                          f"{tuple(b.shape)}")
-    if k > INT8_EXACT_K:
-        raise ValueError(f"K = {k} > {INT8_EXACT_K}: the f32 product of "
-                         f"int8 codes is exact only up to K = "
-                         f"{INT8_EXACT_K}")
+    if k > INT8_INT32_K:
+        raise ValueError(f"K = {k} > {INT8_INT32_K}: an int32 sum of K "
+                         f"int8 products overflows past K = {INT8_INT32_K}")
     with full_f32():
-        return torch.matmul(a.float(), b.float())
+        if k <= INT8_EXACT_K:
+            return torch.matmul(a.float(), b.float())
+        total = None
+        for k0 in range(0, k, INT8_EXACT_K):
+            part = torch.matmul(a[..., k0:k0 + INT8_EXACT_K].float(),
+                                b[..., k0:k0 + INT8_EXACT_K, :].float())
+            part = part.to(torch.int32)
+            total = part if total is None else total.add_(part)
+        return total.float()
 
 
 def _quant_dyn(t, eps=1e-6):

@@ -16,8 +16,12 @@ ReLU, requantize): on the card one launch of the hand-written kernel,
 ``ops.cuda.matmul.int8_matmul_requant``, which writes no int32 sums; on the
 CPU its plain version, the int32 product, then ``requantize``.  Without
 ``a_scale``, the weight is dequantized and the layer runs in float.  A
-grouped conv (``groups`` > 1) runs one such product per group.  The QAT
-branches belong to the training slice.
+grouped conv (``groups`` > 1) runs one such product per group.
+
+Quantization-aware training (``ops.quant.enable_qat``): a flagged float
+Conv2d or Linear fake-quantizes its weight per output channel with the
+scale and clip of ``ops.quant.quantize_weights``, and, once calibrated,
+its input with its ``a_scale``, each with a straight-through estimator.
 """
 from __future__ import annotations
 
@@ -192,8 +196,56 @@ def _serving_only(x):
                            "torch.no_grad() or torch.inference_mode()")
 
 
+def true_div(x, divisor: float):
+    """``x / divisor`` correctly rounded on every device: the card divides
+    by a Python number as a multiply by its rounded reciprocal, which can
+    land an ulp off the CPU's quotient; a tensor divisor is divided."""
+    return x / x.new_full((), divisor)
+
+
 def _int8_weight(w_int8):
     return nn.Parameter(w_int8, requires_grad=False)
+
+
+# ------------------------------------------------------------------- QAT
+def _fake_quant_w(w):
+    """Per-output-channel symmetric int8 fake quant with a straight-through
+    estimator, ``f + (q - f).detach()``.  The scale is bitwise the one
+    ``ops.quant.quantize_weights`` computes (``max|w| / 127`` over every
+    axis but the first, the output channel of OIHW and (out, in), at least
+    1e-12) and the codes are its codes, so the forward sees the weight the
+    int8 serving path will load; the gradient reaches the float master
+    unchanged.  The arithmetic is f32, the result in ``w``'s dtype (under
+    a bf16 compute policy: the fake quant of the bf16 cast of the
+    masters, as in the reference)."""
+    f = w.float()
+    s = torch.clamp_min(true_div(f.abs().amax(dim=tuple(range(1, f.ndim)),
+                                              keepdim=True), 127.0), 1e-12)
+    q = torch.round(f / s).clamp(-127, 127) * s
+    return (f + (q - f).detach()).to(w.dtype)
+
+
+def _fake_quant_a(x, s_in):
+    """Static activation fake quant with the calibrated scalar scale,
+    straight-through on x: the serving path's input quantization.  The
+    scale is a buffer, so it takes no gradient and no update, and stays
+    f32 under a bf16 compute policy (the reference's Trainer casts its
+    ``a_scale`` parameter to bf16): the scale the int8 layer will serve
+    with."""
+    f = x.float()
+    q = torch.round(f / s_in).clamp(-127, 127) * s_in
+    return (f + (q - f).detach()).to(x.dtype)
+
+
+def _qat_wx(mod, w, x):
+    """QAT fake quant of (weight, input) per the module's ``enable_qat``
+    flags."""
+    if getattr(mod, "_qat", False):
+        w = _fake_quant_w(w)
+        a_scale = getattr(mod, "a_scale", None)
+        if getattr(mod, "_qat_act", False) and a_scale is not None:
+            x = _fake_quant_a(x, a_scale)
+    return w, x
 
 
 class Conv2d(nn.Module):
@@ -242,6 +294,7 @@ class Conv2d(nn.Module):
         w = self.weight
         if w.dtype == torch.int8:
             return self._int8_call(x, w)
+        w, x = _qat_wx(self, w, x)
         y = self._conv(x, w.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
@@ -402,6 +455,7 @@ class Linear(nn.Module):
         w = self.weight
         if w.dtype == torch.int8:
             return self._int8_call(x, w)
+        w, x = _qat_wx(self, w, x)
         y = F.linear(x, w.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

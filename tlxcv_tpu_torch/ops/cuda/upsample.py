@@ -99,9 +99,12 @@ def resize_taps(n_out, n_in, mode, device):
         i0 = np.clip(np.floor(src).astype(int), 0, n_in - 1)
         i1 = np.minimum(i0 + 1, n_in - 1)
     a1 = np.where(i1 != i0, a[rows, i1], 0.0).astype(np.float32)
-    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                 for t in (i0.astype(np.int64), i1.astype(np.int64),
-                           a[rows, i0], a1))
+    # made outside inference mode: a first call under inference_mode would
+    # cache inference tensors, which a later training forward cannot save
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                     for t in (i0.astype(np.int64), i1.astype(np.int64),
+                               a[rows, i0], a1))
 
 
 def apply_taps(x, axis, taps):
@@ -146,8 +149,10 @@ def sep_taps(n_out, n_in, mode, transposed, device):
     pad_src[rows, slot] = cols
     pad_w[rows, slot] = a[rows, cols]
 
-    def dev(arr, dtype):
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
+    def dev(arr, dtype):  # outside inference mode, as resize_taps
+        with torch.inference_mode(False):
+            return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(
+                device)
 
     return SepTaps(dev(ptr, np.int32), dev(cols, np.int32),
                    dev(a[rows, cols], np.float32), dev(pad_src, np.int64),

@@ -12,14 +12,17 @@ half of ``tlxcv_tpu/ops/quant.py``).
   rewrites, each verified numerically on the example inputs and rolled
   back when the check fails.
 - :func:`quantize_for_serving`: the four in order.
+- :func:`enable_qat`, :func:`disable_qat` and :func:`qat_serving_convert`:
+  quantization-aware training (the layers' fake quant is in
+  ``nn/layers.py``) and its conversion to the int8 serving path, bitwise
+  on the weights the fine-tune saw in f32.
 
 Scale formulas are the reference's, in f32.  The verification forwards run
 with TF32 off (the reference verifies at ``"highest"`` matmul precision):
 cuDNN convolutions would otherwise round f32 operands to TF32, and that
 noise, compounded over a 53-conv net, trips the tolerances.  Run the
 pipeline on the CPU in f32, as the reference's ``bench.py`` does, then
-move the model to the card.  The QAT functions belong to the training
-slice.
+move the model to the card.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from ..device import full_f32
 from ..nn import layers as L
 
 __all__ = ["quantize_weights", "calibrate_activations", "dequantize_check",
-           "fold_batchnorm", "fuse_requantize", "quantize_for_serving"]
+           "fold_batchnorm", "fuse_requantize", "quantize_for_serving",
+           "enable_qat", "disable_qat", "qat_serving_convert"]
 
 
 def _quantizable(mod) -> bool:
@@ -72,8 +76,9 @@ def _max_abs(t) -> float:
 @torch.no_grad()
 def quantize_weights(model, include: tp.Optional[tp.Callable] = None):
     """In place: convert Conv2d/Linear weights to int8 codes + a per-out
-    channel scale, ``max|w| / 127`` (at least 1e-12), codes rounded half
-    to even and clipped to [-127, 127].  ``include(path, mod) -> bool``
+    channel scale, ``max|w| / 127`` (at least 1e-12; a true division on
+    either device), codes rounded half to even and clipped to [-127,
+    127].  ``include(path, mod) -> bool``
     filters layers (``path`` is torch's dotted module name; default all).
     Returns the number of layers quantized."""
     count = 0
@@ -84,7 +89,7 @@ def quantize_weights(model, include: tp.Optional[tp.Callable] = None):
             continue
         w = mod.weight.detach().float()
         bcast = (-1,) + (1,) * (w.ndim - 1)  # OIHW / (out, in): out first
-        s = w.abs().amax(dim=tuple(range(1, w.ndim))) / 127.0
+        s = L.true_div(w.abs().amax(dim=tuple(range(1, w.ndim))), 127.0)
         s = torch.clamp_min(s, 1e-12)
         q = torch.round(w / s.reshape(bcast)).clamp(-127, 127).to(torch.int8)
         mod.load_int8(q, s)
@@ -99,8 +104,13 @@ def calibrate_activations(model, batches, percentile: float = 100.0,
     the per-batch maxima, / 127) so that later calls take the full-int8
     path.  The pass itself runs every layer weight-only.  Call AFTER
     :func:`quantize_weights`.  ``forward`` overrides the calibration
-    callable.  Returns the number of int8 layers."""
-    layers = [mod for mod in model.modules() if _int8_layer(mod)]
+    callable.  Float layers flagged by :func:`enable_qat` are calibrated
+    too: their ``a_scale`` feeds the activation fake quant in training and
+    carries over as it is to serving (:func:`qat_serving_convert`); their
+    pass runs the weight fake quant alone.  Returns the number of layers
+    calibrated."""
+    layers = [mod for mod in model.modules()
+              if _int8_layer(mod) or getattr(mod, "_qat", False)]
     records = {id(mod): [] for mod in layers}
     stashed = {}
     for mod in layers:  # the calibration forward runs weight-only
@@ -132,6 +142,73 @@ def calibrate_activations(model, batches, percentile: float = 100.0,
         L.set_quant_attr(mod, "a_scale",
                          np.float32(max(amax, 1e-12) / 127.0))
     return len(layers)
+
+
+def enable_qat(model, act: bool = True,
+               include: tp.Optional[tp.Callable] = None) -> int:
+    """Turn on quantization-aware training in place: every float Conv2d
+    and Linear fake-quantizes its weight on the forward (per output
+    channel, straight-through), with :func:`quantize_weights`'s scale and
+    clip, so that the loss sees the weights the int8 serving path will
+    load.  ``act=True`` also fake-quantizes each layer's input with its
+    static scale once :func:`calibrate_activations` has attached
+    ``a_scale``::
+
+        enable_qat(model)                    # flags, weight fake quant
+        calibrate_activations(model, cal)    # a_scale, QAT layers too
+        ... fine-tune (train.Trainer) ...
+        qat_serving_convert(model)           # int8 serving
+
+    ``include(path, mod) -> bool`` filters layers (default all); int8
+    layers are serving artefacts and are skipped.  Returns the number of
+    layers flagged."""
+    count = 0
+    for path, mod in model.named_modules():
+        if not _quantizable(mod):
+            continue
+        if include is not None and not include(path, mod):
+            continue
+        mod._qat = True
+        mod._qat_act = act
+        count += 1
+    return count
+
+
+def disable_qat(model, keep_scales: bool = True) -> int:
+    """Clear the QAT flags in place; the calibrated ``a_scale`` stays
+    unless ``keep_scales`` is False.  Returns the number of layers that
+    were flagged."""
+    count = 0
+    for mod in model.modules():
+        if getattr(mod, "_qat", False):
+            count += 1
+        for attr in ("_qat", "_qat_act"):
+            if hasattr(mod, attr):
+                delattr(mod, attr)
+        if not keep_scales and getattr(mod, "a_scale", None) is not None:
+            del mod.a_scale
+    return count
+
+
+def qat_serving_convert(model,
+                        include: tp.Optional[tp.Callable] = None) -> int:
+    """Convert a QAT fine-tuned model in place to the int8 serving path:
+    each layer's weight quantizes with the scale formula its fake quant
+    used, so the served codes are the ones training saw in f32, and the
+    calibrated ``a_scale`` carries over as it is (measuring it again would
+    break what the fine-tune fitted).  By default only the QAT-flagged
+    layers convert, so a layer ``enable_qat(include=...)`` left float stays
+    float; ``include`` overrides that, and a model with no flag converts
+    every float layer.  The Trainer writes its trained parameters into the
+    network at the end of ``train()``; convert after that.  Returns the
+    number of layers quantized."""
+    if include is None:
+        flagged = {id(m) for m in model.modules()
+                   if getattr(m, "_qat", False)}
+        if flagged:
+            include = lambda path, mod: id(mod) in flagged  # noqa: E731
+    disable_qat(model, keep_scales=True)
+    return quantize_weights(model, include=include)
 
 
 _TRACED = (nn.Conv2d, nn.Linear, nn.BatchNorm, nn.MaxPool2d)

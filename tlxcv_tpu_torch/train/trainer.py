@@ -31,10 +31,17 @@ its forward.
   only by an applied update; ``ema_for_eval`` routes ``evaluate``,
   ``predict`` and ``save_weights`` through it.
 
+- ``save_checkpoint`` / ``restore_checkpoint``: the full train state
+  (``utils.checkpoint.TrainCheckpoint``): the masters, the network's
+  buffers, the optimizer's state with its shared count of applied updates,
+  the EMA, the step, and the loop's own state (the torch generators' states,
+  ``nan_skips``, the ``grad_accum`` accumulators), so that a resumed run
+  draws the same numbers as the uninterrupted one.  ``save_weights``
+  writes the evaluation parameters through ``utils.checkpoint``.
+
 Not ported yet (each raises ``NotImplementedError``): ``metrics`` (ROADMAP
 queue 1, item 14), ``mesh`` and ``param_sharding="fsdp"`` (item 15),
-``remat``, ``progress=True``, ``save_checkpoint`` and
-``restore_checkpoint`` (item 5).
+``remat`` and ``progress=True`` (item 5).
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from torch.func import functional_call
 
 from ..data.loader import device_prefetch
 from ..device import resolve_device
+from ..utils import checkpoint
 from . import optimizers
 
 __all__ = ["Trainer", "Model"]
@@ -310,14 +318,96 @@ class Trainer:
             p.copy_(self.eval_params[k])
 
     def save_weights(self, path: str):
+        """The evaluation parameters, with the network's buffers, as a
+        flat npz (``utils.checkpoint.save_weights``)."""
         self._sync_to_network()
-        torch.save(self.network.state_dict(), path)
+        checkpoint.save_weights(self.network, path)
+
+    # full train state -------------------------------------------------
+    def _buffers(self):
+        persistent = self.network.state_dict().keys()
+        return {k: b for k, b in self.network.named_buffers()
+                if k in persistent}
+
+    def _opt_state(self):
+        """The optimizer's tensors keyed by parameter position and name;
+        the count shared by every parameter's state appears under each."""
+        return {f"{i}/{name}": t
+                for i, p in enumerate(self.params.values())
+                for name, t in self.optimizer.state[p].items()
+                if isinstance(t, torch.Tensor)}
+
+    def _generators(self):
+        """The generators the network's layers hold (Dropout, DropPath),
+        each once, keyed by the first module path that holds it."""
+        out, seen = {}, set()
+        for path, mod in self.network.named_modules():
+            g = getattr(mod, "generator", None)
+            if isinstance(g, torch.Generator) and id(g) not in seen:
+                seen.add(id(g))
+                out[path] = g
+        return out
+
+    def _loop_state(self):
+        """The loop's own state: without the generators' states a resumed
+        run's dropout draws restart from the seed and diverge from the
+        uninterrupted run at the first step."""
+        state = {"nan_skips": torch.tensor(self.nan_skips),
+                 "cpu_rng": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+        for path, g in self._generators().items():
+            state[f"generator/{path}"] = g.get_state()
+        if self.grad_accum > 1:
+            state["mini"] = self._mini
+            state.update((f"acc/{i}", a) for i, a in enumerate(self._acc))
+        return state
+
+    def _ckpt_extra(self):
+        extra = {"trainer": self._loop_state()}
+        if self.ema_params is not None:
+            extra["ema"] = self.ema_params
+        return extra
 
     def save_checkpoint(self, path: str):
-        raise _not_ported("save_checkpoint", 5)
+        """The full train state as npz at ``path``."""
+        checkpoint.TrainCheckpoint.save(
+            path, {k: p.detach() for k, p in self.params.items()},
+            self._buffers(), self._opt_state(), self.step,
+            extra=self._ckpt_extra())
 
+    @torch.no_grad()
     def restore_checkpoint(self, path: str):
-        raise _not_ported("restore_checkpoint", 5)
+        """Restore a train state saved by ``save_checkpoint`` into this
+        trainer (the same network and optimizer): every tensor is copied
+        into the live one, so it keeps that tensor's device and dtype."""
+        params, buffers, opt, step, extra = \
+            checkpoint.TrainCheckpoint.restore(
+                path, self.params, self._buffers(), self._opt_state(),
+                extra=self._ckpt_extra())
+
+        def put(live, new):
+            for k, t in live.items():
+                t.copy_(new[k].to(t.dtype))
+
+        put(self.params, params)
+        put(self._buffers(), buffers)
+        put(self._opt_state(), opt)
+        if self.ema_params is not None:
+            put(self.ema_params, extra["ema"])
+        loop = extra["trainer"]
+        self.step = step
+        self.nan_skips = int(loop["nan_skips"])
+        torch.set_rng_state(loop["cpu_rng"])
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(loop["cuda_rng"], self.device)
+        for path_, g in self._generators().items():
+            g.set_state(loop[f"generator/{path_}"])
+        if self.grad_accum > 1:
+            self._mini.copy_(loop["mini"])
+            for i, a in enumerate(self._acc):
+                a.copy_(loop[f"acc/{i}"])
+        return self
 
 
 Model = Trainer  # the reference's spelling

@@ -3,7 +3,19 @@
 use them."""
 from __future__ import annotations
 
-__all__ = ["Metric"]
+import numpy as np
+import torch
+
+__all__ = ["Metric", "as_numpy"]
+
+
+def as_numpy(x):
+    """A metric's input on the host: a tensor detached, in f32 for a
+    floating one, or anything ``np.asarray`` takes."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.is_floating_point() else x).cpu().numpy()
+    return np.asarray(x)
 
 
 class Metric:
