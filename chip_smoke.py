@@ -38,13 +38,20 @@
                                       # --profile, its device time and idle
                                       # share (copy this file into another
                                       # tree's root to compare the two)
-    python3 chip_smoke.py --training  # only the training legs: HRNet-W32
-                                      # pose and PFLD (checked, served,
-                                      # trained), a train-state checkpoint
-                                      # resumed, YOLOv3 training and the
-                                      # QAT-served ResNet-50, and the int8
-                                      # attention's P.V product past 1040
-                                      # keys; no contract line
+    python3 chip_smoke.py --training  # only the training legs: the flash
+                                      # backward's checks and times, ViT-B/16,
+                                      # DETR-R50, PP-YOLOE-L and SSD
+                                      # trained, HRNet-W32 pose and PFLD
+                                      # (checked, served, trained), a
+                                      # train-state checkpoint resumed,
+                                      # YOLOv3 training and the QAT-served
+                                      # ResNet-50, and the int8 attention's
+                                      # P.V product past 1040 keys; no
+                                      # contract line
+    python3 chip_smoke.py --train-attention  # only the flash backward's
+                                      # checks and times and the ViT-B/16,
+                                      # DETR-R50, PP-YOLOE-L and SSD
+                                      # training legs; no contract line
     python3 chip_smoke.py --resize    # only the three resize kernels: the
                                       # upsample-add, the transposed resize
                                       # and the 2x upsample's forward and
@@ -68,8 +75,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    int8
    GEMM's fused epilogue bitwise for every output kind, with and without
    bias, N from 1 to 1000, Kp from 16 to 4608, ties), with the
-   tolerance and its reason; a backward through the card's attention must
-   raise NotImplementedError; then the kernel's, the plain version's and
+   tolerance and its reason; then the kernel's, the plain version's and
    the library call's times beside the bound (flash attention and the
    bf16 GEMM: device time from CUDA-graph replays, and CUDA events around
    each call beside it, flash attention also at DETR's three grids beside
@@ -189,6 +195,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     served in full int8 at b256, 54 ``int8_matmul`` launches a forward,
     each int8 layer bitwise the CPU's.  The int8 attention's P.V product
     at DETR-R50's encoder grid (1050 keys) is checked with phase 11.
+
+14. (right after phase 2) flash_backward: the flash-attention backward
+    kernel (``csrc/flash_attention_bwd.cu``) against its plain version at
+    ViT-B/16's b64 grid and DETR-R50's three training b4 grids, bf16 and
+    f32, with and without a bias (one with a row masked at every key), in
+    f32 also against SDPA's gradients; two runs bitwise; timed beside the
+    plain version, SDPA's backward and the bound, and the forward with and
+    without the log-sum-exp it writes for the backward.  (run after phase
+    10) attention training legs: ViT-B/16 b64 224^2 (12 flash forward and
+    12 backward launches a step), DETR-R50 b4 at 800x1344 with its
+    Hungarian loss (18 and 18; the match's host time a step), PP-YOLOE-L
+    b16 640^2 with both assigners and SSD-MobileNetV1 b32 300^2 (none of
+    ours), each with gradients against the CPU (``train_check``), a loss
+    falling on one batch and ``Trainer.train`` timed, bf16 over f32
+    masters.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -410,7 +431,6 @@ def phase_kernels():
                                  f"max |err| {err} > {tol[dtype]} or "
                                  f"{launched} launches")
     emit({"phase": "kernels", "flash_attention": results})
-    emit({"phase": "kernels", "flash_backward_raises": backward_raises()})
 
     # ms and library_ms: device time from CUDA-graph replays; event_ms and
     # library_event_ms: CUDA events around each call, which also count the
@@ -455,24 +475,6 @@ def phase_kernels():
                 for name, t in timings["detr"].items()}}
 
 
-def backward_raises():
-    """A backward through the card's attention raises NotImplementedError
-    (there is no backward kernel yet) instead of handing back zeros."""
-    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
-
-    q, k, v = (t.requires_grad_() for t in
-               qkv(24, 197, 64, torch.bfloat16, seed=9, heads=12))
-    out = flash_attention(q, k, v)
-    if out.grad_fn is None:
-        raise AssertionError("the card's attention output has no grad_fn")
-    try:
-        out.float().sum().backward()
-    except NotImplementedError:
-        return True
-    raise AssertionError("a backward through the card's attention did not "
-                         "raise")
-
-
 def phase_kernel_profile():
     """torch.profiler over 20 calls of each redesigned kernel and of its
     library counterpart at the served shapes: device time per call by
@@ -504,6 +506,185 @@ def phase_kernel_profile():
                     fn()
                 torch.cuda.synchronize()
         emit_profile(prof, name, 20, None)
+
+
+# ------------------------------------------------- flash attention backward
+DETR_TRAIN_BATCH = 4  # DETR's published batch per GPU (64 images, 16 cards)
+BACKWARD_GRIDS = [("vit_b16_b64_packed", 64, 12, 197, 197, 64)] + [
+    (name, DETR_TRAIN_BATCH, DETR_HEADS, sq, sk, 32)
+    for name, sq, sk in DETR_GRIDS]
+
+
+def attention_backward_bound_ms(bh, sq, sk, d, dtype):
+    """Least time of one backward without bias: q, o and dO read and dq
+    written over Sq rows, k and v read and dk and dv written over Sk rows
+    (eight tensors), the rows' log-sum-exp read, each once, against the
+    card's memory rate; the five products (S, dP, dV, dK and dQ:
+    10*Sq*Sk*D*BH operations) against its peak rate for the dtype.
+    Returns (ms, what bounds it)."""
+    elt = torch.finfo(dtype).bits // 8
+    by_bytes = (4 * bh * (sq + sk) * d * elt + 4 * bh * sq) / HBM_BYTES_PER_S
+    by_ops = 10 * sq * sk * d * bh / PEAK_OPS_PER_S[dtype]
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _rel_card(got, want):
+    """max |got - want| over max |want|, both on the card."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def backward_inputs(grid, dtype, seed):
+    """q, k, v of one backward grid as the layers hand them over: ViT's
+    [B, H, S, D] views into its packed qkv projection, DETR's views into
+    its separate q, k and v projections."""
+    name, b, h, sq, sk, d = grid
+    if name.startswith("vit"):
+        return qkv(b * h, sq, d, dtype, seed, heads=h)
+    return detr_qkv(sq, sk, dtype, seed, batch=b, heads=h, d=d)
+
+
+def phase_flash_backward():
+    """The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+    on the card, at ViT-B/16's b64 grid and DETR-R50's three training b4
+    grids, in bf16 and f32, without a bias, with a per-head bias and with
+    a bias that masks one query row at every key (the forward averages v
+    there):
+
+    - dq, dk and dv through ``autograd.grad`` against
+      ``flash_attention_backward_plain`` on the kernel's own output and
+      log-sum-exp, within 2e-2 (bf16) and 1e-4 (f32) of each gradient's
+      largest magnitude: the forward's bounds, for the same reasons (f32
+      sums in another order; in bf16 the gradients are rounded to bf16
+      once, and the tensor-core products take dS rounded to bf16 where
+      the plain version keeps it in f32);
+    - in f32, without the masked row, against ``autograd.grad`` through
+      ``F.scaled_dot_product_attention`` (a second witness, 1e-4);
+    - the log-sum-exp the forward writes against the plain one's (1e-4,
+      rows that are not masked entirely), two backward runs bitwise
+      equal, one backward launch a call;
+    - its time alone (``ms``: CUDA-graph replays; ``event_ms``: events
+      around each call) beside the plain version's, SDPA's backward (one
+      ``autograd.grad`` through SDPA's graph; events, ``library_ms``), and
+      the bound; the forward timed with and without writing the
+      log-sum-exp (``train_forward_ms``, ``serve_forward_ms``).
+
+    Returns the kernel's record (the ViT grid in bf16 as its main case)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for gi, grid in enumerate(BACKWARD_GRIDS):
+            for bias_kind in (None, "per_bh", "row_masked"):
+                name, b, h, sq, sk, d = grid
+                seed = 300 + 10 * gi + len(results)
+                q, k, v = backward_inputs(grid, dtype, seed)
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                bias = None
+                if bias_kind is not None:
+                    bias = torch.randn(b * h, sq, sk, generator=g,
+                                       device="cuda")
+                    if bias_kind == "row_masked":
+                        bias[:, 0] = float("-inf")
+                        bias[:, 1:, ::3] = float("-inf")
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                before = A.flash_attention_backward.launches
+                out = A.flash_attention(*leaves, bias=bias)
+                dout = torch.randn(out.shape, generator=g,
+                                   device="cuda").to(dtype)
+                got = torch.autograd.grad(out, leaves, dout)
+                again = torch.autograd.grad(A.flash_attention(*leaves,
+                                                              bias=bias),
+                                            leaves, dout)
+                torch.cuda.synchronize()
+                launched = A.flash_attention_backward.launches - before
+                _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5,
+                                          with_lse=True)
+                want = A.flash_attention_backward_plain(
+                    q, k, v, bias, None, out.detach(), lse, dout)
+                _, plain_lse = A.flash_attention_plain(q, k, v, bias,
+                                                       return_lse=True)
+                rows = plain_lse > A.NEG
+                lse_err = (lse - plain_lse)[rows].abs().max().item()
+                errs = [_rel_card(a, w) for a, w in zip(got, want)]
+                abs_err = max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got, want))
+                witness = None
+                if dtype == torch.float32 and bias_kind != "row_masked":
+                    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+                    mask = None if bias is None else bias.view(b, h, sq, sk)
+                    sdpa = torch.nn.functional.scaled_dot_product_attention(
+                        *ref, attn_mask=mask)
+                    witness = [_rel_card(a, w) for a, w in zip(
+                        got, torch.autograd.grad(sdpa, ref, dout))]
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+                results.append({
+                    "case": name, "dtype": str(dtype)[6:],
+                    "shape": [b * h, sq, sk, d], "bias": bias_kind,
+                    "rel_err_dq_dk_dv": errs, "max_abs_err": abs_err,
+                    "bound": tol[dtype], "sdpa_rel_err_dq_dk_dv": witness,
+                    "lse_max_abs_err": lse_err, "bitwise_repeat": bitwise,
+                    "finite": finite, "launches": launched})
+                if (not finite or not bitwise or launched != 2
+                        or max(errs) > tol[dtype] or lse_err > 1e-4
+                        or witness is not None and max(witness) > 1e-4):
+                    emit({"phase": "flash_backward", "failed": results[-1]})
+                    raise AssertionError(f"flash backward {name} {dtype} "
+                                         f"{bias_kind}: {results[-1]}")
+                del q, k, v, leaves, out, got, again, want, bias
+    emit({"phase": "flash_backward", "checks": results})
+
+    def times(grid, dtype):
+        name, b, h, sq, sk, d = grid
+        q, k, v = backward_inputs(grid, dtype, seed=11)
+        scale = d ** -0.5
+        out, lse = A._launch_kernel(q, k, v, None, scale, with_lse=True)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+        out_v, dout_v = out.transpose(1, 2), dout.transpose(1, 2)
+
+        def kernel():
+            return A.flash_attention_backward(q, k, v, None, scale, out,
+                                              lse, dout)
+
+        ref = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(*ref)
+        bound, bound_by = attention_backward_bound_ms(b * h, sq, sk, d,
+                                                      dtype)
+        return {"shape": [b * h, sq, sk, d], "ms": graph_ms(kernel),
+                "event_ms": time_ms(kernel),
+                "plain_ms": time_ms(lambda: A.flash_attention_backward_plain(
+                    q, k, v, None, None, out_v, lse, dout_v)),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    sdpa, ref, dout_v, retain_graph=True)),
+                "bound_ms": bound, "bound_by": bound_by,
+                "serve_forward_ms": graph_ms(lambda: A._launch_kernel(
+                    q, k, v, None, scale)),
+                "train_forward_ms": graph_ms(lambda: A._launch_kernel(
+                    q, k, v, None, scale, with_lse=True))}
+
+    timings = {dt: {grid[0]: times(grid, dtype) for grid in BACKWARD_GRIDS}
+               for dt, dtype in (("bfloat16", torch.bfloat16),
+                                 ("float32", torch.float32))}
+    emit({"phase": "kernel_times", "flash_attention_backward": timings})
+    main = next(r for r in results if r["case"] == "vit_b16_b64_packed"
+                and r["dtype"] == "bfloat16" and r["bias"] is None)
+    vit = timings["bfloat16"]["vit_b16_b64_packed"]
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "tlxcv_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "tlxcv_tpu/ops/pallas/attention.py:39",
+            "max_abs_err": main["max_abs_err"],
+            **{k: vit[k] for k in ("ms", "event_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")},
+            "detr_grids": {
+                name: {key: t[key] for key in
+                       ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")}
+                for name, t in timings["bfloat16"].items()
+                if name.startswith("detr")}}
 
 
 def phase_model(record):
@@ -965,7 +1146,8 @@ def phase_probe(record):
 
 def _counted():
     """Every kernel wrapper that counts its launches, by kernel name."""
-    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention
+    from tlxcv_tpu_torch.ops.cuda.attention import (flash_attention,
+                                                    flash_attention_backward)
     from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
     from tlxcv_tpu_torch.ops.cuda.matmul import bf16_matmul, int8_matmul
     from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
@@ -973,7 +1155,9 @@ def _counted():
                                                    upsample2x_vjp,
                                                    upsample_add_fused)
 
-    return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
+    return {"flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
+            "int8_matmul": int8_matmul,
             "bf16_matmul": bf16_matmul,
             "gather_rows": gather_rows,
             "upsample_add_fused": upsample_add_fused,
@@ -1972,7 +2156,11 @@ RESNET_PROBES = ("conv1.weight", "layer4.layers.2.conv3.weight", "fc.weight")
 # parameter must get a non-zero gradient, and the probes that are not
 # swamped (the FPN's lateral and output convs, the mask head, the
 # classifier: cosines above 0.99 measured) must point within cosine 0.95
-# of float64; the others are reported.
+# of float64; the others are reported.  A detector's loss divided by the
+# sum of its targets' scores (PP-YOLOE's varifocal loss: the IoUs of the
+# predicted boxes) moves further in bf16: there the bound is twice the CPU's
+# own bf16 model's distance from its f32 loss where that is the larger
+# (PP-YOLOE-L b2 256^2: 8.1% on the CPU, 10.6% on an H100).
 TRAIN_BOUND = {"float32": (1e-3, 1e-3), "bfloat16": (0.1, None)}
 BF16_COSINE_PROBES = ("fpn.lateral.0.weight", "fpn.output.0.weight",
                       "mask_head.convs.0.weight", "backbone.fc.weight")
@@ -2261,10 +2449,23 @@ def _card_grads(task, x, y, dtype, loss_fn):
     return loss.item(), dict(zip(trainer.params, grads))
 
 
-def train_check(name, build, x, y, loss_fn, probes):
+def _cpu_bf16_loss(model, x, y, loss_fn):
+    """The loss of ``model`` (built on the CPU) under the Trainer's bf16
+    policy: parameters and inputs in bf16, outputs cast to f32."""
+    from tlxcv_tpu_torch.train.trainer import _cast_floats
+
+    model = model.to(torch.bfloat16).train()
+    with torch.no_grad():
+        out = model(torch.from_numpy(x).to(torch.bfloat16))
+        return loss_fn(model, _cast_floats(out, torch.float32), y).item()
+
+
+def train_check(name, build, x, y, loss_fn, probes, bf16_cpu_loss=False):
     """The card's loss and gradients in f32 and bf16 against the CPU's in
     f32 and float64, from one initial state (``build()`` makes the model on
-    the CPU from a seed)."""
+    the CPU from a seed).  With ``bf16_cpu_loss`` the bf16 loss bound is
+    the larger of ``TRAIN_BOUND``'s and twice the CPU's own bf16 model's
+    distance from its f32 loss."""
     init = build().state_dict()
     t0 = time.perf_counter()
     ref = {}
@@ -2272,6 +2473,13 @@ def train_check(name, build, x, y, loss_fn, probes):
         model = build()
         model.load_state_dict(init)
         ref[dtype] = _cpu_grads(model, x, y, dtype, loss_fn)
+    cpu_bf16_err = None
+    if bf16_cpu_loss:
+        model = build()
+        model.load_state_dict(init)
+        cpu_bf16_err = abs(_cpu_bf16_loss(model, x, y, loss_fn)
+                           - ref[torch.float32][0]) / abs(
+            ref[torch.float32][0])
     cpu_s = time.perf_counter() - t0
     (loss32, g32), (_, g64) = ref[torch.float32], ref[torch.float64]
     cpu_err = {k: _rel_err(g32[k], g64[k]) for k in probes}
@@ -2281,6 +2489,8 @@ def train_check(name, build, x, y, loss_fn, probes):
         loss, got = _card_grads(card.cuda(), x, y, dtype, loss_fn)
         dname = str(dtype)[6:]
         loss_bound, grad_bound = TRAIN_BOUND[dname]
+        if dtype == torch.bfloat16 and cpu_bf16_err is not None:
+            loss_bound = max(loss_bound, 2 * cpu_bf16_err)
         err64 = {k: _rel_err(got[k], g64[k]) for k in probes}
         bound = {k: max(4 * cpu_err[k], grad_bound) for k in probes} \
             if grad_bound is not None else None
@@ -2290,6 +2500,7 @@ def train_check(name, build, x, y, loss_fn, probes):
         check = {"phase": "train_check", "model": name, "batch": x.shape[0],
                  "dtype": dname, "cpu_loss": loss32, "loss": loss,
                  "loss_rel_err": loss_err, "loss_bound": loss_bound,
+                 "cpu_bf16_loss_rel_err": cpu_bf16_err,
                  "grad_err_vs_cpu_f64": err64,
                  "cpu_f32_err_vs_cpu_f64": cpu_err,
                  "grad_err_vs_cpu_f32": {k: _rel_err(got[k], g32[k])
@@ -3677,6 +3888,277 @@ def leg_resnet50_qat(int8_record, profile, dev="cuda", train_batch=64,
     empty_cache(dev)
 
 
+# ----------------------------- training through attention; the detectors'
+# losses
+def detr_targets(batch, seed, hw):
+    """``ShapesDetection`` images (square, the canvas's height) in the
+    top-left corner of a zero ``hw`` canvas, ground truth padded to 10 a
+    image: boxes in the normalised cxcywh of the canvas, labels and the
+    mask, as ``DetrLoss`` takes them."""
+    import numpy as np
+
+    from tlxcv_tpu_torch.data import ShapesDetection, pad_targets
+
+    h, w = hw
+    ds = ShapesDetection(num=batch, size=h, max_objects=6, seed=seed)
+    x, t = pad_targets(10)([ds[i] for i in range(batch)])
+    canvas = np.zeros((batch, h, w, 3), np.float32)
+    canvas[:, :, :h] = x
+    b = t["boxes"]
+    boxes = np.stack([(b[..., 0] + b[..., 2]) / 2 / w,
+                      (b[..., 1] + b[..., 3]) / 2 / h,
+                      (b[..., 2] - b[..., 0]) / w,
+                      (b[..., 3] - b[..., 1]) / h], -1)
+    mask = t["mask"].astype(np.float32)
+    return canvas, {"boxes": (boxes * mask[..., None]).astype(np.float32),
+                    "class_labels": t["class_labels"], "mask": mask}
+
+
+def shapes_targets(batch, seed, size, normalise):
+    """``ShapesDetection`` at ``size``, ground truth padded to 10 a image:
+    xyxy boxes in pixels (PP-YOLOE) or over the image's size (SSD), labels
+    and the mask."""
+    from tlxcv_tpu_torch.data import ShapesDetection, pad_targets
+
+    ds = ShapesDetection(num=batch, size=size, max_objects=6, seed=seed)
+    x, t = pad_targets(10)([ds[i] for i in range(batch)])
+    if normalise:
+        t["boxes"] = t["boxes"] / size
+    t["mask"] = t["mask"].astype("float32")
+    return x, t
+
+
+def from_data_statistics(build, x):
+    """``build`` with BatchNorm (and frozen BatchNorm) statistics taken
+    once from ``x`` (``data_bn_statistics``), as a maker of identical
+    models for ``train_check``."""
+    state = build()
+    data_bn_statistics(state, torch.from_numpy(x))
+    state = state.state_dict()
+
+    def built():
+        model = build()
+        model.load_state_dict(state)
+        return model
+    return built
+
+
+def attention_train(name, trainer, batches, per_step, batch, profile):
+    """The loss falling on one fixed batch, then ``Trainer.train`` timed
+    with the launch counts checked (``timed_train``); the profile of a
+    step with ``profile``."""
+    falling_loss(trainer, batches[0], name)
+    counts, step = timed_train(trainer, batches, per_step, name + "_train",
+                               batch)
+    if profile:
+        phase_train_profile(name, trainer, batches[0], step)
+    return counts, step
+
+
+def leg_vit_train(record, profile, dev="cuda", train_batch=64):
+    """ViT-B/16 training (``create_model("vit_base_patch16_224")``, random
+    weights from a seed): gradients at b2 against the CPU
+    (``train_check``; the card's attention forward and backward are the
+    kernels, in f32 and bf16), the loss falling on one batch, then
+    ``Trainer.train`` at b64 224^2, bf16 over f32 masters, Adam: 12 flash
+    forward and 12 backward launches a step."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import ImageClassification
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "vit_base_patch16_224"
+
+    def build(seed=31):
+        return ImageClassification(create_model(
+            name, device="cpu", generator=torch.Generator().manual_seed(seed)))
+
+    gen = torch.Generator().manual_seed(32)
+    xg = torch.randn(2, 224, 224, 3, generator=gen).numpy()
+    yg = torch.randint(0, 1000, (2,), generator=gen).numpy()
+
+    def ce(task, o, t):
+        return task.loss_fn(o, torch.as_tensor(t, device=o.device))
+
+    train_check(name, build, xg, yg, ce,
+                ["backbone.patch_embed.proj.weight",
+                 "backbone.blocks.0.attn.qkv.weight",
+                 "backbone.blocks.11.attn.proj.weight",
+                 "backbone.head.weight"])
+    trainer = Trainer(build(33).to(dev), optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [(torch.randn(train_batch, 224, 224, 3, generator=gen).to(dev),
+                torch.randint(0, 1000, (train_batch,), generator=gen).to(dev))
+               for _ in range(2)]
+    counts, _ = attention_train(name, trainer, batches,
+                                {"flash_attention": 12,
+                                 "flash_attention_backward": 12},
+                                train_batch, profile)
+    record["launches"] = counts["flash_attention_backward"]
+    del trainer, batches
+    empty_cache(dev)
+
+
+def leg_detr_train(record, profile, dev="cuda", check_hw=(256, 384)):
+    """DETR-R50 training (``create_model("detr")``: 91 classes, 100
+    queries, width 256 over 8 heads, 6 + 6 layers, frozen BatchNorms, aux
+    loss, the callback matcher), random weights from a seed, the frozen
+    statistics from the checked images: gradients at b2 on a 256 x 384
+    canvas (8 x 12 = 96 encoder tokens) against the CPU, with dropout 0
+    there (the card's and the CPU's dropout draws differ); the loss
+    falling on one batch and ``Trainer.train`` at b4 (DETR's published
+    batch per GPU) on ``ShapesDetection`` images padded into the served
+    800 x 1344 canvas (1050 encoder tokens), dropout 0.1, bf16 over f32
+    masters, Adam(1e-4): 18 flash forward and 18 backward launches a step,
+    and the Hungarian match's host round trip timed per step."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.ops.hungarian import hungarian_callback
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "detr_resnet50"
+
+    def build(seed=41, dropout=0.0):
+        return ObjectDetection(create_model(
+            "detr", device="cpu", dropout=dropout, matcher="callback",
+            generator=torch.Generator().manual_seed(seed)))
+
+    xg, yg = detr_targets(2, 1, check_hw)
+
+    def detr_loss(task, o, t):
+        return task.loss_fn(o, _to(o[0]["logits"].device, t))
+
+    train_check(name, from_data_statistics(build, xg), xg, yg, detr_loss,
+                ["backbone.backbone.conv1.weight",
+                 "backbone.input_proj.weight",
+                 "backbone.encoder.0.attn.q.weight",
+                 "backbone.decoder.5.cross_attn.k.weight",
+                 "backbone.class_head.weight"])
+    x, y = detr_targets(2 * DETR_TRAIN_BATCH, 2, DETR_HW)
+    task = build(42, dropout=0.1)
+    data_bn_statistics(task, torch.from_numpy(x[:2]))
+    trainer = Trainer(task.to(dev), optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    n = DETR_TRAIN_BATCH
+    batches = [trainer._put_batch((x[i:i + n], {k: v[i:i + n]
+                                                for k, v in y.items()}))
+               for i in (0, n)]
+    host0 = hungarian_callback.host_seconds
+    counts, step = attention_train(name, trainer, batches,
+                                   {"flash_attention": 18,
+                                    "flash_attention_backward": 18},
+                                   n, profile)
+    steps = 20 + 13  # falling_loss, then timed_train's warm-up and steps
+    emit({"phase": "train", "model": name + "_hungarian",
+          "host_ms_per_step": 1e3 * (hungarian_callback.host_seconds
+                                     - host0) / steps,
+          "step_ms": 1e3 * step, "matches_per_step": 6 * n})
+    record["detr_launches"] = counts["flash_attention_backward"]
+    del trainer, batches, task
+    empty_cache(dev)
+
+
+def leg_ppyoloe_train(profile, dev="cuda", train_batch=16, size=640,
+                      check_size=256):
+    """PP-YOLOE-L training (``create_model("ppyoloe_l")``, 80 classes),
+    random weights from a seed, BatchNorm in train mode everywhere:
+    gradients at b2 256^2 against the CPU with the prediction convs drawn
+    from N(0, 0.02^2) (at init they are zero and pass no gradient back);
+    the loss falling on one batch, then ``Trainer.train`` at b16 640^2 on
+    ``ShapesDetection`` with the ATSS assigner (before
+    ``static_assigner_epoch``) and again with the task-aligned one (the
+    switch moved to epoch 0), no kernel of ours."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "ppyoloe_l"
+
+    def build(seed=51, heads=True):
+        model = create_model(name, device="cpu",
+                             generator=torch.Generator().manual_seed(seed))
+        if heads:
+            redraw([*model.yolo_head.pred_cls, *model.yolo_head.pred_reg],
+                   0.02, torch.Generator().manual_seed(seed + 1))
+        return ObjectDetection(model)
+
+    xg, yg = shapes_targets(2, 3, check_size, normalise=False)
+
+    def loss(task, o, t):
+        return task.loss_fn(o, _to(o["head_outs"][0].device, t))
+
+    train_check(name, build, xg, yg, loss,
+                ["backbone.backbone.stem.layers.0.conv.weight",
+                 "backbone.neck.fpn_stages.0.layers.0.convs.0.conv1.conv"
+                 ".weight",
+                 "backbone.yolo_head.stem_cls.2.conv.conv.weight",
+                 "backbone.yolo_head.pred_reg.2.weight"],
+                bf16_cpu_loss=True)
+    task = build(53, heads=False)
+    trainer = Trainer(task.to(dev), optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(shapes_targets(train_batch, s, size,
+                                                 normalise=False))
+               for s in (4, 5)]
+    head = task.backbone.yolo_head
+    emit({"phase": "train", "model": name, "assigner": "atss",
+          "static_assigner_epoch": head.static_assigner_epoch})
+    attention_train(name, trainer, batches, {}, train_batch, profile)
+    head.static_assigner_epoch = 0  # epoch 0 onward: task-aligned
+    emit({"phase": "train", "model": name, "assigner": "task_aligned",
+          "static_assigner_epoch": 0})
+    timed_train(trainer, batches, {}, name + "_task_aligned_train",
+                train_batch)
+    del trainer, batches, task
+    empty_cache(dev)
+
+
+def leg_ssd_train(profile, dev="cuda", train_batch=32):
+    """SSD-MobileNetV1 training (``create_model("ssd")``, 80 classes,
+    300^2, 1917 priors), random weights from a seed: gradients at b2
+    against the CPU, the loss falling on one batch, ``Trainer.train`` at
+    b32 on ``ShapesDetection`` (prior matching, hard-negative mining by a
+    stable sort), no kernel of ours."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "ssd"
+
+    def build(seed=61):
+        return ObjectDetection(create_model(
+            name, device="cpu", image_size=(300, 300),
+            generator=torch.Generator().manual_seed(seed)))
+
+    xg, yg = shapes_targets(2, 6, 300, normalise=True)
+
+    def loss(task, o, t):
+        return task.loss_fn(o, _to(o["scores"].device, t))
+
+    train_check(name, build, xg, yg, loss,
+                ["backbone.backbone.net.stem.conv.weight",
+                 "backbone.backbone.net.blocks.10.pw.conv.weight",
+                 "backbone.ssd_head.score_convs.0.weight",
+                 "backbone.ssd_head.box_convs.0.weight"],
+                bf16_cpu_loss=True)
+    trainer = Trainer(build(62).to(dev), optimizer=optimizers.Adam(1e-3),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(shapes_targets(train_batch, s, 300,
+                                                 normalise=True))
+               for s in (7, 8)]
+    attention_train(name, trainer, batches, {}, train_batch, profile)
+    del trainer, batches
+    empty_cache(dev)
+
+
+def attention_training_legs(bwd_record, profile):
+    """The training legs of this slice, in order: ViT-B/16 and DETR-R50
+    (the flash forward and backward kernels), PP-YOLOE-L and SSD."""
+    leg_vit_train(bwd_record, profile)
+    leg_detr_train(bwd_record, profile)
+    leg_ppyoloe_train(profile)
+    leg_ssd_train(profile)
+
+
 def empty_cache(dev):
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
@@ -3832,15 +4314,24 @@ def main():
         emit({"kernels": records})
         print(card_line(), flush=True)
         return 0
+    if "--train-attention" in sys.argv[1:]:  # this slice's legs alone
+        bwd = phase_flash_backward()
+        attention_training_legs(bwd, profile)
+        emit({"kernels": [bwd]})
+        print(card_line(), flush=True)
+        return 0
     if "--training" in sys.argv[1:]:  # the training legs alone
         emit({"phase": "int8_attention_products",
               "detr_encoder_pv": int8_products_past_1040()})
+        bwd = phase_flash_backward()
+        attention_training_legs(bwd, profile)
         int8 = {"name": "int8_matmul"}
         training_legs(int8, profile)
-        emit({"kernels": [int8]})
+        emit({"kernels": [bwd, int8]})
         print(card_line(), flush=True)
         return 0
     flash = phase_kernels()
+    bwd = phase_flash_backward()
     if "--detectors" in sys.argv[1:]:  # DETR-R50, PP-YOLOE-L and SSD alone
         phase_detectors(flash, profile)
         emit({"kernels": [{key: flash[key] for key in
@@ -3884,6 +4375,7 @@ def main():
     phase_detectors(flash, profile)
     phase_train_check()
     phase_train(sep, profile)
+    attention_training_legs(bwd, profile)
     training_legs(int8, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3893,8 +4385,8 @@ def main():
              "detr_launches", "detr_grids", "qat_launches", "qat_ms",
              "qat_bound_ms", "qat_library_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
-                      for r in (flash, int8, bf16, gather, upsample, sep,
-                                up2x)]})
+                      for r in (flash, bwd, int8, bf16, gather, upsample,
+                                sep, up2x)]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

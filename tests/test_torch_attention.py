@@ -203,28 +203,43 @@ def test_mha_matches_jax(rng, with_mask):
 
 
 def test_card_call_is_a_function_whose_backward_raises(monkeypatch, rng):
-    """The card's call is an autograd node: its output has a ``grad_fn``
-    and a backward through it raises instead of handing back zeros.  Here
-    the kernel launch is the plain version, so the Function runs on the
-    CPU; its forward is the plain result."""
+    """The card's call is an autograd node: its output has a ``grad_fn``,
+    and its backward is the backward kernel's route (it raised before the
+    kernel existed, rather than hand back zeros).  Here both launches are
+    the plain versions, so the Function runs on the CPU: its forward is
+    the plain result, and the gradients reaching the packed qkv are those
+    of autograd through the plain forward; without grad it saves
+    nothing."""
     import tlxcv_tpu_torch.ops.cuda.attention as A
 
-    def plain_launch(q, k, v, bias, scale):
-        out = flash_attention_plain(q, k, v, bias, scale)
-        return out if q.ndim == 3 else out.transpose(1, 2).contiguous()
+    def plain_launch(q, k, v, bias, scale, with_lse=False):
+        out, lse = flash_attention_plain(q, k, v, bias, scale,
+                                         return_lse=True)
+        out = out if q.ndim == 3 else out.transpose(1, 2).contiguous()
+        return out, lse if with_lse else None
+
+    def plain_backward(q, k, v, bias, scale, out, lse, grad):
+        o = out if q.ndim == 3 else out.transpose(1, 2)
+        g = grad if q.ndim == 3 else grad.transpose(1, 2)
+        return A.flash_attention_backward_plain(q, k, v, bias, scale, o,
+                                                lse, g)
 
     monkeypatch.setattr(A, "_launch_kernel", plain_launch)
+    monkeypatch.setattr(A, "flash_attention_backward", plain_backward)
     b, h, s, d = 2, 3, 20, 32
     packed = torch.from_numpy(
         rng.normal(size=(b, s, 3, h, d)).astype(np.float32))
     packed.requires_grad_()
     q, k, v = packed.permute(2, 0, 3, 1, 4)
-    out = A._FlashAttention.apply(q, k, v, None, d ** -0.5)
+    out = A._FlashAttention.apply(q, k, v, None, d ** -0.5, True)
     assert out.grad_fn is not None and out.shape == (b, s, h, d)
     want = flash_attention_plain(q, k, v).transpose(1, 2)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        out.sum().backward()
-    assert packed.grad is None
-    with torch.no_grad():  # no graph, nothing to raise
-        assert A._FlashAttention.apply(q, k, v, None, 0.5).grad_fn is None
+    g = torch.from_numpy(rng.normal(size=out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, packed, g)[0]
+    ref = torch.autograd.grad(want, packed, g)[0]
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    with torch.no_grad():  # no graph, nothing saved
+        assert A._FlashAttention.apply(q, k, v, None, 0.5,
+                                       False).grad_fn is None

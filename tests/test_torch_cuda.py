@@ -142,20 +142,80 @@ def test_fully_masked_row_averages_v(cuda, dtype, d):
     torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
 
 
-def test_backward_through_the_card_raises(cuda):
+def test_backward_through_the_card_matches_the_cpu(cuda):
     """A loss that needs the patch embedding's gradient, through a micro
     ViT's attention on the card (head dim 32, the kernel's smallest): the
-    backward raises NotImplementedError (no backward kernel yet) instead
-    of handing back zero gradients."""
-    model = create_model("vit_base_patch16_224", img_size=32, patch_size=8,
-                         embed_dim=128, depth=2, num_heads=4, qkv_bias=True,
-                         num_classes=10,
-                         generator=torch.Generator().manual_seed(0))
-    x = torch.randn(2, 32, 32, 3, device=cuda)
-    loss = torch.logsumexp(model(x), -1).mean()
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+    backward runs the flash backward kernel (two launches for the two
+    blocks) and every gradient matches the same model's on the CPU within
+    1e-4 of its largest magnitude (f32, TF32 off; other summation
+    orders)."""
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention_backward
+
+    def build(device):
+        return create_model("vit_base_patch16_224", img_size=32,
+                            patch_size=8, embed_dim=128, depth=2,
+                            num_heads=4, qkv_bias=True, num_classes=10,
+                            device=device,
+                            generator=torch.Generator().manual_seed(0))
+
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in ("cpu", cuda):
+        model = build(dev)
+        loss = torch.logsumexp(model(x.to(dev)), -1).mean()
+        before = flash_attention_backward.launches
         loss.backward()
-    assert model.patch_embed.proj.weight.grad is None
+        if dev == cuda:
+            assert flash_attention_backward.launches - before == 2
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for k, want in grads[0].items():
+        torch.testing.assert_close(grads[1][k], want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+_BWD_CASES = [  # (bh or (B, H), Sq, Sk, D, bias)
+    (8, 197, 197, 64, None), (8, 65, 130, 32, "per_bh"),
+    (4, 100, 1050, 32, None), (4, 129, 63, 96, "shared"),
+    (4, 77, 77, 128, "row_masked"), ((2, 3), 33, 40, 64, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,bias_kind", _BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, dtype, bh, sq, sk, d,
+                                       bias_kind):
+    """dq, dk and dv from the backward kernel against
+    ``flash_attention_backward_plain`` on the kernel's output and
+    log-sum-exp, within the forward's bounds of each gradient's largest
+    magnitude, and bitwise equal over two runs (no atomics)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    lead = bh if isinstance(bh, tuple) else (bh,)
+    q = torch.randn(*lead, sq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(*lead, sk, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    n = q.shape[:-2].numel()
+    bias = None
+    if bias_kind is not None:
+        bias = torch.randn(n if bias_kind != "shared" else 1, sq, sk,
+                           generator=gen, device=cuda)
+        if bias_kind == "row_masked":
+            bias[:, 0] = float("-inf")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = A.flash_attention(*leaves, bias=bias)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    again = torch.autograd.grad(A.flash_attention(*leaves, bias=bias),
+                                leaves, dout)
+    _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
+    want = A.flash_attention_backward_plain(q, k, v, bias, None,
+                                            out.detach(), lse, dout)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(
+            a.float(), w.float(), rtol=0,
+            atol=_TOL[dtype] * float(w.float().abs().max()))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -582,7 +642,8 @@ def test_mask_rcnn_forward_launches_both_kernels(cuda):
 
 # ------------------------------------------------------------- gradients
 def test_card_kernels_carry_gradients(cuda):
-    """Through the upsample-add and the row gather on the card, a tensor
+    """Through the upsample-add, the row gather and flash attention on the
+    card, a tensor
     that requires grad gets a ``grad_fn``, and its gradient equals the one
     the plain versions give on the CPU: bitwise for the upsample-add (the
     transposed resize kernel takes the plain version's taps in its order),
@@ -618,6 +679,23 @@ def test_card_kernels_carry_gradients(cuda):
         out.backward(gy.to(dev))
         grads.append(t.grad.cpu())
     torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=0)
+    # flash attention: q, k and v (DETR's cross-attention shape, a bias)
+    # through the forward and backward kernels, against autograd through
+    # the plain version on the CPU, within 1e-4 of the largest magnitude
+    q = torch.randn(2, 4, 100, 32, generator=g)
+    k, v = (torch.randn(2, 4, 150, 32, generator=g) for _ in range(2))
+    bias = torch.randn(8, 100, 150, generator=g)
+    gy = torch.randn(2, 4, 100, 32, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*xs, bias=bias.to(dev))
+        assert out.grad_fn is not None
+        out.backward(gy.to(dev))
+        grads.append([t.grad.cpu() for t in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=0,
+                                   atol=1e-4 * float(a.abs().max()))
 
 
 _SEP_CASES = [  # (g shape, input hw of the forward, mode)

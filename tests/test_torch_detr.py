@@ -205,8 +205,15 @@ def test_attention_reads_strided_head_views(pair, monkeypatch):
 
 
 def test_loss_fn_raises_until_training_is_ported(pair):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        pair[1].loss_fn({}, {})
+    """Training is ported: ``loss_fn`` (DetrLoss, tests/test_torch_detr_
+    train.py) takes the eval output and returns a finite loss."""
+    _, tm, x, _ = pair
+    boxes = torch.tensor([[[0.5, 0.5, 0.2, 0.3]], [[0.3, 0.6, 0.1, 0.2]]])
+    with torch.no_grad():
+        loss = tm.loss_fn(tm(x), {"boxes": boxes,
+                                  "class_labels": torch.tensor([[1], [4]]),
+                                  "mask": torch.ones(2, 1)})
+    assert loss.ndim == 0 and torch.isfinite(loss)
 
 
 def test_registry_builds_detr_r50():

@@ -50,7 +50,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "utils.checkpoint", "models.human_pose_estimation.hrnet",
                  "models.facial_landmark_detection.pfld",
                  "tasks.human_pose_estimation",
-                 "tasks.facial_landmark_detection", "ops.quant"):
+                 "tasks.facial_landmark_detection", "ops.quant",
+                 "ops.hungarian", "train.bn_recal", "data.transforms"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -363,6 +363,20 @@ def test_ppyoloe_predict_is_its_stages(ppyoloe_pair):
 
 @pytest.mark.parametrize("which", ["ssd_pair", "ppyoloe_pair"])
 def test_losses_raise_until_training_is_ported(request, which):
-    tm = request.getfixturevalue(which)[1]
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tm.loss_fn({}, {})
+    """Training is ported (tests/test_torch_ppyoloe_ssd_train.py): each
+    ``loss_fn`` takes its model's training outputs, built here from the
+    eval-mode head so the fixtures' statistics stay, and returns a finite
+    loss."""
+    _, tm, x = request.getfixturevalue(which)[:3]
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        if which == "ssd_pair":
+            boxes, scores, priors = tm.head_outputs(x)
+            out = {"boxes": boxes, "scores": scores, "priors": priors}
+            gt = [[0.2, 0.2, 0.6, 0.7]]
+        else:
+            out = {"head_outs": tm.head_outputs(x), "epoch_id": 0}
+            gt = [[8.0, 10.0, 40.0, 50.0]]
+        loss = tm.loss_fn(out, {"boxes": torch.tensor([gt, gt]),
+                                "class_labels": torch.tensor([[1], [2]])})
+    assert loss.ndim == 0 and torch.isfinite(loss)

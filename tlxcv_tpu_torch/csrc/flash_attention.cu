@@ -58,7 +58,10 @@
 // Both paths: online softmax per row, rescaled per k/v tile and normalised
 // once at the end (equal in exact arithmetic to the TPU kernel's per-step
 // rescale); columns past Sk get probability exactly 0, so a row whose every
-// real key is masked averages v over its Sk keys and stays finite.
+// real key is masked averages v over its Sk keys and stays finite.  When
+// the caller passes an lse pointer (a training forward) each row's
+// log-sum-exp m + log(l) is written there for flash_attention_bwd.cu;
+// serving passes null and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +76,7 @@ using namespace tlx;
 
 constexpr float kNeg = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBlockQ = 64;  // f32 path
 constexpr int kBlockK = 64;
 
@@ -91,8 +95,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int Sq, int Sk, int H, Strides st,
-              long long bias_bh_stride, float scale) {
+              float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
+              int H, Strides st, long long bias_bh_stride, float scale) {
   constexpr int LD = D + 1;         // padded rows: column reads hit 32 banks
   constexpr int PLD = kBlockK + 1;
   constexpr int NJ = kBlockK / 4;   // keys per thread in a tile
@@ -188,6 +192,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd)
       o[oo + qrow * st.o[2] + sub + 4 * dd] = acc[dd] * inv;
+    if (lse != nullptr && sub == 0)
+      lse[static_cast<long long>(bh) * Sq + qrow] = m + logf(l);
   }
 }
 
@@ -199,9 +205,10 @@ constexpr size_t smem_f32() {
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* bias, void* o, int bh, int sq, int sk,
-                       int heads, const Strides& st, long long bias_bh_stride,
-                       float scale, cudaStream_t stream) {
+                       const float* bias, void* o, float* lse, int bh, int sq,
+                       int sk, int heads, const Strides& st,
+                       long long bias_bh_stride, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_f32<D>();
   static cudaError_t err = cudaFuncSetAttribute(  // once per process
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -209,8 +216,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid(bh, (sq + kBlockQ - 1) / kBlockQ);
   flash_fwd_f32<D><<<grid, kThreadsF32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), sq, sk,
-      heads, st, bias_bh_stride, scale);
+      static_cast<const float*>(v), bias, static_cast<float*>(o), lse, sq,
+      sk, heads, st, bias_bh_stride, scale);
   return cudaGetLastError();
 }
 
@@ -272,7 +279,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-               int Sq, int Sk, int H, long long o_b, long long o_h,
+               float* __restrict__ lse, int Sq, int Sk, int H, long long o_b,
+               long long o_h,
                long long o_row,
                long long bias_bh_stride, float scale, int swaps) {
   using L = Layout<D>;
@@ -453,6 +461,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    // natural units: m is in log2 units without a bias, natural with one
+    const float mu = kBias ? 1.f : kLn2;
+    float* lr = lse + static_cast<long long>(bh) * Sq;
+    if (row0 < Sq) lr[row0] = m0 * mu + log2f(l0) * kLn2;
+    if (row1 < Sq) lr[row1] = m1 * mu + log2f(l1) * kLn2;
+  }
   __nv_bfloat16* ob = o + b * o_b + h * o_h;
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
@@ -496,9 +511,10 @@ bool make_view_map(CUtensorMap* map, const void* base, const long long* st,
 
 template <int D, bool kBias>
 cudaError_t launch_bf16_kind(const CUtensorMap* maps, const float* bias,
-                             void* o, int bh, int sq, int sk, int heads,
-                             const Strides& st, long long bias_bh_stride,
-                             float scale, int swaps, cudaStream_t stream) {
+                             void* o, float* lse, int bh, int sq, int sk,
+                             int heads, const Strides& st,
+                             long long bias_bh_stride, float scale, int swaps,
+                             cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kSmem;
   static cudaError_t err = cudaFuncSetAttribute(  // once per process
       flash_fwd_bf16<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -509,15 +525,15 @@ cudaError_t launch_bf16_kind(const CUtensorMap* maps, const float* bias,
   if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
   flash_fwd_bf16<D, kBias><<<static_cast<unsigned>(blocks), kThreadsBf16,
                              smem, stream>>>(
-      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), sq,
-      sk, heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(o), lse,
+      sq, sk, heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const float* bias, void* o, int batch, int heads,
-                        int sq, int sk, const Strides& st,
+                        const float* bias, void* o, float* lse, int batch,
+                        int heads, int sq, int sk, const Strides& st,
                         long long bias_bh_stride, float scale,
                         cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -533,9 +549,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   }
   const int bh = batch * heads;
   if (bias != nullptr)
-    return launch_bf16_kind<D, true>(maps, bias, o, bh, sq, sk, heads, st,
-                                     bias_bh_stride, scale, swaps, stream);
-  return launch_bf16_kind<D, false>(maps, bias, o, bh, sq, sk, heads, st,
+    return launch_bf16_kind<D, true>(maps, bias, o, lse, bh, sq, sk, heads,
+                                     st, bias_bh_stride, scale, swaps,
+                                     stream);
+  return launch_bf16_kind<D, false>(maps, bias, o, lse, bh, sq, sk, heads, st,
                                     bias_bh_stride, scale, swaps, stream);
 }
 
@@ -546,16 +563,20 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // turn), the head dim contiguous; all f32 or all bf16 (is_bf16), every row
 // 16-byte aligned, and for bf16 every stride a whole number of 16-byte
 // units.  bias: null or contiguous f32 [1 or batch*heads, sq, sk]
-// (bias_per_bh).
+// (bias_per_bh).  lse: null (serving) or f32 [batch*heads, sq], where the
+// kernel writes each row's log-sum-exp of the clamped scores for the
+// backward, in natural units (see flash_attention_bwd.cu).
 // Launches on `stream` without synchronising; returns the cudaError_t of
 // the launch (cudaErrorInvalidValue also when the driver refuses a tensor
 // map).
 extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
-                                       void* o, int batch, int heads, int sq,
-                                       int sk, int d, const long long* strides,
+                                       void* o, void* lse, int batch,
+                                       int heads, int sq, int sk, int d,
+                                       const long long* strides,
                                        int bias_per_bh, float scale,
                                        int is_bf16, void* stream) {
+  float* ls = static_cast<float*>(lse);
   const float* b = static_cast<const float*>(bias);
   const long long bs = bias_per_bh ? (long long)sq * sk : 0;
   const int bh = batch * heads;
@@ -569,8 +590,8 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
 #define TLX_LAUNCH(D) \
-  return launch_bf16<D>(q, k, v, b, o, batch, heads, sq, sk, st, bs, scale, \
-                        cs)
+  return launch_bf16<D>(q, k, v, b, o, ls, batch, heads, sq, sk, st, bs, \
+                        scale, cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);
@@ -580,7 +601,8 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
 #undef TLX_LAUNCH
   } else {
 #define TLX_LAUNCH(D) \
-  return launch_f32<D>(q, k, v, b, o, bh, sq, sk, heads, st, bs, scale, cs)
+  return launch_f32<D>(q, k, v, b, o, ls, bh, sq, sk, heads, st, bs, scale, \
+                       cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);

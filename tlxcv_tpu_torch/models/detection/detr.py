@@ -13,8 +13,13 @@ memory (Sq = num_queries, Sk = H·W) — 18 for DETR-R50's 6 + 6 layers.  The
 heads are split as strided ``[B, H, S, D]`` views, which the kernel reads
 in place.
 
-Training (the Hungarian matcher and ``DetrLoss``) belongs to the training
-slice; it also needs a backward for the flash kernel.
+Training: ``DetrLoss``, the reference's Hungarian-matched CE + L1 + GIoU,
+summed over the decoder layers with ``aux_loss``.  The match runs on the
+host through scipy (``ops.hungarian.hungarian_callback``, ``matcher=
+"callback"``, which ``"auto"`` resolves to here: the reference's relay
+fallback has no counterpart) or on the device (``"auction"``).  On the card
+the attention's backward is the flash backward kernel
+(``csrc/flash_attention_bwd.cu``), 18 calls a training step.
 """
 from __future__ import annotations
 
@@ -29,10 +34,11 @@ from ... import nn
 from ...core import init as I
 from ...device import resolve_device
 from ...nn.attention import scaled_dot_product_attention
-from ...ops.boxes import xywh2xyxy
+from ...ops.boxes import aligned_iou, xywh2xyxy
+from ...ops.hungarian import auction_assign, hungarian_callback
 from ..classification.resnet import ResNet
 
-__all__ = ["Detr", "FrozenBatchNorm", "detr_resnet50",
+__all__ = ["Detr", "DetrLoss", "FrozenBatchNorm", "detr_resnet50",
            "sine_position_embedding"]
 
 
@@ -197,13 +203,13 @@ class Detr(tnn.Module):
     ``{"logits": [B, Q, C + 1], "boxes": [B, Q, 4]}`` (boxes normalized
     cxcywh after a sigmoid); train mode returns every decoder layer's
     (``aux_loss``) or the last one's in a list.  ``freeze_bn=True`` is the
-    reference's semantics and assumes trained backbone weights.  The
-    reference's ``matcher`` belongs to its loss and comes with it."""
+    reference's semantics and assumes trained backbone weights.
+    ``matcher`` is ``DetrLoss``'s."""
 
     def __init__(self, num_classes=91, num_queries=100, dim=256, heads=8,
                  enc_layers=6, dec_layers=6, ffn=2048, dropout=0.1,
-                 aux_loss=True, backbone_depth=50, freeze_bn=True,
-                 device=None, generator=None):
+                 aux_loss=True, matcher="auto", backbone_depth=50,
+                 freeze_bn=True, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, generator=generator)
@@ -224,6 +230,7 @@ class Detr(tnn.Module):
         self.num_queries = num_queries
         self.dim = dim
         self.aux_loss = aux_loss
+        self.loss = DetrLoss(num_classes, matcher=matcher)
 
     def encode(self, images):
         """(memory [B, H·W, dim], position embeddings [1, H·W, dim])."""
@@ -261,11 +268,14 @@ class Detr(tnn.Module):
         return outputs[-1]
 
     def loss_fn(self, outputs, targets):
-        raise NotImplementedError(
-            "DETR training (the Hungarian matcher, ops/hungarian.py, and "
-            "DetrLoss) is not ported yet: ROADMAP queue 1, item 5 (training "
-            "path); on the card it also needs queue 2 item 2 (a backward "
-            "for flash attention)")
+        """``DetrLoss`` of the last decoder layer's outputs, summed over
+        every layer's with ``aux_loss``."""
+        if isinstance(outputs, dict):
+            outputs = [outputs]
+        total = 0.0
+        for out in outputs if self.aux_loss else outputs[-1:]:
+            total = total + self.loss(out["logits"], out["boxes"], targets)
+        return total
 
     def predict_boxes(self, output, image_hw):
         """Top-scoring class per query: (labels, scores, xyxy pixels)."""
@@ -275,6 +285,81 @@ class Detr(tnn.Module):
         scale = torch.tensor([w, h, w, h], dtype=torch.float32,
                              device=probs.device)
         return labels, scores, xywh2xyxy(output["boxes"]) * scale
+
+
+class DetrLoss:
+    """Hungarian-matched cross-entropy + L1 + GIoU (the reference's
+    ``DetrLoss``).  Targets: ``boxes`` [B, M, 4] normalized cxcywh,
+    ``class_labels`` [B, M] and ``mask`` [B, M] (1 = real; without it a
+    box of zero width is padding).  Padded GT rows carry a constant cost
+    and are left out of every term."""
+
+    def __init__(self, num_classes, eos_coef=0.1, cost_class=1.0,
+                 cost_bbox=5.0, cost_giou=2.0, w_class=1.0, w_bbox=5.0,
+                 w_giou=2.0, matcher="auto"):
+        if matcher not in ("auto", "callback", "auction"):
+            raise ValueError(f"unknown matcher {matcher!r}")
+        self.num_classes = num_classes
+        self.eos_coef = eos_coef
+        self.costs = (cost_class, cost_bbox, cost_giou)
+        self.weights = (w_class, w_bbox, w_giou)
+        self.matcher = matcher
+
+    def _match(self, cost):
+        """[B, M, Q] cost -> [B, M] query per GT (int32, -1 unmatched):
+        scipy's exact assignment on the host (``"callback"``, which
+        ``"auto"`` is here) or the device auction (``"auction"``)."""
+        if self.matcher == "auction":
+            return auction_assign(cost, num_iters=200)
+        return hungarian_callback(cost)
+
+    def __call__(self, logits, pred_boxes, targets):
+        gt_boxes = targets["boxes"]
+        gt_labels = targets["class_labels"].long()
+        mask = targets.get("mask")
+        if mask is None:
+            mask = (gt_boxes[..., 2] > 0).float()
+        b, q = logits.shape[:2]
+        m = gt_boxes.shape[1]
+        cc, cb, cg = self.costs
+
+        prob = torch.softmax(logits, -1)                      # [B, Q, C+1]
+        cost_class = -torch.gather(prob, -1,
+                                   gt_labels[:, None, :].expand(b, q, m))
+        cost_bbox = (pred_boxes[:, :, None, :]
+                     - gt_boxes[:, None, :, :]).abs().sum(-1)
+        gxyxy = xywh2xyxy(gt_boxes)
+        cost_giou = -aligned_iou(xywh2xyxy(pred_boxes)[:, :, None, :],
+                                 gxyxy[:, None, :, :], mode="giou")
+        cost = cc * cost_class + cb * cost_bbox + cg * cost_giou
+        cost = torch.where(mask[:, None, :] > 0, cost, 1e6)
+        assign = self._match(cost.transpose(1, 2).detach()).long()  # [B, M]
+
+        # assigned queries take their GT's class, the rest no-object; a GT
+        # the auction left unmatched (-1) takes no query.  The writes of
+        # padded or unmatched GTs go to one extra column, sliced off.
+        valid = (mask > 0) & (assign >= 0)
+        safe = torch.where(valid, assign, q)
+        tgt_class = torch.full((b, q + 1), self.num_classes,
+                               dtype=torch.long, device=logits.device)
+        tgt_class = tgt_class.scatter(1, safe, gt_labels)[:, :q]
+        logp = torch.log_softmax(logits, -1)
+        ce = -torch.gather(logp, -1, tgt_class[..., None])[..., 0]
+        cls_w = torch.where(tgt_class == self.num_classes,
+                            torch.full_like(ce, self.eos_coef),
+                            torch.ones_like(ce))
+        loss_ce = (ce * cls_w).sum() / cls_w.sum()
+
+        # box losses on the matched pairs
+        vmask = valid.to(gt_boxes.dtype)
+        matched = torch.gather(pred_boxes, 1,
+                               safe.clamp(0, q - 1)[..., None].expand(b, m, 4))
+        num_boxes = mask.sum().clamp_min(1.0)
+        l1 = ((matched - gt_boxes).abs().sum(-1) * vmask).sum() / num_boxes
+        giou = ((1.0 - aligned_iou(xywh2xyxy(matched), gxyxy, mode="giou"))
+                * vmask).sum() / num_boxes
+        wc, wb, wg = self.weights
+        return wc * loss_ce + wb * l1 + wg * giou
 
 
 def detr_resnet50(num_classes=91, **kw):

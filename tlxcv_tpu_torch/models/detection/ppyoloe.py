@@ -8,8 +8,12 @@ rows per image padded with label -1, and a count.
 
 No hand-written kernel sits on this path: the convolutions are cuDNN's.
 The anchor points are built in numpy once per feature size and device and
-kept on the device.  Training (the ATSS and task-aligned assigners and the
-varifocal, GIoU and DFL losses) belongs to the training slice.
+kept on the device.  Training: ``PPYOLOEHead.get_loss``, the varifocal,
+GIoU and DFL losses on the targets of the ATSS assigner before
+``static_assigner_epoch`` and of the task-aligned assigner from it on
+(``atss_assign``, ``task_aligned_assign``), whose inputs are detached.
+Their top-k takes equal metrics in index order, as ``jax.lax.top_k``:
+a stable descending sort, whose order ``torch.topk`` does not promise.
 
 The prediction convs are zero-initialised with constant biases, as in the
 reference: a freshly built model scores every anchor at sigmoid(-4.595) =
@@ -27,11 +31,12 @@ from torch import nn as tnn
 from ... import nn
 from ...core import init as I
 from ...device import resolve_device
-from ...ops.boxes import batch_distance2bbox
+from ...ops.boxes import aligned_iou, batch_distance2bbox, pairwise_iou
 from ...ops.image import interpolate
 from ...ops.nms import multiclass_nms
 
-__all__ = ["PPYOLOE", "ppyoloe", "CSPResNet", "CustomCSPPAN", "PPYOLOEHead"]
+__all__ = ["PPYOLOE", "ppyoloe", "CSPResNet", "CustomCSPPAN", "PPYOLOEHead",
+           "atss_assign", "check_points_inside", "task_aligned_assign"]
 
 
 # ------------------------------------------------------------------ blocks
@@ -253,6 +258,114 @@ class CustomCSPPAN(tnn.Module):
         return pan_feats[::-1]
 
 
+# ------------------------------------------------------------- assignment
+def check_points_inside(points, bboxes, eps=1e-9):
+    """points [A, 2], bboxes [B, M, 4] -> [B, M, A] f32, 1 where the point
+    lies strictly inside the box."""
+    x, y = points[:, 0], points[:, 1]
+    l = x[None, None, :] - bboxes[..., 0:1]
+    t = y[None, None, :] - bboxes[..., 1:2]
+    r = bboxes[..., 2:3] - x[None, None, :]
+    b = bboxes[..., 3:4] - y[None, None, :]
+    return (torch.minimum(torch.minimum(l, t), torch.minimum(r, b)) > eps
+            ).float()
+
+
+def _resolve_conflicts(mask_positive, ious):
+    """An anchor matched to more than one GT keeps only the GT of the
+    largest IoU: the conflicted column is replaced outright by the IoU
+    argmax's one-hot, as in the reference."""
+    matched = mask_positive.sum(-2, keepdim=True)  # [B, 1, A]
+    max_iou_gt = F.one_hot(ious.argmax(-2), ious.shape[-2]).transpose(
+        -1, -2).to(ious.dtype)
+    return torch.where(matched > 1, max_iou_gt, mask_positive)
+
+
+def _gather_assignments(mask_positive, gt_labels, gt_bboxes, bg_index):
+    """Label [B, A] (``bg_index`` where no GT), box [B, A, 4] and the
+    positive mask [B, A] of each anchor's GT."""
+    b, m, a = mask_positive.shape
+    assigned_gt = mask_positive.argmax(-2)                 # [B, A]
+    has_pos = mask_positive.sum(-2) > 0
+    labels = torch.gather(gt_labels, 1, assigned_gt)
+    labels = torch.where(has_pos, labels, torch.full_like(labels, bg_index))
+    bboxes = torch.gather(gt_bboxes, 1,
+                          assigned_gt[..., None].expand(b, a, 4))
+    return labels, bboxes, has_pos
+
+
+def atss_assign(anchors, num_anchors_list, gt_labels, gt_bboxes, pad_gt_mask,
+                bg_index, num_classes, pred_bboxes=None, topk=9, eps=1e-9):
+    """ATSS (the reference's ``ATSSAssigner``): per level the top-k
+    anchors by centre distance (every anchor as close as the k-th), the
+    IoU threshold mean + std of the candidates.  anchors [A, 4] xyxy;
+    gt_labels [B, M]; gt_bboxes [B, M, 4]; pad_gt_mask [B, M, A].
+    Returns labels [B, A], boxes [B, A, 4], scores [B, A, C]."""
+    b, m = gt_labels.shape[:2]
+    a = anchors.shape[0]
+    centers = (anchors[:, :2] + anchors[:, 2:]) * 0.5
+    ious = pairwise_iou(gt_bboxes, anchors.expand(b, a, 4))
+    gt_centers = (gt_bboxes[..., :2] + gt_bboxes[..., 2:]) * 0.5
+    dist = ((gt_centers[:, :, None, :] - centers[None, None]) ** 2
+            ).sum(-1).sqrt()                                # [B, M, A]
+    is_topk = torch.zeros_like(dist)
+    start = 0
+    for na in num_anchors_list:
+        d = dist[..., start:start + na]
+        k = min(topk, na)
+        thresh = d.sort(-1).values[..., k - 1:k]  # the k-th smallest
+        is_topk[..., start:start + na] = (d <= thresh).float()
+        start += na
+    candidate_ious = torch.where(is_topk > 0, ious, 0.0)
+    n_cand = is_topk.sum(-1, keepdim=True).clamp_min(1)
+    iou_mean = candidate_ious.sum(-1, keepdim=True) / n_cand
+    iou_var = (torch.where(is_topk > 0, (candidate_ious - iou_mean) ** 2,
+                           0.0).sum(-1, keepdim=True) / n_cand)
+    iou_thresh = iou_mean + torch.sqrt(iou_var + eps)
+    inside = check_points_inside(centers, gt_bboxes)
+    mask_positive = ((ious >= iou_thresh).float() * is_topk * inside
+                     * pad_gt_mask)
+    mask_positive = _resolve_conflicts(mask_positive, ious)
+    labels, bboxes, _ = _gather_assignments(mask_positive, gt_labels,
+                                            gt_bboxes, bg_index)
+    scores = F.one_hot(labels, num_classes + 1)[..., :num_classes].float()
+    if pred_bboxes is not None:
+        pred_iou = pairwise_iou(gt_bboxes, pred_bboxes)    # [B, M, A]
+        scores = scores * (pred_iou * mask_positive).amax(-2)[..., None]
+    return labels, bboxes, scores
+
+
+def task_aligned_assign(pred_scores, pred_bboxes, anchor_points, gt_labels,
+                        gt_bboxes, pad_gt_mask, bg_index, num_classes,
+                        topk=13, alpha=1.0, beta=6.0, eps=1e-9):
+    """Task-aligned assignment (the reference's ``TaskAlignedAssigner``):
+    the metric score^alpha * IoU^beta of the anchors inside each GT, its
+    top-k anchors (every real GT keeps k, whatever their metric; equal
+    metrics in index order), scores normalised per GT."""
+    b, m = gt_labels.shape[:2]
+    a = pred_scores.shape[1]
+    ious = pairwise_iou(gt_bboxes, pred_bboxes)            # [B, M, A]
+    cls_scores = torch.gather(pred_scores.transpose(1, 2), 1,
+                              gt_labels[..., None].expand(b, m, a))
+    alignment = cls_scores ** alpha * ious ** beta
+    inside = check_points_inside(anchor_points, gt_bboxes)
+    metric = alignment * inside
+    k = min(topk, a)
+    top = metric.sort(dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    is_topk = torch.zeros_like(metric).scatter_(-1, top, 1.0)
+    mask_positive = is_topk * inside * pad_gt_mask
+    mask_positive = _resolve_conflicts(mask_positive, ious)
+    labels, bboxes, _ = _gather_assignments(mask_positive, gt_labels,
+                                            gt_bboxes, bg_index)
+    alignment = alignment * mask_positive
+    max_align = alignment.amax(-1, keepdim=True)
+    max_iou = (ious * mask_positive).amax(-1, keepdim=True)
+    norm_align = (alignment / (max_align + eps) * max_iou).amax(-2)
+    scores = F.one_hot(labels, num_classes + 1)[..., :num_classes].float()
+    return labels, bboxes, scores * norm_align[..., None]
+
+
 # ------------------------------------------------------------------- head
 class ESEAttn(tnn.Module):
     def __init__(self, feat_channels, act="swish", device=None,
@@ -271,14 +384,15 @@ class ESEAttn(tnn.Module):
 class PPYOLOEHead(tnn.Module):
     """Per level: the class branch ``sigmoid(pred_cls(stem_cls(f) + f))``
     and the box branch ``pred_reg(stem_reg(f))``, 4 x (reg_max + 1) bins
-    of distances to the box sides, in units of the level's stride.  The
-    reference's training options (``static_assigner_epoch``,
-    ``use_varifocal_loss``, ``loss_weight``) come with its loss."""
+    of distances to the box sides, in units of the level's stride.
+    Training: ``get_loss`` with the ATSS assigner before
+    ``static_assigner_epoch`` and the task-aligned one from it on."""
 
     def __init__(self, in_channels=(1024, 512, 256), num_classes=80,
                  act="swish", fpn_strides=(32, 16, 8), grid_cell_scale=5.0,
-                 grid_cell_offset=0.5, reg_max=16, nms_cfg=None, device=None,
-                 generator=None):
+                 grid_cell_offset=0.5, reg_max=16, static_assigner_epoch=4,
+                 use_varifocal_loss=True, loss_weight=None, nms_cfg=None,
+                 device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.num_classes = num_classes
@@ -286,6 +400,10 @@ class PPYOLOEHead(tnn.Module):
         self.grid_cell_scale = grid_cell_scale
         self.grid_cell_offset = grid_cell_offset
         self.reg_max = reg_max
+        self.static_assigner_epoch = static_assigner_epoch
+        self.use_varifocal_loss = use_varifocal_loss
+        self.loss_weight = dict(loss_weight or
+                                {"class": 1.0, "iou": 2.5, "dfl": 0.5})
         self.nms_cfg = nms_cfg or dict(score_threshold=0.01,
                                        nms_threshold=0.6, nms_top_k=1000,
                                        keep_top_k=100)
@@ -353,6 +471,83 @@ class PPYOLOEHead(tnn.Module):
                             device=pred_dist.device)
         return batch_distance2bbox(anchor_points, d.float() @ proj)
 
+    def _df_loss(self, pred_dist, target):
+        """Distribution focal loss: cross-entropy of the two bins around
+        each target distance, weighted by nearness; the mean over sides."""
+        tl = target.floor().long()
+        tr = tl + 1
+        wl = tr.float() - target
+        wr = 1.0 - wl
+        logp = torch.log_softmax(pred_dist, -1)
+        ll = -torch.gather(logp, -1, tl[..., None])[..., 0] * wl
+        lr = -torch.gather(logp, -1, tr[..., None])[..., 0] * wr
+        return (ll + lr).mean(-1)
+
+    def get_loss(self, head_outs, targets, epoch_id=0):
+        """Targets: ``class_labels`` [B, M], ``boxes`` [B, M, 4] xyxy in
+        input pixels, ``pad_gt_mask`` [B, M] (or [B, M, 1]; without it a
+        box of no width is padding)."""
+        pred_scores, pred_distri, feat_hws = head_outs
+        anchors, points, strides, counts = self._anchors(
+            feat_hws, pred_distri.device)
+        points_s = points / strides
+        pred_bboxes = self._bbox_decode(points_s, pred_distri)
+
+        gt_labels = targets["class_labels"].long()
+        gt_bboxes = targets["boxes"]
+        pad_mask = targets.get("pad_gt_mask")
+        if pad_mask is None:
+            pad_mask = (gt_bboxes[..., 2] > gt_bboxes[..., 0]).float()
+        if pad_mask.ndim == 3:
+            pad_mask = pad_mask[..., 0]
+        bsz, m = pad_mask.shape
+        pm = pad_mask[..., None].expand(bsz, m, pred_scores.shape[1])
+
+        # the assigners' inputs are detached (the reference's graph break):
+        # else the varifocal loss shrinks its own targets
+        det_scores = pred_scores.detach()
+        det_bboxes = pred_bboxes.detach()
+        if epoch_id < self.static_assigner_epoch:
+            labels, bboxes, scores = atss_assign(
+                anchors, counts, gt_labels, gt_bboxes, pm,
+                bg_index=self.num_classes, num_classes=self.num_classes,
+                pred_bboxes=det_bboxes * strides)
+        else:
+            labels, bboxes, scores = task_aligned_assign(
+                det_scores, det_bboxes * strides, points, gt_labels,
+                gt_bboxes, pm, bg_index=self.num_classes,
+                num_classes=self.num_classes)
+        bboxes = bboxes / strides
+
+        one_hot = F.one_hot(labels, self.num_classes + 1)[..., :-1].float()
+        eps = 1e-6  # a clip, not an added eps: log(1 - p) at saturation
+        pred_scores = pred_scores.clamp(eps, 1.0 - eps)
+        if self.use_varifocal_loss:
+            weight = (0.75 * pred_scores ** 2.0 * (1 - one_hot)
+                      + scores * one_hot)
+        else:
+            weight = (pred_scores - scores) ** 2.0
+        ce = -(scores * torch.log(pred_scores)
+               + (1 - scores) * torch.log(1 - pred_scores))
+        scores_sum = scores.sum().clamp_min(1.0)
+        loss_cls = (ce * weight).sum() / scores_sum
+
+        pos = (labels != self.num_classes).float()         # [B, A]
+        bbox_w = scores.sum(-1) * pos
+        giou = 1.0 - aligned_iou(pred_bboxes, bboxes, mode="giou")
+        loss_iou = (giou * bbox_w).sum() / scores_sum
+
+        ltrb = torch.cat([points_s - bboxes[..., :2],
+                          bboxes[..., 2:] - points_s], -1).clamp(
+            0, self.reg_max - 0.01)
+        b, a = pos.shape
+        pd = pred_distri.reshape(b, a, 4, self.reg_max + 1)
+        loss_dfl = (self._df_loss(pd, ltrb) * bbox_w).sum() / scores_sum
+
+        w = self.loss_weight
+        return (w["class"] * loss_cls + w["iou"] * loss_iou
+                + w["dfl"] * loss_dfl)
+
     def decode(self, head_outs):
         """Boxes [B, A, 4] in input pixels and the scores [B, A, C]."""
         pred_scores, pred_distri, feat_hws = head_outs
@@ -388,10 +583,8 @@ class PPYOLOE(tnn.Module):
         return self.yolo_head.post_process(outs)
 
     def loss_fn(self, outputs, targets):
-        raise NotImplementedError(
-            "PP-YOLOE training (ATSS and task-aligned assignment, varifocal, "
-            "GIoU and DFL losses) is not ported yet: ROADMAP queue 1, item 5 "
-            "(training path)")
+        return self.yolo_head.get_loss(outputs["head_outs"], targets,
+                                       outputs.get("epoch_id", 0))
 
 
 _MULTS = {"ppyoloe_s": (0.33, 0.50), "ppyoloe_m": (0.67, 0.75),

@@ -8,8 +8,10 @@ output shapes: ``keep_top_k`` detection rows per image padded with label
 
 No hand-written kernel sits on this path: the convolutions (depthwise ones
 included) are cuDNN's.  The priors are built in numpy once per feature
-size and device and kept on the device.  Training (matching and
-hard-negative mining, ``SSDLoss``) belongs to the training slice.
+size and device and kept on the device.  Training: ``SSDLoss``, the
+reference's prior matching, smooth-L1 box loss and cross-entropy with
+hard-negative mining (the negatives ranked by a stable sort, so equal
+losses go in prior order on either device, as ``jnp.argsort``).
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ from ... import nn
 from ...core import init as I
 from ...device import resolve_device
 from ...ops.anchors import ssd_prior_box
+from ...ops.boxes import bbox2delta, pairwise_iou
 from ...ops.nms import multiclass_nms
 from ..classification.mobilenetv1 import ConvBNReLU, MobileNetV1
 
-__all__ = ["SSD", "SSDHead", "SSDMobileNetBackbone", "ExtraBlock",
-           "build_ssd_priors", "ssd_decode"]
+__all__ = ["SSD", "SSDHead", "SSDLoss", "SSDMobileNetBackbone",
+           "ExtraBlock", "build_ssd_priors", "ssd_decode"]
 
 
 class ExtraBlock(tnn.Module):
@@ -129,6 +132,79 @@ def ssd_decode(box_preds, priors, variances=(0.1, 0.1, 0.2, 0.2)):
                        -1)
 
 
+class SSDLoss:
+    """Prior matching, smooth-L1 on the positives' deltas and cross-entropy
+    on the positives and the hardest negatives (the reference's
+    ``SSDLoss``), vectorized over the batch."""
+
+    def __init__(self, overlap_threshold=0.5, neg_pos_ratio=3.0,
+                 loc_loss_weight=1.0, conf_loss_weight=1.0,
+                 prior_box_var=(0.1, 0.1, 0.2, 0.2)):
+        self.overlap_threshold = overlap_threshold
+        self.neg_pos_ratio = neg_pos_ratio
+        self.loc_loss_weight = loc_loss_weight
+        self.conf_loss_weight = conf_loss_weight
+        self.var = prior_box_var
+
+    def __call__(self, boxes, scores, gt_bbox, gt_label, gt_mask, priors):
+        """boxes [B, A, 4] deltas; scores [B, A, C + 1] logits; gt_bbox
+        [B, N, 4] normalized xyxy; gt_label [B, N]; gt_mask [B, N] (1 =
+        real GT); priors [A, 4]."""
+        b, a = scores.shape[:2]
+        n = gt_bbox.shape[1]
+        bg = scores.shape[-1] - 1
+        gt_label = gt_label.long()
+        ious = pairwise_iou(gt_bbox, priors.expand(b, *priors.shape))
+        ious = torch.where(gt_mask[..., None] > 0, ious, -1.0)  # padding
+        prior_max = ious.amax(1)                   # [B, A]
+        prior_arg = ious.argmax(1)                 # best GT of each prior
+        gt_arg = ious.argmax(2)                    # best prior of each GT
+        t_bbox = torch.gather(gt_bbox, 1, prior_arg[..., None].expand(b, a, 4))
+        t_label = torch.gather(gt_label, 1, prior_arg)
+        t_label = torch.where(prior_max < self.overlap_threshold,
+                              torch.full_like(t_label, bg), t_label)
+        # each real GT's best prior is forced to it; of GTs sharing a best
+        # prior the last wins (the reference's scatter on the CPU), and a
+        # padded GT writes to one extra prior, sliced off
+        safe = torch.where(gt_mask > 0, gt_arg, a)
+        winner = torch.full((b, a + 1), -1, dtype=torch.long,
+                            device=scores.device).scatter_reduce(
+            1, safe, torch.arange(n, device=scores.device).expand(b, n),
+            reduce="amax")[:, :a]
+        forced = winner >= 0
+        w = winner.clamp_min(0)
+        t_bbox = torch.where(forced[..., None], torch.gather(
+            gt_bbox, 1, w[..., None].expand(b, a, 4)), t_bbox)
+        t_label = torch.where(forced, torch.gather(gt_label, 1, w), t_label)
+
+        t_delta = bbox2delta(priors.expand(b, *priors.shape), t_bbox,
+                             weights=[1 / v for v in self.var]).detach()
+        pos = (t_label != bg).float()
+        num_pos = pos.sum(1, keepdim=True)
+        loc_loss = torch.where(pos[..., None] > 0,
+                               _smooth_l1(boxes, t_delta), 0.0).sum()
+        loc_loss = loc_loss * self.loc_loss_weight
+
+        logp = torch.log_softmax(scores, -1)
+        conf_loss = -torch.gather(logp, -1, t_label[..., None])[..., 0]
+        # hard negatives: the top 3 x num_pos by loss, equal losses in
+        # prior order
+        neg_loss = torch.where(pos > 0, -float("inf"), conf_loss.detach())
+        order = torch.argsort(-neg_loss, dim=1, stable=True)
+        rank = torch.argsort(order, dim=1)
+        num_neg = torch.clamp_max(num_pos * self.neg_pos_ratio, a)
+        num_neg = torch.where(num_pos > 0, num_neg, a * 0.01)
+        neg_mask = (rank < num_neg).float()
+        conf_loss = (conf_loss * (pos + neg_mask)).sum()
+        conf_loss = conf_loss * self.conf_loss_weight
+        return (conf_loss + loc_loss) / num_pos.sum().clamp_min(1.0)
+
+
+def _smooth_l1(pred, target):
+    d = (pred - target).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
 class SSD(tnn.Module):
     """The detector.  Eval: ``forward`` returns ``(dets [B, keep_top_k, 6],
     counts [B])``, rows [label, score, x1, y1, x2, y2] in input pixels,
@@ -149,6 +225,7 @@ class SSD(tnn.Module):
                             nms_threshold=nms_threshold, nms_top_k=nms_top_k,
                             keep_top_k=keep_top_k)
         self._priors = {}  # (feature sizes, device) -> [A, 4] f32
+        self.loss = SSDLoss()
 
     def priors(self, feature_hws, device):
         """The priors [A, 4] of these feature sizes, on ``device``."""
@@ -186,6 +263,12 @@ class SSD(tnn.Module):
                                      images.shape[1:3]))
 
     def loss_fn(self, outputs, targets):
-        raise NotImplementedError(
-            "SSD training (prior matching, hard-negative mining, SSDLoss) is "
-            "not ported yet: ROADMAP queue 1, item 5 (training path)")
+        """Targets: ``boxes`` [B, N, 4] normalized xyxy, ``class_labels``
+        [B, N], ``mask`` [B, N] (without it a box of no width is
+        padding)."""
+        gt_bbox = targets["boxes"]
+        gt_mask = targets.get("mask")
+        if gt_mask is None:
+            gt_mask = (gt_bbox[..., 2] > gt_bbox[..., 0]).float()
+        return self.loss(outputs["boxes"], outputs["scores"], gt_bbox,
+                         targets["class_labels"], gt_mask, outputs["priors"])

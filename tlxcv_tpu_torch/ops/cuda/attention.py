@@ -11,10 +11,13 @@ own choice.
 autograd differentiates.  For a CUDA tensor it launches the kernel or
 raises; it never falls back.  The kernel reads q, k, v through their
 strides: a ``[B, H, S, D]`` view into a packed qkv projection needs no copy.
-On the card the call is a ``torch.autograd.Function`` whose forward is the
-kernel: its output carries a ``grad_fn``, and a backward through it raises
-``NotImplementedError`` until the backward kernel lands (ROADMAP queue 2
-item 2), so no gradient silently comes back as zeros.
+On the card the call is a ``torch.autograd.Function``: its forward is the
+kernel, which also writes each row's log-sum-exp when an input requires
+grad, and its backward is ``csrc/flash_attention_bwd.cu`` (dq, dk and dv
+from that statistic, deterministic).  The TPU kernel has no VJP; the JAX
+package trains on its einsum path, whose gradient this is.
+``flash_attention_backward_plain`` is the backward's arithmetic in plain
+torch, for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG"]
+__all__ = ["flash_attention", "flash_attention_backward",
+           "flash_attention_plain", "flash_attention_backward_plain", "NEG"]
 
 # Clamp for additive bias entries (the reference's _NEG): an all -inf tile
 # would otherwise give exp(-inf - -inf) = NaN in the online softmax.
@@ -54,20 +58,68 @@ def _check_shapes(q, k, v, bias):
                              f"{tuple(bias.shape)}")
 
 
-def flash_attention_plain(q, k, v, bias=None, scale=None):
+def _acc_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def flash_attention_plain(q, k, v, bias=None, scale=None,
+                          return_lse=False):
     """The kernel's arithmetic in plain torch: f32 scores, bias added and
     clamped at ``NEG``, f32 softmax statistics, P cast to v's dtype before
-    P.V, normalised at the end, output in q's dtype."""
+    P.V, normalised at the end, output in q's dtype (float64 inputs, which
+    the kernel does not take, stay float64 throughout: a reference).
+    ``return_lse`` also returns each row's log-sum-exp ``m + log(l)`` [BH,
+    Sq], in natural units, as the kernel writes it for the backward."""
     _check_shapes(q, k, v, bias)
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
-    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d).float() for t in (q, k, v))
+    acc = _acc_dtype(q)
+    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d).to(acc) for t in (q, k, v))
     logits = torch.einsum("bqd,bkd->bqk", q3, k3) * scale
     if bias is not None:
-        logits = torch.clamp_min(logits + bias.float(), NEG)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v3)
-    return (out / p.sum(-1, keepdim=True)).to(q.dtype).reshape(q.shape)
+        logits = torch.clamp_min(logits + bias.to(acc), NEG)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).to(acc), v3)
+    out = (out / l).to(q.dtype).reshape(q.shape)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
+
+
+def flash_attention_backward_plain(q, k, v, bias, scale, out, lse, dout):
+    """dq, dk, dv of ``flash_attention`` from its output ``out``, its
+    log-sum-exp ``lse`` [BH, Sq] and the output's gradient ``dout``: the
+    backward kernel's formulas in plain torch.  P = exp(x - lse) in f32
+    (1/Sk on a row the bias masks entirely, whose lse is the clamp ``NEG``:
+    the forward averages v there); delta = rowsum(dout * out); dv = Pᵀ·dout
+    with P rounded to v's dtype, as the forward rounds it before P·V;
+    dS = P (dout·vᵀ - delta), zero where the clamp took the score; dq =
+    scale dS·k, dk = scale dSᵀ·q.  Each in its input's dtype and shape."""
+    _check_shapes(q, k, v, bias)
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    acc = _acc_dtype(q)
+    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d).to(acc) for t in (q, k, v))
+    o3, g3 = (t.reshape(q3.shape).to(acc) for t in (out, dout))
+    raw = torch.einsum("bqd,bkd->bqk", q3, k3) * scale
+    lse3 = lse.reshape(q3.shape[0], -1, 1).to(acc)
+    if bias is None:
+        p = torch.exp(raw - lse3)
+    else:
+        raw = raw + bias.to(acc)
+        p = torch.exp(torch.clamp_min(raw, NEG) - lse3)
+        p = torch.where(lse3 == NEG, 1.0 / k3.shape[1], p)
+    delta = (g3 * o3).sum(-1, keepdim=True)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(v.dtype).to(acc), g3)
+    ds = p * (torch.einsum("bqd,bkd->bqk", g3, v3) - delta)
+    if bias is not None:
+        ds = torch.where(raw >= NEG, ds, 0.0)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k3) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q3) * scale
+    return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape))
 
 
 def _check_kernel_inputs(q, k, v, bias):
@@ -106,18 +158,24 @@ def _check_kernel_inputs(q, k, v, bias):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
-def _kernel_fn():
-    fn = _build.library("flash_attention").tlx_flash_attention_fwd
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (library, C entry, argument types) of the forward and the backward
+_FORWARD = ("flash_attention", "tlx_flash_attention_fwd",
+            [_P] * 6 + [_I] * 5 + [_P, _I, _F, _I, _P])
+_BACKWARD = ("flash_attention_bwd", "tlx_flash_attention_bwd",
+             [_P] * 11 + [_I] * 5 + [_P, _I, _F, _I, _P])
+
+
+def _kernel_fn(entry=_FORWARD):
+    lib, name, argtypes = entry
+    fn = getattr(_build.library(lib), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, i, ctypes.c_float,
-                       i, p]
-        fn.restype = i
+        fn.argtypes, fn.restype = argtypes, _I
     return fn
 
 
-def _error_string(rc):
-    fn = _build.library("flash_attention").tlx_cuda_error_string
+def _error_string(rc, lib="flash_attention"):
+    fn = _build.library(lib).tlx_cuda_error_string
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
     return fn(rc).decode()
 
@@ -127,12 +185,19 @@ def _bhs_strides(t):
     return (0, *t.stride()[:2]) if t.ndim == 3 else t.stride()[:3]
 
 
-def _launch_kernel(q, k, v, bias, scale):
+def _heads_view(t, q):
+    """A forward output or its gradient as q's [.., Sq, D] layout: a 4D
+    call's is stored [B, Sq, H, D]."""
+    return t if q.ndim == 3 else t.transpose(1, 2)
+
+
+def _launch_kernel(q, k, v, bias, scale, with_lse=False):
     """One kernel launch: [BH, Sq, D] contiguous, or [B, Sq, H, D] (the
-    token-major store of a 4D call), in q's dtype."""
+    token-major store of a 4D call), in q's dtype; with ``with_lse`` also
+    the rows' log-sum-exp [BH, Sq] f32 (else None)."""
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
-            return _launch_kernel(q, k, v, bias, scale)
+            return _launch_kernel(q, k, v, bias, scale, with_lse)
     sq, d = q.shape[-2:]
     batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
     fn = _kernel_fn()
@@ -140,12 +205,14 @@ def _launch_kernel(q, k, v, bias, scale):
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     else:
         out = q.new_empty(batch, sq, heads, d)
-    view = out if q.ndim == 3 else out.transpose(1, 2)
+    lse = (q.new_empty(batch * heads, sq, dtype=torch.float32)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v),
-        *_bhs_strides(view))
+        *_bhs_strides(_heads_view(out, q)))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             batch, heads, sq, k.shape[-2], d, strides,
             int(bias is not None and bias.shape[0] == batch * heads),
             scale, _KERNEL_DTYPES[q.dtype],
@@ -154,23 +221,66 @@ def _launch_kernel(q, k, v, bias, scale):
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{_error_string(rc)} ({rc})")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
+    """dq, dk, dv of a card forward: the backward kernel's three launches
+    (delta, dk and dv, dq) on the forward's inputs, its output ``out`` (as
+    the forward stored it), its log-sum-exp ``lse`` and the output's
+    gradient ``grad``; contiguous in q's, k's and v's shapes and dtype.
+    Counts one launch in ``flash_attention_backward.launches``."""
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return flash_attention_backward(q, k, v, bias, scale, out, lse,
+                                            grad)
+    per_16_bytes = 16 // q.element_size()
+    if (grad.dtype != q.dtype or grad.stride(-1) != 1 or grad.data_ptr() % 16
+            or any(st % per_16_bytes for st in grad.stride()[:-1])):
+        # e.g. the expanded gradient of a sum: the kernels read bf16 pairs
+        grad = grad.to(q.dtype).contiguous()
+    sq, d = q.shape[-2:]
+    batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 15)(
+        *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v),
+        *_bhs_strides(_heads_view(out, q)),
+        *_bhs_strides(_heads_view(grad, q)))
+    rc = _kernel_fn(_BACKWARD)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        grad.data_ptr(), None if bias is None else bias.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), batch, heads, sq, k.shape[-2], d, strides,
+        int(bias is not None and bias.shape[0] == batch * heads), scale,
+        _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"{_error_string(rc, 'flash_attention_bwd')} "
+                           f"({rc})")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel as an autograd node: forward launches it; backward has
-    no kernel yet and raises rather than hand back zeros."""
+    """The kernel as an autograd node: forward launches it (writing the
+    rows' log-sum-exp when ``train``), backward launches the backward
+    kernels on the saved q, k, v, output and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        return _launch_kernel(q, k, v, bias, scale)
+    def forward(ctx, q, k, v, bias, scale, train):
+        out, lse = _launch_kernel(q, k, v, bias, scale, with_lse=train)
+        if train:
+            ctx.save_for_backward(q, k, v, bias, out, lse)
+            ctx.scale = scale
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash_attention on the card has no backward kernel yet "
-            "(ROADMAP queue 2 item 2); gradients through attention are "
-            "taken on the CPU only")
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, bias, ctx.scale, out, lse,
+                                          grad), None, None, None)
 
 
 def flash_attention(q, k, v, bias=None, scale=None):
@@ -178,17 +288,24 @@ def flash_attention(q, k, v, bias=None, scale=None):
     v: [BH, Sk, D] or [B, H, Sk, D] with q's leading dims and D (any key
     length: DETR's cross-attention has 100 queries over H·W keys); any
     strides over a contiguous head dim; bias: optional additive [1|BH, Sq,
-    Sk] (BH = B·H); scale defaults to D**-0.5.  Returns q's shape in q's
-    dtype: [BH, Sq, D] contiguous, or [B, H, Sq, D] stored token-major (a
-    view of [B, Sq, H, D]).  On the card the result has a ``grad_fn``
-    whose backward raises ``NotImplementedError``."""
+    Sk] (BH = B·H), a constant (on the card a bias that requires grad
+    raises: the backward gives it none); scale defaults to D**-0.5.
+    Returns q's shape in q's dtype: [BH, Sq, D] contiguous, or [B, H, Sq,
+    D] stored token-major (a view of [B, Sq, H, D]).  On the card the
+    result has a ``grad_fn`` whose backward is the backward kernel."""
     _check_shapes(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     _check_kernel_inputs(q, k, v, bias)
+    train = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if train and bias is not None and bias.requires_grad:
+        raise ValueError("flash_attention on the card takes a constant bias: "
+                         "its backward gives the bias no gradient")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    out = _FlashAttention.apply(q, k, v, bias, scale)
+    out = _FlashAttention.apply(q, k, v, bias, scale, train)
     return out if q.ndim == 3 else out.transpose(1, 2)
 
 
 flash_attention.launches = 0  # kernel launches since the last reset
+flash_attention_backward.launches = 0  # backward calls (3 kernels each)

@@ -31,6 +31,20 @@ its forward.
   only by an applied update; ``ema_for_eval`` routes ``evaluate``,
   ``predict`` and ``save_weights`` through it.
 
+- ``remat=True``: the network and its loss run under
+  ``torch.utils.checkpoint`` (non-reentrant): activations are recomputed
+  in the backward instead of kept.  The recompute replays the draws of the
+  generators that the network's Dropout and DropPath layers hold (the
+  checkpoint itself restores only torch's global generators), and it leaves
+  the network's buffers as the forward left them (a train-mode BatchNorm
+  does not count the batch twice), so the gradients are those without
+  remat, bitwise on the CPU.
+- ``progress=True``: ``rich`` progress bars over the epochs and batches,
+  the reference's; without ``rich`` it raises ``ImportError``.
+- A network whose detection head has ``static_assigner_epoch``
+  (PP-YOLOE) is called with ``epoch_id``, the epoch of the loop, as the
+  reference's Trainer does for its assigner switch.
+
 - ``save_checkpoint`` / ``restore_checkpoint``: the full train state
   (``utils.checkpoint.TrainCheckpoint``): the masters, the network's
   buffers, the optimizer's state with its shared count of applied updates,
@@ -40,16 +54,17 @@ its forward.
   writes the evaluation parameters through ``utils.checkpoint``.
 
 Not ported yet (each raises ``NotImplementedError``): ``metrics`` (ROADMAP
-queue 1, item 14), ``mesh`` and ``param_sharding="fsdp"`` (item 15),
-``remat`` and ``progress=True`` (item 5).
+queue 1, item 14), ``mesh`` and ``param_sharding="fsdp"`` (item 15).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import typing as tp
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint as remat_checkpoint
 
 from ..data.loader import device_prefetch
 from ..device import resolve_device
@@ -88,8 +103,9 @@ class _Call(torch.nn.Module):
         self.network = network
         self.loss_fn = loss_fn
 
-    def forward(self, x, y, compute_dtype):
-        out = self.network(x)
+    def forward(self, x, y, compute_dtype, epoch_id=None):
+        out = (self.network(x) if epoch_id is None
+               else self.network(x, epoch_id=epoch_id))
         if compute_dtype is not None:
             out = _cast_floats(out, torch.float32)  # loss math stays f32
         loss = self.loss_fn(out, y)
@@ -122,13 +138,20 @@ class Trainer:
             raise _not_ported('param_sharding="fsdp"', 15)
         if param_sharding != "replicated":
             raise ValueError(f"unknown param_sharding {param_sharding!r}")
-        if remat:
-            raise _not_ported("remat", 5)
+        self.remat = bool(remat)
         self.device = resolve_device(device)
         self.network = network.to(self.device)
         self.loss_fn = loss_fn if loss_fn is not None else network.loss_fn
         self._call = _Call(self.network, self.loss_fn)
         self.compute_dtype = compute_dtype
+        # the epoch of PP-YOLOE's assigner switch, found where the
+        # reference's Trainer looks for it
+        self._assigner_switch_epoch = None
+        for obj in (network, getattr(network, "backbone", None)):
+            head = getattr(obj, "yolo_head", None) if obj is not None else None
+            for cand in (obj, head):
+                if cand is not None and hasattr(cand, "static_assigner_epoch"):
+                    self._assigner_switch_epoch = cand.static_assigner_epoch
         self.grad_accum = int(grad_accum)
         self.nan_guard = bool(nan_guard)
         self.nan_skips = 0
@@ -160,24 +183,59 @@ class Trainer:
             return t.to(self.device)
         return _map(put, batch)
 
-    def _loss(self, params, x, y, training):
+    def _loss(self, params, x, y, training, epoch_id=0):
         """loss_fn on the network's outputs, the reference's
         ``_train_call`` (training) or ``_eval_call``."""
         cd = self.compute_dtype if training else None
-        if cd is not None:
-            x = _cast_floats(x, cd)
-            params = {k: p.to(cd) if p.is_floating_point() else p
-                      for k, p in params.items()}
-        return functional_call(
-            self._call, {"network." + k: p for k, p in params.items()},
-            (x, y, cd))
+        epoch = None if self._assigner_switch_epoch is None else epoch_id
 
-    def _train_step(self, x, y):
+        def call(params, x):
+            if cd is not None:
+                x = _cast_floats(x, cd)
+                params = {k: p.to(cd) if p.is_floating_point() else p
+                          for k, p in params.items()}
+            return functional_call(
+                self._call, {"network." + k: p for k, p in params.items()},
+                (x, y, cd, epoch))
+
+        if not (training and self.remat):
+            return call(params, x)
+        return remat_checkpoint(call, params, x, use_reentrant=False,
+                                context_fn=self._remat_contexts)
+
+    def _remat_contexts(self):
+        """(forward, recompute) contexts for ``checkpoint``: the recompute
+        starts the layers' generators where the forward started them and
+        puts back, at its end, their states and the network's buffers as
+        it found them."""
+        gens = list(self._generators().values())
+        start = [g.get_state() for g in gens]
+
+        @contextlib.contextmanager
+        def recompute():
+            now = [g.get_state() for g in gens]
+            bufs = [b for b in self.network.buffers() if b.is_floating_point()]
+            kept = [b.clone() for b in bufs]
+            for g, st in zip(gens, start):
+                g.set_state(st)
+            try:
+                yield
+            finally:
+                for g, st in zip(gens, now):
+                    g.set_state(st)
+                with torch.no_grad():
+                    for b, k in zip(bufs, kept):
+                        b.copy_(k)
+
+        return contextlib.nullcontext(), recompute()
+
+    def _train_step(self, x, y, epoch_id=0):
         self.network.train()
         stats = [b for b in self.network.buffers() if b.is_floating_point()]
         saved = [b.clone() for b in stats] if self.nan_guard else None
         ps = list(self.params.values())
-        loss, out = self._loss(self.params, x, y, training=True)
+        loss, out = self._loss(self.params, x, y, training=True,
+                               epoch_id=epoch_id)
         grads = torch.autograd.grad(loss, ps, allow_unused=True,
                                     materialize_grads=True)
         loss = loss.detach()
@@ -252,26 +310,37 @@ class Trainer:
         return float(stack.nanmean() if self.nan_guard else stack.mean())
 
     # ------------------------------------------------------------------
+    def _epoch(self, epoch, train_dataset, max_steps_per_epoch,
+               print_train_batch=False, on_step=None):
+        """One epoch of training steps; returns the step losses (device
+        tensors)."""
+        losses = []
+        batches = device_prefetch(train_dataset, self._put_batch)
+        for bi, (x, y) in enumerate(batches):
+            if max_steps_per_epoch is not None and bi >= max_steps_per_epoch:
+                break
+            loss, _ = self._train_step(x, y, epoch_id=epoch)
+            self.step += 1
+            losses.append(loss)
+            if print_train_batch:
+                print(f"epoch {epoch + 1} batch {bi} loss {float(loss):.4f}")
+            if on_step is not None:
+                on_step()
+        return losses
+
     def train(self, n_epoch: int, train_dataset, test_dataset=None,
               print_freq: int = 1, print_train_batch: bool = False,
               max_steps_per_epoch: tp.Optional[int] = None,
               progress: bool = False):
+        """``progress=True`` draws ``rich`` progress bars (the reference
+        Trainer's) in place of the per-epoch lines."""
         if progress:
-            raise _not_ported("progress=True", 5)
+            return self._train_rich(n_epoch, train_dataset,
+                                    max_steps_per_epoch)
         for epoch in range(n_epoch):
             t0 = time.time()
-            losses = []
-            batches = device_prefetch(train_dataset, self._put_batch)
-            for bi, (x, y) in enumerate(batches):
-                if (max_steps_per_epoch is not None
-                        and bi >= max_steps_per_epoch):
-                    break
-                loss, _ = self._train_step(x, y)
-                self.step += 1
-                losses.append(loss)
-                if print_train_batch:
-                    print(f"epoch {epoch + 1} batch {bi} "
-                          f"loss {float(loss):.4f}")
+            losses = self._epoch(epoch, train_dataset, max_steps_per_epoch,
+                                 print_train_batch)
             skipped = self._count_skips(losses)
             if (epoch + 1) % print_freq == 0:
                 msg = (f"Epoch {epoch + 1} of {n_epoch} took "
@@ -282,6 +351,36 @@ class Trainer:
                 print(msg)
                 if test_dataset is not None:
                     print(f"   val: {self.evaluate(test_dataset)}")
+        self._sync_to_network()
+        return self
+
+    def _train_rich(self, n_epoch, train_dataset, max_steps_per_epoch):
+        try:
+            from rich.progress import (BarColumn, Progress, TextColumn,
+                                       TimeElapsedColumn,
+                                       TimeRemainingColumn)
+        except ImportError as e:
+            raise ImportError("Trainer.train(progress=True) draws its bars "
+                              "with the rich package, which is not "
+                              "installed") from e
+        n_batch = (len(train_dataset) if hasattr(train_dataset, "__len__")
+                   else None)
+        if n_batch is not None and max_steps_per_epoch is not None:
+            n_batch = min(n_batch, max_steps_per_epoch)
+        with Progress(TextColumn("[progress.description]{task.description}"),
+                      BarColumn(), TextColumn("{task.percentage:>3.0f}%"),
+                      TimeRemainingColumn(), TimeElapsedColumn()) as prog:
+            etask = prog.add_task("[red]Epochs", total=n_epoch)
+            btask = prog.add_task("[green]Batches", total=n_batch)
+            for epoch in range(n_epoch):
+                prog.reset(btask, total=n_batch)
+                losses = self._epoch(epoch, train_dataset,
+                                     max_steps_per_epoch,
+                                     on_step=lambda: prog.advance(btask))
+                self._count_skips(losses)
+                prog.update(etask, description=f"[red]Epochs (loss "
+                            f"{self._mean_loss(losses):.4f})")
+                prog.advance(etask)
         self._sync_to_network()
         return self
 
