@@ -198,11 +198,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 14. (right after phase 2) flash_backward: the flash-attention backward
     kernel (``csrc/flash_attention_bwd.cu``) against its plain version at
-    ViT-B/16's b64 grid and DETR-R50's three training b4 grids, bf16 and
-    f32, with and without a bias (one with a row masked at every key), in
-    f32 also against SDPA's gradients; two runs bitwise; timed beside the
-    plain version, SDPA's backward and the bound, and the forward with and
-    without the log-sum-exp it writes for the backward.  (run after phase
+    ViT-B/16's b64 grid and DETR-R50's three training b4 grids and at the
+    edges of its 64-row tiles (Sq and Sk from 1 to 197 each way, every
+    head dim, ViT's packed views), bf16 and f32, without a bias, with one
+    shared by the heads or one per head, and with a row masked at every
+    key, in f32 also against SDPA's gradients; two runs bitwise; timed
+    beside the plain version, SDPA's backward (its aten op, graph replays
+    as the kernel, and one ``autograd.grad``, events) and the bound, each
+    of its kernels profiled, and the forward with and without the
+    log-sum-exp it writes for the backward.  (run after phase
     10) attention training legs: ViT-B/16 b64 224^2 (12 flash forward and
     12 backward launches a step), DETR-R50 b4 at 800x1344 with its
     Hungarian loss (18 and 18; the match's host time a step), PP-YOLOE-L
@@ -510,9 +514,34 @@ def phase_kernel_profile():
 
 # ------------------------------------------------- flash attention backward
 DETR_TRAIN_BATCH = 4  # DETR's published batch per GPU (64 images, 16 cards)
-BACKWARD_GRIDS = [("vit_b16_b64_packed", 64, 12, 197, 197, 64)] + [
-    (name, DETR_TRAIN_BATCH, DETR_HEADS, sq, sk, 32)
+# (name, B, H, Sq, Sk, D, layout): ViT-B/16's b64 grid, DETR-R50's three
+# training b4 grids
+BACKWARD_GRIDS = [("vit_b16_b64_packed", 64, 12, 197, 197, 64, "packed")] + [
+    (name, DETR_TRAIN_BATCH, DETR_HEADS, sq, sk, 32, "detr")
     for name, sq, sk in DETR_GRIDS]
+BACKWARD_BIASES = (None, "shared", "per_bh", "row_masked")
+
+
+def backward_edge_cases():
+    """(name, B, H, Sq, Sk, D, layout, bias) about the backward's 64-row
+    tiles, at every head dim: Sq and Sk each in {1, 63, 64, 65, 127, 128,
+    129, 197} against both neighbours in that list (so Sq < Sk and Sq > Sk,
+    one tile and several, the ragged and the whole last tile), as [B, H,
+    S, D] tensors (the gradient of the output token-major, as a 4D call
+    stores it), and ViT's packed-qkv views at S in {1, 65, 128, 197}; the
+    biases of ``backward_bias`` in turn."""
+    sizes = (1, 63, 64, 65, 127, 128, 129, 197)
+    cases = []
+    for d in (32, 64, 96, 128):
+        shapes = [(f"sq{sq}_sk{sizes[(i + step) % 8]}_d{d}", sq,
+                   sizes[(i + step) % 8], None)
+                  for i, sq in enumerate(sizes) for step in (1, -1)]
+        shapes += [(f"packed_s{s}_d{d}", s, s, "packed")
+                   for s in (1, 65, 128, 197)]
+        cases += [(name, 2, 3, sq, sk, d, layout,
+                   BACKWARD_BIASES[(j + d // 32) % 4])
+                  for j, (name, sq, sk, layout) in enumerate(shapes)]
+    return cases
 
 
 def attention_backward_bound_ms(bh, sq, sk, d, dtype):
@@ -529,33 +558,152 @@ def attention_backward_bound_ms(bh, sq, sk, d, dtype):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def _rel_card(got, want):
-    """max |got - want| over max |want|, both on the card."""
+def _rel_card(got, want, scale=None):
+    """max |got - want| over max |want| (or over ``scale``), on the card."""
+    if scale is None:
+        scale = want.float().abs().max()
     return ((got.float() - want.float()).abs().max()
-            / want.float().abs().max().clamp_min(1e-30)).item()
+            / torch.as_tensor(scale).clamp_min(1e-30)).item()
 
 
-def backward_inputs(grid, dtype, seed):
-    """q, k, v of one backward grid as the layers hand them over: ViT's
-    [B, H, S, D] views into its packed qkv projection, DETR's views into
-    its separate q, k and v projections."""
-    name, b, h, sq, sk, d = grid
-    if name.startswith("vit"):
+def _grad_rel_errs(got, want, sk):
+    """``_rel_card`` of dq, dk and dv; at Sk = 1 dq and dk over dv's
+    largest magnitude: there they are 0 in exact arithmetic (a softmax over
+    one key is constant, so dP - delta cancels) and both sides give
+    rounding of that cancellation."""
+    dv_scale = want[2].float().abs().max()
+    return [_rel_card(a, w, dv_scale if sk == 1 else None)
+            for a, w in zip(got, want)]
+
+
+def backward_inputs(b, h, sq, sk, d, layout, dtype, seed):
+    """q, k, v of one backward case as the layers hand them over: ViT's
+    [B, H, S, D] views into its packed qkv projection (``packed``), DETR's
+    views into its separate q, k and v projections (``detr``), or [B, H,
+    S, D] tensors of their own."""
+    if layout == "packed":
         return qkv(b * h, sq, d, dtype, seed, heads=h)
-    return detr_qkv(sq, sk, dtype, seed, batch=b, heads=h, d=d)
+    if layout == "detr":
+        return detr_qkv(sq, sk, dtype, seed, batch=b, heads=h, d=d)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, h, n, d, generator=g, device="cuda").to(dtype)
+            for n in (sq, sk, sk)]
+
+
+def backward_bias(kind, n, sq, sk, gen):
+    """None; a bias shared by the heads [1, Sq, Sk]; one per head [n, Sq,
+    Sk]; or one per head whose query row 0 is masked at every key (the
+    forward averages v there) and whose other rows are masked at every
+    third key from the second."""
+    if kind is None:
+        return None
+    bias = torch.randn(1 if kind == "shared" else n, sq, sk, generator=gen,
+                       device="cuda")
+    if kind == "row_masked":
+        bias[:, 0] = float("-inf")
+        bias[:, 1:, 1::3] = float("-inf")
+    return bias
+
+
+def check_backward(case, dtype, seed):
+    """One case of ``phase_flash_backward``'s checks; raises on a miss and
+    returns its record."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    name, b, h, sq, sk, d, layout, bias_kind = case
+    q, k, v = backward_inputs(b, h, sq, sk, d, layout, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bias = backward_bias(bias_kind, b * h, sq, sk, g)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = A.flash_attention_backward.launches
+    out = A.flash_attention(*leaves, bias=bias)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    again = torch.autograd.grad(A.flash_attention(*leaves, bias=bias),
+                                leaves, dout)
+    torch.cuda.synchronize()
+    launched = A.flash_attention_backward.launches - before
+    _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
+    want = A.flash_attention_backward_plain(q, k, v, bias, None, out.detach(),
+                                            lse, dout)
+    _, plain_lse = A.flash_attention_plain(q, k, v, bias, return_lse=True)
+    rows = plain_lse > A.NEG  # rows not masked at every key
+    lse_err = ((lse - plain_lse)[rows].abs().max().item() if rows.any()
+               else 0.0)
+    errs = _grad_rel_errs(got, want, sk)
+    abs_err = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(got, want))
+    witness = None
+    if dtype == torch.float32 and bias_kind != "row_masked":
+        ref = [t.detach().requires_grad_() for t in (q, k, v)]
+        mask = None if bias is None else bias.view(
+            -1 if bias.shape[0] > 1 else 1, h if bias.shape[0] > 1 else 1,
+            sq, sk)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            *ref, attn_mask=mask)
+        witness = _grad_rel_errs(got, torch.autograd.grad(sdpa, ref, dout),
+                                 sk)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+    record = {"case": name, "dtype": str(dtype)[6:],
+              "shape": [b * h, sq, sk, d], "bias": bias_kind,
+              "rel_err_dq_dk_dv": errs, "max_abs_err": abs_err,
+              "bound": tol, "sdpa_rel_err_dq_dk_dv": witness,
+              "lse_max_abs_err": lse_err, "bitwise_repeat": bitwise,
+              "finite": finite, "launches": launched}
+    if (not finite or not bitwise or launched != 2 or max(errs) > tol
+            or lse_err > 1e-4 or witness is not None and max(witness) > 1e-4):
+        emit({"phase": "flash_backward", "failed": record})
+        raise AssertionError(f"flash backward {name} {dtype} {bias_kind}: "
+                             f"{record}")
+    return record
+
+
+def sdpa_backward_call(q, k, v, dout):
+    """SDPA's backward as its dispatcher picks it for q, k, v: the name of
+    SDPA's autograd node and a call of the aten backward op that node
+    runs, fed by that op's own forward's outputs (None for a backend
+    without one here, the math path)."""
+    aten = torch.ops.aten
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    node = torch.nn.functional.scaled_dot_product_attention(
+        *ref).grad_fn.name()
+    if "Flash" in node:
+        out, lse, cq, ck, mq, mk, seed, offset, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v)
+        return node, lambda: aten._scaled_dot_product_flash_attention_backward(
+            dout, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
+    if "Efficient" in node:
+        out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True)
+        return node, lambda: (
+            aten._scaled_dot_product_efficient_attention_backward(
+                dout, q, k, v, None, out, lse, seed, offset, 0.0,
+                [True, True, True, False]))
+    if "Cudnn" in node:
+        out, lse, cq, ck, mq, mk, seed, offset, _ = \
+            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True)
+        return node, lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            dout, q, k, v, out, lse, seed, offset, None, cq, ck, mq, mk, 0.0,
+            False)
+    return node, None
 
 
 def phase_flash_backward():
     """The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
-    on the card, at ViT-B/16's b64 grid and DETR-R50's three training b4
-    grids, in bf16 and f32, without a bias, with a per-head bias and with
-    a bias that masks one query row at every key (the forward averages v
-    there):
+    on the card, in bf16 and f32: at ViT-B/16's b64 grid and DETR-R50's
+    three training b4 grids, each without a bias, with a per-head bias and
+    with one that masks a query row at every key (the forward averages v
+    there); and at the edges of its 64-row tiles (``backward_edge_cases``:
+    Sq and Sk from 1 to 197 each way, every head dim, bias none, shared,
+    per head or masking a row, ViT's packed views):
 
     - dq, dk and dv through ``autograd.grad`` against
       ``flash_attention_backward_plain`` on the kernel's own output and
       log-sum-exp, within 2e-2 (bf16) and 1e-4 (f32) of each gradient's
-      largest magnitude: the forward's bounds, for the same reasons (f32
+      largest magnitude (at Sk = 1 of dv's: ``_grad_rel_errs``): the
+      forward's bounds, for the same reasons (f32
       sums in another order; in bf16 the gradients are rounded to bf16
       once, and the tensor-core products take dS rounded to bf16 where
       the plain version keeps it in f32);
@@ -564,82 +712,40 @@ def phase_flash_backward():
     - the log-sum-exp the forward writes against the plain one's (1e-4,
       rows that are not masked entirely), two backward runs bitwise
       equal, one backward launch a call;
-    - its time alone (``ms``: CUDA-graph replays; ``event_ms``: events
-      around each call) beside the plain version's, SDPA's backward (one
-      ``autograd.grad`` through SDPA's graph; events, ``library_ms``), and
-      the bound; the forward timed with and without writing the
-      log-sum-exp (``train_forward_ms``, ``serve_forward_ms``).
+    - at the four grids, its time alone (``ms``: CUDA-graph replays;
+      ``event_ms``: events around each call) beside the plain version's,
+      SDPA's backward (``library_ms``: the aten backward op SDPA's
+      dispatcher picks, ``library_op`` its autograd node, on that op's own
+      forward outputs, graph replays as ``ms``; ``library_event_ms``: one
+      ``autograd.grad`` through SDPA's graph, events), and the bound; the
+      forward timed with and without writing the log-sum-exp
+      (``train_forward_ms``, ``serve_forward_ms``).  Each kernel's own
+      device time comes from ``phase_backward_profile``, at the end of a
+      run.
 
     Returns the kernel's record (the ViT grid in bf16 as its main case)."""
     from tlxcv_tpu_torch.ops.cuda import attention as A
 
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        for gi, grid in enumerate(BACKWARD_GRIDS):
-            for bias_kind in (None, "per_bh", "row_masked"):
-                name, b, h, sq, sk, d = grid
-                seed = 300 + 10 * gi + len(results)
-                q, k, v = backward_inputs(grid, dtype, seed)
-                g = torch.Generator(device="cuda").manual_seed(seed)
-                bias = None
-                if bias_kind is not None:
-                    bias = torch.randn(b * h, sq, sk, generator=g,
-                                       device="cuda")
-                    if bias_kind == "row_masked":
-                        bias[:, 0] = float("-inf")
-                        bias[:, 1:, ::3] = float("-inf")
-                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-                before = A.flash_attention_backward.launches
-                out = A.flash_attention(*leaves, bias=bias)
-                dout = torch.randn(out.shape, generator=g,
-                                   device="cuda").to(dtype)
-                got = torch.autograd.grad(out, leaves, dout)
-                again = torch.autograd.grad(A.flash_attention(*leaves,
-                                                              bias=bias),
-                                            leaves, dout)
-                torch.cuda.synchronize()
-                launched = A.flash_attention_backward.launches - before
-                _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5,
-                                          with_lse=True)
-                want = A.flash_attention_backward_plain(
-                    q, k, v, bias, None, out.detach(), lse, dout)
-                _, plain_lse = A.flash_attention_plain(q, k, v, bias,
-                                                       return_lse=True)
-                rows = plain_lse > A.NEG
-                lse_err = (lse - plain_lse)[rows].abs().max().item()
-                errs = [_rel_card(a, w) for a, w in zip(got, want)]
-                abs_err = max((a.float() - w.float()).abs().max().item()
-                              for a, w in zip(got, want))
-                witness = None
-                if dtype == torch.float32 and bias_kind != "row_masked":
-                    ref = [t.detach().requires_grad_() for t in (q, k, v)]
-                    mask = None if bias is None else bias.view(b, h, sq, sk)
-                    sdpa = torch.nn.functional.scaled_dot_product_attention(
-                        *ref, attn_mask=mask)
-                    witness = [_rel_card(a, w) for a, w in zip(
-                        got, torch.autograd.grad(sdpa, ref, dout))]
-                finite = all(bool(torch.isfinite(a).all()) for a in got)
-                bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
-                results.append({
-                    "case": name, "dtype": str(dtype)[6:],
-                    "shape": [b * h, sq, sk, d], "bias": bias_kind,
-                    "rel_err_dq_dk_dv": errs, "max_abs_err": abs_err,
-                    "bound": tol[dtype], "sdpa_rel_err_dq_dk_dv": witness,
-                    "lse_max_abs_err": lse_err, "bitwise_repeat": bitwise,
-                    "finite": finite, "launches": launched})
-                if (not finite or not bitwise or launched != 2
-                        or max(errs) > tol[dtype] or lse_err > 1e-4
-                        or witness is not None and max(witness) > 1e-4):
-                    emit({"phase": "flash_backward", "failed": results[-1]})
-                    raise AssertionError(f"flash backward {name} {dtype} "
-                                         f"{bias_kind}: {results[-1]}")
-                del q, k, v, leaves, out, got, again, want, bias
+        cases = [(name, b, h, sq, sk, d, layout, bias)
+                 for name, b, h, sq, sk, d, layout in BACKWARD_GRIDS
+                 for bias in (None, "per_bh", "row_masked")]
+        for case in cases + backward_edge_cases():
+            results.append(check_backward(case, dtype, 300 + len(results)))
     emit({"phase": "flash_backward", "checks": results})
+    def worst(dt, key):
+        return max(max(r[key]) if isinstance(r[key], list) else r[key] or 0.0
+                   for r in results if r["dtype"] == dt)
+
+    emit({"phase": "flash_backward", "cases": len(results), "worst": {
+        dt: {key: worst(dt, key) for key in (
+            "rel_err_dq_dk_dv", "sdpa_rel_err_dq_dk_dv", "lse_max_abs_err")}
+        for dt in ("bfloat16", "float32")}})
 
     def times(grid, dtype):
-        name, b, h, sq, sk, d = grid
-        q, k, v = backward_inputs(grid, dtype, seed=11)
+        name, b, h, sq, sk, d, layout = grid
+        q, k, v = backward_inputs(b, h, sq, sk, d, layout, dtype, seed=11)
         scale = d ** -0.5
         out, lse = A._launch_kernel(q, k, v, None, scale, with_lse=True)
         g = torch.Generator(device="cuda").manual_seed(12)
@@ -652,13 +758,16 @@ def phase_flash_backward():
 
         ref = [t.detach().requires_grad_() for t in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(*ref)
+        library_op, library = sdpa_backward_call(q, k, v, dout_v)
         bound, bound_by = attention_backward_bound_ms(b * h, sq, sk, d,
                                                       dtype)
         return {"shape": [b * h, sq, sk, d], "ms": graph_ms(kernel),
                 "event_ms": time_ms(kernel),
                 "plain_ms": time_ms(lambda: A.flash_attention_backward_plain(
                     q, k, v, None, None, out_v, lse, dout_v)),
-                "library_ms": time_ms(lambda: torch.autograd.grad(
+                "library_ms": None if library is None else graph_ms(library),
+                "library_op": library_op,
+                "library_event_ms": time_ms(lambda: torch.autograd.grad(
                     sdpa, ref, dout_v, retain_graph=True)),
                 "bound_ms": bound, "bound_by": bound_by,
                 "serve_forward_ms": graph_ms(lambda: A._launch_kernel(
@@ -673,18 +782,45 @@ def phase_flash_backward():
     main = next(r for r in results if r["case"] == "vit_b16_b64_packed"
                 and r["dtype"] == "bfloat16" and r["bias"] is None)
     vit = timings["bfloat16"]["vit_b16_b64_packed"]
+    keys = ("ms", "event_ms", "plain_ms", "library_ms", "library_op",
+            "library_event_ms", "bound_ms", "bound_by")
     return {"name": "flash_attention_backward", "route": "cuda",
             "source": "tlxcv_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "tlxcv_tpu/ops/pallas/attention.py:39",
             "max_abs_err": main["max_abs_err"],
-            **{k: vit[k] for k in ("ms", "event_ms", "plain_ms",
-                                   "library_ms", "bound_ms", "bound_by")},
+            **{key: vit[key] for key in keys},
             "detr_grids": {
-                name: {key: t[key] for key in
-                       ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by")}
+                name: {key: t[key] for key in ("shape",) + keys}
                 for name, t in timings["bfloat16"].items()
                 if name.startswith("detr")}}
+
+
+def phase_backward_profile():
+    """Each backward kernel's device time in one bf16 call at each of
+    ``BACKWARD_GRIDS`` (torch.profiler).  Run last: a profiler session
+    may leave launch overhead behind it in the process, which the
+    host-bound legs would feel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    for name, b, h, sq, sk, d, layout in BACKWARD_GRIDS:
+        q, k, v = backward_inputs(b, h, sq, sk, d, layout, torch.bfloat16,
+                                  seed=11)
+        out, lse = A._launch_kernel(q, k, v, None, d ** -0.5, with_lse=True)
+        dout = torch.randn_like(out)
+
+        def kernel():
+            return A.flash_attention_backward(q, k, v, None, d ** -0.5, out,
+                                              lse, dout)
+
+        kernel()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        emit_profile(prof, "flash_attention_backward_" + name, 1, None)
 
 
 def phase_model(record):
@@ -4317,6 +4453,7 @@ def main():
     if "--train-attention" in sys.argv[1:]:  # this slice's legs alone
         bwd = phase_flash_backward()
         attention_training_legs(bwd, profile)
+        phase_backward_profile()
         emit({"kernels": [bwd]})
         print(card_line(), flush=True)
         return 0
@@ -4327,6 +4464,7 @@ def main():
         attention_training_legs(bwd, profile)
         int8 = {"name": "int8_matmul"}
         training_legs(int8, profile)
+        phase_backward_profile()
         emit({"kernels": [bwd, int8]})
         print(card_line(), flush=True)
         return 0
@@ -4334,6 +4472,7 @@ def main():
     bwd = phase_flash_backward()
     if "--detectors" in sys.argv[1:]:  # DETR-R50, PP-YOLOE-L and SSD alone
         phase_detectors(flash, profile)
+        phase_backward_profile()
         emit({"kernels": [{key: flash[key] for key in
                            ("name", "detr_launches", "detr_grids")}]})
         print(card_line(), flush=True)
@@ -4343,6 +4482,7 @@ def main():
         phase_probe(bf16)
         phase_kernel_profile()
         phase_model(flash)
+        phase_backward_profile()
         emit({"kernels": [flash, bf16]})
         print(card_line(), flush=True)
         return 0
@@ -4377,13 +4517,14 @@ def main():
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)
     training_legs(int8, profile)
+    phase_backward_profile()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
              "vjp_ms", "vit_launches", "grouped_launches", "grouped_ms",
              "grouped_plain_ms", "grouped_bound_ms", "deit_launches",
-             "detr_launches", "detr_grids", "qat_launches", "qat_ms",
-             "qat_bound_ms", "qat_library_ms")
+             "detr_launches", "detr_grids", "library_op", "qat_launches",
+             "qat_ms", "qat_bound_ms", "qat_library_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

@@ -177,6 +177,40 @@ _BWD_CASES = [  # (bh or (B, H), Sq, Sk, D, bias)
     (8, 197, 197, 64, None), (8, 65, 130, 32, "per_bh"),
     (4, 100, 1050, 32, None), (4, 129, 63, 96, "shared"),
     (4, 77, 77, 128, "row_masked"), ((2, 3), 33, 40, 64, None)]
+# the edges of the kernel's 64-row tiles at every head dim: Sq and Sk each
+# in _BWD_SIZES against both neighbours there, [B, H, S, D] tensors (the
+# output's gradient token-major), the biases in turn; and ViT's packed qkv
+# views
+_BWD_SIZES = (1, 63, 64, 65, 127, 128, 129, 197)
+_BWD_BIASES = (None, "shared", "per_bh", "row_masked")
+_BWD_CASES += [
+    ((2, 3), sq, _BWD_SIZES[(i + step) % 8], d,
+     _BWD_BIASES[(2 * i + (step > 0) + d // 32) % 4])
+    for d in (32, 64, 96, 128) for i, sq in enumerate(_BWD_SIZES)
+    for step in (1, -1)]
+_BWD_CASES += [("packed", s, s, d, _BWD_BIASES[(s + d) % 4])
+               for d in (32, 64, 96, 128) for s in (1, 65, 128, 197)]
+
+
+def _bwd_inputs(lead, sq, sk, d, dtype, gen, cuda):
+    """q, k, v: [*lead, S, D] tensors, or with ``lead == "packed"`` the
+    [2, 3, S, D] views into one packed [2, S, 3, 3, D] projection that a
+    ViT block hands the kernel."""
+    if lead == "packed":
+        packed = torch.randn(2, sq, 3, 3, d, generator=gen, device=cuda)
+        return list(packed.to(dtype).permute(2, 0, 3, 1, 4))
+    lead = lead if isinstance(lead, tuple) else (lead,)
+    return [torch.randn(*lead, n, d, generator=gen, device=cuda).to(dtype)
+            for n in (sq, sk, sk)]
+
+
+def _bwd_scales(want, sk):
+    """The largest magnitude of dq, dk and dv, the scale of each bound; at
+    Sk = 1 dv's for all three: there dq and dk are 0 in exact arithmetic
+    (a softmax over one key is constant, so dP - delta cancels) and both
+    sides give rounding of that cancellation."""
+    scales = [float(w.float().abs().max()) for w in want]
+    return [scales[2]] * 3 if sk == 1 else scales
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,14 +220,15 @@ def test_backward_kernel_matches_plain(cuda, dtype, bh, sq, sk, d,
     """dq, dk and dv from the backward kernel against
     ``flash_attention_backward_plain`` on the kernel's output and
     log-sum-exp, within the forward's bounds of each gradient's largest
-    magnitude, and bitwise equal over two runs (no atomics)."""
+    magnitude (``_bwd_scales``), bitwise equal over two runs (no
+    atomics); the log-sum-exp
+    the forward writes within 1e-4 of the plain one's (rows not masked at
+    every key); in f32 also within 1e-4 of SDPA's gradients (without a
+    row masked at every key, where SDPA gives NaN)."""
     from tlxcv_tpu_torch.ops.cuda import attention as A
 
     gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
-    lead = bh if isinstance(bh, tuple) else (bh,)
-    q = torch.randn(*lead, sq, d, generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn(*lead, sk, d, generator=gen, device=cuda).to(dtype)
-            for _ in range(2))
+    q, k, v = _bwd_inputs(bh, sq, sk, d, dtype, gen, cuda)
     n = q.shape[:-2].numel()
     bias = None
     if bias_kind is not None:
@@ -201,6 +236,7 @@ def test_backward_kernel_matches_plain(cuda, dtype, bh, sq, sk, d,
                            generator=gen, device=cuda)
         if bias_kind == "row_masked":
             bias[:, 0] = float("-inf")
+            bias[:, 1:, 1::3] = float("-inf")
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = A.flash_attention(*leaves, bias=bias)
     dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
@@ -210,12 +246,48 @@ def test_backward_kernel_matches_plain(cuda, dtype, bh, sq, sk, d,
     _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
     want = A.flash_attention_backward_plain(q, k, v, bias, None,
                                             out.detach(), lse, dout)
-    for a, b, w in zip(got, again, want):
+    for a, b, w, scale in zip(got, again, want, _bwd_scales(want, sk)):
         assert a.dtype == dtype and a.shape == w.shape
         assert torch.equal(a, b)
-        torch.testing.assert_close(
-            a.float(), w.float(), rtol=0,
-            atol=_TOL[dtype] * float(w.float().abs().max()))
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=_TOL[dtype] * scale)
+    _, plain_lse = A.flash_attention_plain(q, k, v, bias, return_lse=True)
+    rows = plain_lse > A.NEG
+    torch.testing.assert_close(lse[rows], plain_lse[rows], rtol=0, atol=1e-4)
+    if dtype == torch.float32 and bias_kind != "row_masked":
+        ref = [t.detach().requires_grad_() for t in (q, k, v)]
+        mask = None
+        if bias is not None:
+            mask = bias.view(*q.shape[:-2], sq, sk) if bias.shape[0] > 1 \
+                else bias[0]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            *ref, attn_mask=mask)
+        witness = torch.autograd.grad(sdpa, ref, dout)
+        for a, w, scale in zip(got, witness, _bwd_scales(witness, sk)):
+            torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_run_on_autograds_thread(cuda, dtype):
+    """The forward recomputed under ``torch.utils.checkpoint`` and the
+    backward both run on autograd's own thread, where PyTorch may have
+    made no context current: the bf16 kernels' tensor maps must still be
+    encoded there.  The gradients equal those without the recompute,
+    bitwise."""
+    from torch.utils.checkpoint import checkpoint
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, 3, 77, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    dout = torch.randn(2, 3, 77, 64, generator=g, device=cuda).to(dtype)
+    grads = []
+    for remat in (False, True):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = (checkpoint(flash_attention, *leaves, use_reentrant=False)
+               if remat else flash_attention(*leaves))
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

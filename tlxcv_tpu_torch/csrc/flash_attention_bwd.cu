@@ -23,53 +23,85 @@
 //   clamp value times log2(e) overflows f32.  A row whose every key the
 //   bias masks has x = the clamp at each key and lse = the clamp (log(l)
 //   vanishes against it); the forward averages v there, so P = 1/Sk;
-// - delta = rowsum(dO * O) (kernel 1);
+// - delta = rowsum(dO * O);
 // - dV = P^T dO with P rounded to v's dtype, where the forward rounds it
 //   before P.V; dP = dO V^T; dS = P (dP - delta), zero where the clamp
-//   took the score (its gradient is 0 there); dK = scale dS^T Q
-//   (kernel 2: one block a 64-key tile, looping over the query tiles);
-//   dQ = scale dS K (kernel 3: one block a 64-row query tile, looping
-//   over the key tiles).  Every sum is f32, each output written once by
-//   one thread: no atomics, so two runs are bitwise equal.
+//   took the score (its gradient is 0 there); dK = scale dS^T Q and dQ =
+//   scale dS K, with dS rounded to bf16 as their A operand in bf16 (the
+//   plain version keeps dS in f32; the difference stays within the bf16
+//   bound).  Every sum is f32, each output written once by one thread: no
+//   atomics, so two runs are bitwise equal.
 //
 // What bounds it: at ViT-B/16 b64 (BH = 768, S = 197, D = 64) the bytes
 // of q, k, v, o, dO, dq, dk and dv (155 MB, 0.046 ms at 3.35 TB/s); at
-// DETR-R50's encoder (S = 1050, D = 32) the operations.  bf16 runs the
-// five products on the tensor cores (mma.sync m16n8k16 from shared
-// memory, the S and dP accumulators reused in registers as the A operand
-// of the next product; dS rounded to bf16 there, as P is); f32 runs them
-// on the FMA units, since the tensor cores would round to TF32.  Neither
-// uses TMA or wgmma yet: the forward's tiling is the later redesign.
+// DETR-R50's encoder (S = 1050, D = 32) the five products (0.011 ms at
+// the bf16 peak); its decoder grids (S = 100) by bytes.  At S = 197 the
+// 64-row tiles pad each head to 256 rows (a wgmma takes 64) and a block
+// sees only four tiles of the other side, so its prologue (the resident
+// tiles' loads) and epilogue are not hidden behind a long loop, and the
+// exponentials (P in both kernels: 2 x 256^2 a head) load the special-
+// function unit: the kernels lean on several blocks an SM to overlap
+// them.  On the H100 (700 W) the design measured 0.167 ms at ViT's grid
+// (3.6x the bound), 0.09 ms at DETR's encoder.
+//
+// bf16 design: two warp-specialised kernels on the forward's tiling, each
+// block one consumer warpgroup of 64 rows (wgmma's M) and one producer
+// warp whose thread 0 keeps TMA loads in flight through a 2-stage
+// full/empty mbarrier ring (4D tensor maps over the strided views, boxes
+// of 32 head-dim columns in TMA's 64-byte swizzle; the bias, whose rows
+// TMA cannot address, by plain loads), so no transposed copy is ever
+// written to shared memory:
+// - dq (launched first): one block per (bh, 64-query tile), the tiles of
+//   a head next to each other, so its k and v come from L2.  Q and dO
+//   are loaded once; its prologue takes delta of its own rows from O and
+//   dO with 16-byte loads and writes it for the dk/dv kernel (no separate
+//   delta launch).  For each 64-key tile of K and V: S = Q K^T and dP =
+//   dO V^T by wgmma from shared memory (both K-major), P and dS in the
+//   accumulator layout (lse and delta are per row: two of each a
+//   thread), then dQ += dS K with dS as wgmma's register A operand and K
+//   read MN-major through the descriptor's transpose bit.
+// - dk/dv: one block per (bh, 64-key tile); K and V loaded once.  For
+//   each 64-query tile of Q and dO (with their lse and delta rows, which
+//   the producer warp's lanes copy into the stage): S^T = K Q^T and dP^T
+//   = V dO^T (K-major), P^T and dS^T formed in registers (lse and delta
+//   per column), dV += P^T dO and dK += dS^T Q with Q and dO MN-major.
+// - above D = 32 each kernel takes the other side's tile in two halves
+//   of 32 rows (m64n32): both scores, their A fragments and the D-wide
+//   accumulators stay in registers (dq: 96 registers at D = 64, four
+//   blocks an SM; dk/dv: 128, three), and a half wholly past Sq or Sk
+//   (the last tile's at S = 197) is skipped.  No variant spills.
+// - each kernel issues S and dP together and forms P while dP runs; the
+//   dQ (dK, dV) products of a (half) tile run on while the next one's
+//   scores are issued: a stage is released to the producer once the wait
+//   for the next tile's S shows them done (in-order wgmma groups).  Each
+//   consumer warp releases a stage for itself (4 arrivals).
+// f32 runs the products on the FMA units (the tensor cores would round
+// to TF32): a delta kernel, then one block per 64-key tile for dK and dV
+// and one per 64-query tile for dQ, tiles in padded shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr float kNeg = -0.7f * 3.402823466e38f;  // the forward's clamp
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTile = 64;      // query rows or keys a tile
-constexpr int kThreads = 256;  // 16 x 16 threads of 4 x 4 scores each
+using namespace tlx;
+
+constexpr int kTile = 64;      // f32: query rows or keys a tile
+constexpr int kThreads = 256;  // f32: 16 x 16 threads of 4 x 4 scores each
 
 // Element strides of (batch, head, row) of q, k, v, o and dO.
 struct Strides {
   long long q[3], k[3], v[3], o[3], g[3];
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // ---------------------------------------------------------------- delta
-// One warp a row: delta[bh, r] = sum_d dO[bh, r, d] * O[bh, r, d].
-template <typename T>
+// f32: one warp a row: delta[bh, r] = sum_d dO[bh, r, d] * O[bh, r, d].
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ g,
                 float* __restrict__ delta, long long rows, int Sq, int H,
                 int D, Strides st) {
   const long long row = blockIdx.x * (long long)(kThreads / 32) +
@@ -79,10 +111,10 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
   const long long bh = row / Sq;
   const int r = static_cast<int>(row % Sq);
   const long long b = bh / H, h = bh % H;
-  const T* orow = o + b * st.o[0] + h * st.o[1] + r * st.o[2];
-  const T* grow = g + b * st.g[0] + h * st.g[1] + r * st.g[2];
+  const float* orow = o + b * st.o[0] + h * st.o[1] + r * st.o[2];
+  const float* grow = g + b * st.g[0] + h * st.g[1] + r * st.g[2];
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += ld(orow + d) * ld(grow + d);
+  for (int d = lane; d < D; d += 32) s += orow[d] * grow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -348,340 +380,503 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------- bf16: tensor cores (mma.sync)
-// The five products on the tensor cores, m16n8k16 bf16 with f32 sums: four
-// warps a block, each owning 16 rows of its 64 (keys in dk/dv, queries in
-// dq), the inner loop over chunks of 32 rows of the other side.  Every
-// operand is read from shared memory as bf16 pairs along the product's
-// depth, so each tile the B side needs along the other axis is kept
-// transposed too (Q and dO for dk/dv, K for dq).  The accumulator of S or
-// dP is the A operand of the next product as it lies in registers (as in
-// the forward's P): P rounded to bf16 as the forward rounds it, and dS
-// rounded to bf16 for dK and dQ (the plain version keeps dS in f32; the
-// difference stays within the bf16 bound).
-constexpr int kTcThreads = 128;
-constexpr int kTcRows = 64;   // rows a block owns
-constexpr int kTcChunk = 32;  // rows of the other side an inner step
+
+// --------------------------------------------- bf16: TMA + wgmma (Hopper)
+constexpr int kRows = 64;          // keys (dk/dv) or queries (dq) a block
+constexpr int kStages = 2;
+constexpr int kBf16Threads = 160;  // one consumer warpgroup + a producer warp
 
 template <int D>
-struct TcSmem {
-  static constexpr int LD = D + 8;          // [row][d] tiles, bf16
-  static constexpr int LDT = kTcChunk + 8;  // [d][chunk] tiles, bf16
-  // dk/dv: K, V [64][LD]; Q, dO [32][LD]; Q^T, dO^T [D][LDT]; lse, delta
-  static constexpr size_t kDkdv =
-      (2 * kTcRows * LD + 2 * kTcChunk * LD + 2 * D * LDT) * 2 +
-      2 * kTcChunk * sizeof(float);
-  // dq: Q, dO [64][LD]; K, V [32][LD]; K^T [D][LDT]; lse, delta
-  static constexpr size_t kDq =
-      (2 * kTcRows * LD + 2 * kTcChunk * LD + D * LDT) * 2 +
-      2 * kTcRows * sizeof(float);
+struct Bf16Layout {
+  static constexpr int kBox = kRows * kChunk * 2;        // 4 KB
+  static constexpr int kTile = (D / kChunk) * kBox;      // 64 rows x D
+  // two resident tiles (dq: Q, dO; dk/dv: K, V), kStages stages of two
+  // streamed tiles (dq: K, V; dk/dv: Q, dO), the streamed rows' lse and
+  // delta (dk/dv), then the barriers: resident, full x kStages, empty x
+  // kStages
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kStats = kRing + kStages * kStage;
+  static constexpr int kBars = kStats + kStages * 2 * kRows * 4;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * kStages);
 };
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// d += a b, m16n8k16, bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// `rows` rows from row r0 of a (batch, head)'s rows into [rows][LD] (and,
-// with `dst_t`, transposed into [D][LDT]), rows at or past n zero.
+// The 64 rows from `row` of the (b, h) view into a tile: D / 32 boxes.
 template <int D>
-__device__ __forceinline__ void load_bf16(__nv_bfloat16* dst,
-                                          __nv_bfloat16* dst_t,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int r0,
-                                          int rows, int n) {
-  constexpr int LD = TcSmem<D>::LD, LDT = TcSmem<D>::LDT;
-  for (int i = threadIdx.x; i < rows * (D / 2); i += kTcThreads) {
-    const int row = i / (D / 2), c = 2 * (i % (D / 2)), r = r0 + row;
-    const uint32_t pair = r < n ? ld_pair(base + r * row_stride + c) : 0u;
-    *reinterpret_cast<uint32_t*>(dst + row * LD + c) = pair;
-    if (dst_t != nullptr) {
-      const __nv_bfloat162 two = *reinterpret_cast<const __nv_bfloat162*>(
-          &pair);
-      dst_t[c * LDT + row] = two.x;
-      dst_t[(c + 1) * LDT + row] = two.y;
+__device__ __forceinline__ void load_tile_bf16(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, bool swap,
+                                               int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kChunk; ++c)
+    load_rows(dst + c * Bf16Layout<D>::kBox, map, bar, swap, c * kChunk, row,
+              h, b);
+}
+
+// A K-major wgmma operand: k16 step `ks` (along the head dim) of a tile's
+// rows from `row` (a multiple of 8): two k16 steps a 64-byte box row,
+// groups of 8 rows 512 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks, int row) {
+  return smem_desc(tile + (ks >> 1) * (kRows * kChunk * 2) + (ks & 1) * 32 +
+                       row * (kChunk * 2),
+                   16, 512, kSwizzle64B);
+}
+
+// An MN-major wgmma B operand: the tile's rows [row, row + 16) as one k16
+// step over all D columns, its 32-column boxes 4 KB apart (LBO).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int row) {
+  return smem_desc(tile + row * (kChunk * 2), kRows * kChunk * 2, 512,
+                   kSwizzle64B);
+}
+
+// The A-fragment register of accumulator pair (i, i + 1) (i even) of the
+// m64nN accumulator: key group i / 4 of 8 columns, row half (i & 2).
+#define TLX_A_FRAG(a, i) (a)[(i) / 8][(((i) / 4) & 1) * 2 + (((i) & 2) ? 1 : 0)]
+
+// This thread's quarter of a row's dO . O: columns [t D/4, (t + 1) D/4),
+// 16-byte loads.
+template <int D>
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* o,
+                                         const __nv_bfloat16* g, int t) {
+  const uint4* po = reinterpret_cast<const uint4*>(o + t * (D / 4));
+  const uint4* pg = reinterpret_cast<const uint4*>(g + t * (D / 4));
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) {
+    const uint4 a = po[i], c = pg[i];
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 fa = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 fc = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&cw[w]));
+      s = fmaf(fa.x, fc.x, s);
+      s = fmaf(fa.y, fc.y, s);
     }
   }
+  return s;
 }
 
-// The A operand of rows (16 w + g, + 8) over depth [16 kk, 16 kk + 16) of
-// a [row][LD] tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int row,
-                                       int kk, int t) {
-  const __nv_bfloat16* p = tile + row * LD + 16 * kk + 2 * t;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * LD);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * LD + 8);
-}
-
-// The B operand of columns n0 + g over depth [16 kk, +16): a tile stored
-// [column][depth] with row stride `ld`.
-__device__ __forceinline__ void mma_b(float (&d)[4], const uint32_t (&a)[4],
-                                      const __nv_bfloat16* tile, int ld,
-                                      int col, int kk, int t) {
-  const __nv_bfloat16* p = tile + col * ld + 16 * kk + 2 * t;
-  mma_bf16(d, a, ld_pair(p), ld_pair(p + 8));
-}
-
-// P and dS of this warp's 16 x 32 scores (4 n-tiles of m16n8: rows row0 +
-// g (+ 8), columns col0 + 8 j + 2 t (+ 1)) packed as the A operands of the
-// two k16 steps over those 32 columns.  The rows are queries in dq and
-// keys in dk/dv.
-template <bool kBias, bool kRowsAreQueries>
-__device__ __forceinline__ void tc_p_ds(
-    const float (&s)[4][4], const float (&dp)[4][4], const float* slse,
-    const float* sdelta, const float* bb, int row0, int col0, int g, int t,
-    int Sq, int Sk, float scale, float inv_sk, uint32_t (&pa)[2][4],
-    uint32_t (&da)[2][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float p[4], d[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + ((e & 2) ? 8 : 0);
-      const int col = col0 + 8 * j + 2 * t + (e & 1);
-      const int gq = kRowsAreQueries ? row : col;
-      const int gk = kRowsAreQueries ? col : row;
-      // the query's index into the statistics (``slse`` starts at this
-      // warp's rows in dq, at the chunk's columns in dk/dv)
-      const int lq = kRowsAreQueries ? g + ((e & 2) ? 8 : 0)
-                                     : 8 * j + 2 * t + (e & 1);
-      p[e] = 0.f;
-      d[e] = 0.f;
-      if (gq < Sq && gk < Sk) {
-        const float lse = slse[lq], delta = sdelta[lq];
-        if (kBias) {
-          const float xr = fmaf(s[j][e], scale, bb[(long long)gq * Sk + gk]);
-          const float x = fmaxf(xr, kNeg);
-          p[e] = lse == kNeg ? inv_sk : exp2f((x - lse) * kLog2e);
-          d[e] = xr >= kNeg ? p[e] * (dp[j][e] - delta) : 0.f;
-        } else {
-          p[e] = exp2f((s[j][e] * scale - lse) * kLog2e);
-          d[e] = p[e] * (dp[j][e] - delta);
-        }
-      }
-    }
-    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    da[j >> 1][(j & 1) * 2] = pack_bf16(d[0], d[1]);
-    da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
-  }
-}
-
+// dQ, and delta for the dk/dv kernel.  Accumulators: sacc and dpacc[4 jj
+// + e] are query row0 (e < 2) or row1 = row0 + 8, key k0 + 8 jj + 2 t +
+// (e & 1).
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_g,
+                  const __nv_bfloat16* __restrict__ o,
                   const __nv_bfloat16* __restrict__ g,
                   const float* __restrict__ bias,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
-                  Strides st, long long bias_bh_stride, float scale) {
-  using S = TcSmem<D>;
-  constexpr int LD = S::LD, LDT = S::LDT, NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + kTcRows * LD;
-  __nv_bfloat16* sq = sv + kTcRows * LD;
-  __nv_bfloat16* sg = sq + kTcChunk * LD;
-  __nv_bfloat16* sqt = sg + kTcChunk * LD;
-  __nv_bfloat16* sgt = sqt + D * LDT;
-  float* slse = reinterpret_cast<float*>(sgt + D * LDT);
-  float* sdelta = slse + kTcChunk;
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
+                  Strides st, long long bias_bh_stride, float scale,
+                  int swaps) {
+  using L = Bf16Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sg = sq + L::kTile;
+  const uint32_t ring = sq + L::kRing;
+  const uint32_t bar_q = sq + L::kBars;
+  const uint32_t bar_full = bar_q + 8;                // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
 
-  const int n_kt = (Sk + kTcRows - 1) / kTcRows;
-  const int bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * kTcRows;
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_qt;  // a head's query tiles are adjacent
+  const int q0 = (blockIdx.x % n_qt) * kRows;
   const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + b * st.q[0] + h * st.q[1];
-  const __nv_bfloat16* gb = g + b * st.g[0] + h * st.g[1];
-  const float* lb = lse + static_cast<long long>(bh) * Sq;
-  const float* db = delta + static_cast<long long>(bh) * Sq;
-  const float* bb = kBias ? bias + bh * bias_bh_stride : nullptr;
+  const int n_kt = (Sk + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4);  // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---------------------------------------------------------- producer
+    if (threadIdx.x != 128) return;
+    mbar_expect_tx(bar_q, 2 * L::kTile);
+    load_tile_bf16<D>(sq, &map_q, bar_q, swaps & 1, q0, h, b);
+    load_tile_bf16<D>(sg, &map_g, bar_q, swaps & 8, q0, h, b);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % kStages;
+      mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+      const uint32_t sk = ring + s * L::kStage;
+      mbar_expect_tx(bar_full + 8 * s, 2 * L::kTile);
+      load_tile_bf16<D>(sk, &map_k, bar_full + 8 * s, swaps & 2, j * kRows,
+                        h, b);
+      load_tile_bf16<D>(sk + L::kTile, &map_v, bar_full + 8 * s, swaps & 4,
+                        j * kRows, h, b);
+    }
+    return;
+  }
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int row0 = q0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+
+  // delta of rows row0 and row1: the row's four threads each take a
+  // quarter of the head dim, summed in a fixed order
+  float dl0 = 0.f, dl1 = 0.f;
+  {
+    const __nv_bfloat16* ob = o + b * st.o[0] + h * st.o[1];
+    const __nv_bfloat16* gb = g + b * st.g[0] + h * st.g[1];
+    if (row0 < Sq)
+      dl0 = row_dot<D>(ob + row0 * st.o[2], gb + row0 * st.g[2], t);
+    if (row1 < Sq)
+      dl1 = row_dot<D>(ob + row1 * st.o[2], gb + row1 * st.g[2], t);
+  }
+  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
+  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
+  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
+  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
+  const long long stat0 = static_cast<long long>(bh) * Sq;
+  if (t == 0) {
+    if (row0 < Sq) delta[stat0 + row0] = dl0;
+    if (row1 < Sq) delta[stat0 + row1] = dl1;
+  }
+  const float ls0 = row0 < Sq ? lse[stat0 + row0] : 0.f;
+  const float ls1 = row1 < Sq ? lse[stat0 + row1] : 0.f;
+  const float* br0 = nullptr;
+  const float* br1 = nullptr;
+  if (kBias) {
+    const float* bb = bias + bh * bias_bh_stride;
+    br0 = bb + static_cast<long long>(min(row0, Sq - 1)) * Sk;
+    br1 = bb + static_cast<long long>(min(row1, Sq - 1)) * Sk;
+  }
+  // without bias, P = 2^(s scale log2e - lse log2e)
+  const float sc2 = scale * kLog2e;
+  const float nl0 = -ls0 * kLog2e, nl1 = -ls1 * kLog2e;
   const float inv_sk = 1.f / Sk;
 
-  load_bf16<D>(sk, nullptr, k + b * st.k[0] + h * st.k[1], st.k[2], k0,
-               kTcRows, Sk);
-  load_bf16<D>(sv, nullptr, v + b * st.v[0] + h * st.v[1], st.v[2], k0,
-               kTcRows, Sk);
-  float dk_acc[NT][4], dv_acc[NT][4];
+  // keys of one sub-tile of S and dP: the whole 64-key tile at D = 32,
+  // halves of 32 above (dQ takes D / 2 registers a thread)
+  constexpr int NK = D <= 32 ? 64 : 32;
+  float sacc[NK / 2], dpacc[NK / 2], dqacc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  uint32_t da[NK / 16][4];  // dS as the A fragments of NK / 16 k16 steps
 
-  for (int q0 = 0; q0 < Sq; q0 += kTcChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    load_bf16<D>(sq, sqt, qb, st.q[2], q0, kTcChunk, Sq);
-    load_bf16<D>(sg, sgt, gb, st.g[2], q0, kTcChunk, Sq);
-    if (threadIdx.x < kTcChunk) {
-      const int r = q0 + threadIdx.x;
-      slse[threadIdx.x] = r < Sq ? lb[r] : 0.f;
-      sdelta[threadIdx.x] = r < Sq ? db[r] : 0.f;
-    }
-    __syncthreads();
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
-    float s[4][4], dp[4][4];
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages;
+    const uint32_t sk = ring + s * L::kStage;
+    const uint32_t sv = sk + L::kTile;
+    const int k0 = j * kRows;
+    mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int hk = 0; hk < kRows / NK; ++hk) {
+      const int c0 = hk * NK;  // the sub-tile's first key in the tile
+      if (k0 + c0 >= Sk) break;  // wholly past Sk (the last tile's rest)
+
+      // S = Q K^T and dP = dO V^T, k16 steps along the head dim
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<NK, 0>(sacc, desc_k(sq, ks, 0), desc_k(sk, ks, c0), ks > 0);
+      wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<LD>(ak, sk, 16 * warp + gr, kk, t);
-      frag_a<LD>(av, sv, 16 * warp + gr, kk, t);
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<NK, 0>(dpacc, desc_k(sg, ks, 0), desc_k(sv, ks, c0),
+                        ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S, and the previous sub-tile's dQ product
+      fence_regs(sacc);
+      if (hk == 0 && j > 0 && lane == 0)
+        mbar_arrive(bar_empty + 8 * ((j - 1) % kStages));
+
+      // P in place of S while dP runs
+      const bool ragged = k0 + c0 + NK > Sk;
+      uint32_t clamped = 0;  // bias: the scores the clamp took (dS = 0)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_b(s[j], ak, sq, LD, 8 * j + gr, kk, t);
-        mma_b(dp[j], av, sg, LD, 8 * j + gr, kk, t);
+      for (int i = 0; i < NK / 2; ++i) {
+        const int col = k0 + c0 + 8 * (i / 4) + 2 * t + (i & 1);
+        float p;
+        if (kBias) {
+          const float ls = (i & 2) ? ls1 : ls0;
+          const float xr = fmaf(
+              sacc[i], scale, col < Sk ? ((i & 2) ? br1 : br0)[col] : 0.f);
+          p = ls == kNeg ? inv_sk : exp2_ftz((fmaxf(xr, kNeg) - ls) * kLog2e);
+          if (xr < kNeg) clamped |= 1u << i;
+        } else {
+          p = exp2_ftz(fmaf(sacc[i], sc2, (i & 2) ? nl1 : nl0));
+        }
+        if (ragged && col >= Sk) p = 0.f;
+        sacc[i] = p;
       }
-    }
-    uint32_t pa[2][4], da[2][4];
-    tc_p_ds<kBias, false>(s, dp, slse, sdelta, bb, k0 + 16 * warp, q0, gr,
-                          t, Sq, Sk, scale, inv_sk, pa, da);
-    // dV += P^T dO and dK += dS^T Q over the chunk's 32 queries
+
+      // dS = P (dP - delta), rounded to bf16 as the A operand of dQ += dS K
+      wgmma_wait<0>();  // dP
+      fence_regs(dpacc);
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mma_b(dv_acc[n], pa[ks], sgt, LDT, 8 * n + gr, ks, t);
-        mma_b(dk_acc[n], da[ks], sqt, LDT, 8 * n + gr, ks, t);
+      for (int i = 0; i < NK / 2; i += 2) {
+        const float dl = (i & 2) ? dl1 : dl0;
+        float d0 = sacc[i] * (dpacc[i] - dl);
+        float d1 = sacc[i + 1] * (dpacc[i + 1] - dl);
+        if (kBias) {
+          if (clamped >> i & 1) d0 = 0.f;
+          if (clamped >> (i + 1) & 1) d1 = 0.f;
+        }
+        TLX_A_FRAG(da, i) = pack_bf16(d0, d1);
       }
+      fence_regs(da);
+      fence_regs(dqacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)
+        wgmma_rs<D>(dqacc, da[kk], desc_mn(sk, c0 + 16 * kk), 1);
+      wgmma_commit();
+    }
   }
-  const int key0 = k0 + 16 * warp + gr;
+  wgmma_wait<0>();
+  fence_regs(dqacc);
+
+  __nv_bfloat16* out = dq + static_cast<long long>(bh) * Sq * D;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = key0 + 8 * half;
-    if (key >= Sk) continue;
-    const long long off = (static_cast<long long>(bh) * Sk + key) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
-          __floats2bfloat162_rn(dk_acc[n][2 * half] * scale,
-                                dk_acc[n][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
-          __floats2bfloat162_rn(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
-    }
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + row0 * D + col) =
+          __floats2bfloat162_rn(dqacc[4 * jj] * scale,
+                                dqacc[4 * jj + 1] * scale);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + row1 * D + col) =
+          __floats2bfloat162_rn(dqacc[4 * jj + 2] * scale,
+                                dqacc[4 * jj + 3] * scale);
   }
 }
 
+// dK and dV.  Accumulators: sacc and dpacc[4 jj + e] are key key0 (e < 2)
+// or key1 = key0 + 8, query c0 + 8 jj + 2 t + (e & 1) of the tile (c0 the
+// sub-tile's first).  Without bias, up to D = 64, three blocks an SM (at
+// most 136 registers a thread; 128 used, no spill): occupancy is what
+// hides the short loops' latency at ViT's grid, where it measured faster
+// on the H100 than two blocks an SM, and three ring stages or a register
+// cap on the dq kernel did not.
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ g,
-                const float* __restrict__ bias, const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
-                Strides st, long long bias_bh_stride, float scale) {
-  using S = TcSmem<D>;
-  constexpr int LD = S::LD, LDT = S::LDT, NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sg = sq + kTcRows * LD;
-  __nv_bfloat16* sk = sg + kTcRows * LD;
-  __nv_bfloat16* sv = sk + kTcChunk * LD;
-  __nv_bfloat16* skt = sv + kTcChunk * LD;
-  float* slse = reinterpret_cast<float*>(skt + D * LDT);
-  float* sdelta = slse + kTcRows;
+__global__ void __launch_bounds__(kBf16Threads, D <= 64 && !kBias ? 3 : 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
+                    long long bias_bh_stride, float scale, int swaps) {
+  using L = Bf16Layout<D>;
+  // queries of one sub-tile of S^T and dP^T: the whole 64-query tile at
+  // D = 32, halves of 32 above (dK and dV take D / 2 registers each a
+  // thread)
+  constexpr int NQ = D <= 32 ? 64 : 32;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sv = sk + L::kTile;
+  const uint32_t ring = sk + L::kRing;
+  float* stats = reinterpret_cast<float*>(
+      smem_raw + (sk - smem_u32(smem_raw)) + L::kStats);  // + 2 kRows s
+  const uint32_t bar_kv = sk + L::kBars;
+  const uint32_t bar_full = bar_kv + 8;               // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
 
-  const int n_qt = (Sq + kTcRows - 1) / kTcRows;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kTcRows;
+  const int n_kt = (Sk + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_kt;  // a head's key tiles are adjacent
+  const int k0 = (blockIdx.x % n_kt) * kRows;
   const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* kb = k + b * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vb = v + b * st.v[0] + h * st.v[1];
-  const float* bb = kBias ? bias + bh * bias_bh_stride : nullptr;
-  const float inv_sk = 1.f / Sk;
+  const int n_qt = (Sq + kRows - 1) / kRows;
 
-  load_bf16<D>(sq, nullptr, q + b * st.q[0] + h * st.q[1], st.q[2], q0,
-               kTcRows, Sq);
-  load_bf16<D>(sg, nullptr, g + b * st.g[0] + h * st.g[1], st.g[2], q0,
-               kTcRows, Sq);
-  if (threadIdx.x < kTcRows) {
-    const int r = q0 + threadIdx.x;
-    const long long i = static_cast<long long>(bh) * Sq + r;
-    slse[threadIdx.x] = r < Sq ? lse[i] : 0.f;
-    sdelta[threadIdx.x] = r < Sq ? delta[i] : 0.f;
-  }
-  float dq_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kTcChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    load_bf16<D>(sk, skt, kb, st.k[2], k0, kTcChunk, Sk);
-    load_bf16<D>(sv, nullptr, vb, st.v[2], k0, kTcChunk, Sk);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 32 keys
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      frag_a<LD>(aq, sq, 16 * warp + gr, kk, t);
-      frag_a<LD>(ag, sg, 16 * warp + gr, kk, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_b(s[j], aq, sk, LD, 8 * j + gr, kk, t);
-        mma_b(dp[j], ag, sv, LD, 8 * j + gr, kk, t);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 33);  // the TMA's + the 32 lanes' stats
+      mbar_init(bar_empty + 8 * s, 4);  // one arrival a consumer warp
     }
-    uint32_t pa[2][4], da[2][4];
-    tc_p_ds<kBias, true>(s, dp, slse + 16 * warp, sdelta + 16 * warp, bb,
-                         q0 + 16 * warp, k0, gr, t, Sq, Sk, scale, inv_sk,
-                         pa, da);
-    // dQ += dS K over the chunk's 32 keys
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mma_b(dq_acc[n], da[ks], skt, LDT, 8 * n + gr, ks, t);
+    fence_barrier_init();
   }
-  const int row0 = q0 + 16 * warp + gr;
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // -------------------------------------- producer: TMA and the stats
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kTile);
+      load_tile_bf16<D>(sk, &map_k, bar_kv, swaps & 2, k0, h, b);
+      load_tile_bf16<D>(sv, &map_v, bar_kv, swaps & 4, k0, h, b);
+    }
+    const float* lr = lse + static_cast<long long>(bh) * Sq;
+    const float* dr = delta + static_cast<long long>(bh) * Sq;
+    for (int j = 0; j < n_qt; ++j) {
+      const int s = j % kStages, q0 = j * kRows;
+      mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t sq = ring + s * L::kStage;
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::kTile);
+        load_tile_bf16<D>(sq, &map_q, bar_full + 8 * s, swaps & 1, q0, h, b);
+        load_tile_bf16<D>(sq + L::kTile, &map_g, bar_full + 8 * s, swaps & 8,
+                          q0, h, b);
+      }
+      float* st = stats + s * 2 * kRows;
+      for (int r = lane; r < kRows; r += 32) {
+        const bool in = q0 + r < Sq;
+        st[r] = in ? lr[q0 + r] : 0.f;
+        st[kRows + r] = in ? dr[q0 + r] : 0.f;
+      }
+      mbar_arrive(bar_full + 8 * s);
+    }
+    return;
+  }
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int key0 = k0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int key1 = key0 + 8;
+  const float* bk0 = nullptr;
+  const float* bk1 = nullptr;
+  if (kBias) {
+    const float* bb = bias + bh * bias_bh_stride;
+    bk0 = bb + min(key0, Sk - 1);
+    bk1 = bb + min(key1, Sk - 1);
+  }
+  const float sc2 = scale * kLog2e;
+  const float inv_sk = 1.f / Sk;
+  const bool keys_ragged = k0 + kRows > Sk;
+
+  float sacc[NQ / 2], dpacc[NQ / 2], dkacc[D / 2], dvacc[D / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
-    if (row >= Sq) continue;
-    const long long off = (static_cast<long long>(bh) * Sq + row) * D + 2 * t;
+  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+  uint32_t pa[NQ / 16][4], da[NQ / 16][4];  // P^T, dS^T as A fragments
+
+  mbar_wait(bar_kv, 0);
+  for (int j = 0; j < n_qt; ++j) {
+    const int s = j % kStages, q0 = j * kRows;
+    const uint32_t sq = ring + s * L::kStage;
+    const uint32_t sg = sq + L::kTile;
+    const float* st = stats + s * 2 * kRows;  // lse, then delta
+    const bool ragged = keys_ragged || q0 + kRows > Sq;
+    mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * n) =
-          __floats2bfloat162_rn(dq_acc[n][2 * half] * scale,
-                                dq_acc[n][2 * half + 1] * scale);
+    for (int hq = 0; hq < kRows / NQ; ++hq) {
+      const int c0 = hq * NQ;  // the sub-tile's first query in the tile
+      if (q0 + c0 >= Sq) break;  // wholly past Sq (the last tile's rest)
+
+      // S^T = K Q^T and dP^T = V dO^T over this sub-tile's queries
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<NQ, 0>(sacc, desc_k(sk, ks, 0), desc_k(sq, ks, c0), ks > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss<NQ, 0>(dpacc, desc_k(sv, ks, 0), desc_k(sg, ks, c0),
+                        ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T, and the previous sub-tile's dV and dK
+      fence_regs(sacc);
+      if (hq == 0 && j > 0 && lane == 0)
+        mbar_arrive(bar_empty + 8 * ((j - 1) % kStages));
+
+      // P^T in place of S^T while dP^T runs; lse per column
+      uint32_t clamped = 0;  // bias: the scores the clamp took (dS = 0)
+#pragma unroll
+      for (int jj = 0; jj < NQ / 8; ++jj) {
+        const int c = c0 + 8 * jj + 2 * t;
+        const float2 ls = *reinterpret_cast<const float2*>(st + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jj + e;
+          const float l = (e & 1) ? ls.y : ls.x;
+          const int gq = q0 + c + (e & 1);
+          float p;
+          if (kBias) {
+            const float* bk = (e & 2) ? bk1 : bk0;
+            const float xr = fmaf(
+                sacc[i], scale,
+                gq < Sq ? bk[static_cast<long long>(gq) * Sk] : 0.f);
+            p = l == kNeg ? inv_sk : exp2_ftz((fmaxf(xr, kNeg) - l) * kLog2e);
+            if (xr < kNeg) clamped |= 1u << i;
+          } else {
+            p = exp2_ftz(fmaf(sacc[i], sc2, -l * kLog2e));
+          }
+          if (ragged && (gq >= Sq || ((e & 2) ? key1 : key0) >= Sk)) p = 0.f;
+          sacc[i] = p;
+        }
+        TLX_A_FRAG(pa, 4 * jj) = pack_bf16(sacc[4 * jj], sacc[4 * jj + 1]);
+        TLX_A_FRAG(pa, 4 * jj + 2) =
+            pack_bf16(sacc[4 * jj + 2], sacc[4 * jj + 3]);
+      }
+      // dV += P^T dO
+      fence_regs(pa);
+      fence_regs(dvacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)
+        wgmma_rs<D>(dvacc, pa[kk], desc_mn(sg, c0 + 16 * kk), 1);
+      wgmma_commit();
+
+      // dS^T = P^T (dP^T - delta); dK += dS^T Q
+      wgmma_wait<1>();  // dP^T
+      fence_regs(dpacc);
+#pragma unroll
+      for (int jj = 0; jj < NQ / 8; ++jj) {
+        const int c = c0 + 8 * jj + 2 * t;
+        const float2 dl = *reinterpret_cast<const float2*>(st + kRows + c);
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * jj + e;
+          float d0 = sacc[i] * (dpacc[i] - dl.x);
+          float d1 = sacc[i + 1] * (dpacc[i + 1] - dl.y);
+          if (kBias) {
+            if (clamped >> i & 1) d0 = 0.f;
+            if (clamped >> (i + 1) & 1) d1 = 0.f;
+          }
+          TLX_A_FRAG(da, i) = pack_bf16(d0, d1);
+        }
+      }
+      fence_regs(da);
+      fence_regs(dkacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)
+        wgmma_rs<D>(dkacc, da[kk], desc_mn(sq, c0 + 16 * kk), 1);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(dkacc);
+  fence_regs(dvacc);
+
+  const long long base = static_cast<long long>(bh) * Sk * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (key0 < Sk) {
+      const long long off = base + static_cast<long long>(key0) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+          dkacc[4 * jj] * scale, dkacc[4 * jj + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dvacc[4 * jj], dvacc[4 * jj + 1]);
+    }
+    if (key1 < Sk) {
+      const long long off = base + static_cast<long long>(key1) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+          dkacc[4 * jj + 2] * scale, dkacc[4 * jj + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dvacc[4 * jj + 2], dvacc[4 * jj + 3]);
+    }
   }
 }
+#undef TLX_A_FRAG
 
 // --------------------------------------------------------------- launch
 template <typename KvKernel, typename QKernel>
@@ -694,87 +889,122 @@ cudaError_t set_smem(KvKernel kv_kernel, size_t kv_smem, QKernel q_kernel,
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
 }
 
-// dk/dv then dq, each on its own grid of blocks of `rows` rows.
-template <typename KvKernel, typename QKernel, typename T>
-cudaError_t launch_pair(KvKernel kv_kernel, QKernel q_kernel, int threads,
-                        int rows, size_t kv_smem, size_t q_smem, const T* q,
-                        const T* k, const T* v, const T* g, const float* bias,
-                        const float* lse, const float* delta, T* dq, T* dk,
-                        T* dv, int bh, int sq, int sk, int heads,
-                        const Strides& st, long long bias_bh_stride,
-                        float scale, cudaStream_t stream) {
-  const long long kv_blocks = (long long)bh * ((sk + rows - 1) / rows);
-  const long long q_blocks = (long long)bh * ((sq + rows - 1) / rows);
+// f32: delta, then dk/dv and dq, each on its own grid of 64-row blocks.
+template <int D, bool kBias>
+cudaError_t launch_f32_kind(const float* q, const float* k, const float* v,
+                            const float* g, const float* bias,
+                            const float* lse, const float* delta, float* dq,
+                            float* dk, float* dv, int bh, int sq, int sk,
+                            int heads, const Strides& st,
+                            long long bias_bh_stride, float scale,
+                            cudaStream_t stream) {
+  static const cudaError_t err =  // once per process and variant
+      set_smem(flash_bwd_dkdv<D, kBias>, Smem<D>::kBytes,
+               flash_bwd_dq<D, kBias>, Smem<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const long long kv_blocks = (long long)bh * ((sk + kTile - 1) / kTile);
+  const long long q_blocks = (long long)bh * ((sq + kTile - 1) / kTile);
   if (kv_blocks >= (1ll << 31) || q_blocks >= (1ll << 31))
     return cudaErrorInvalidValue;
-  kv_kernel<<<(unsigned)kv_blocks, threads, kv_smem, stream>>>(
-      q, k, v, g, bias, lse, delta, dk, dv, sq, sk, heads, st,
-      bias_bh_stride, scale);
+  flash_bwd_dkdv<D, kBias><<<(unsigned)kv_blocks, kThreads, Smem<D>::kBytes,
+                             stream>>>(q, k, v, g, bias, lse, delta, dk, dv,
+                                       sq, sk, heads, st, bias_bh_stride,
+                                       scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  q_kernel<<<(unsigned)q_blocks, threads, q_smem, stream>>>(
-      q, k, v, g, bias, lse, delta, dq, sq, sk, heads, st, bias_bh_stride,
-      scale);
+  flash_bwd_dq<D, kBias><<<(unsigned)q_blocks, kThreads, Smem<D>::kBytes,
+                           stream>>>(q, k, v, g, bias, lse, delta, dq, sq, sk,
+                                     heads, st, bias_bh_stride, scale);
   return cudaGetLastError();
 }
 
-template <int D, typename T, bool kBias>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const void* g, const float* bias, const float* lse,
-                         const float* delta, void* dq, void* dk, void* dv,
-                         int bh, int sq, int sk, int heads, const Strides& st,
-                         long long bias_bh_stride, float scale,
-                         cudaStream_t stream) {
-  // the tensor-core kernels for bf16, the FMA kernels for f32
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    static const cudaError_t err =  // once per process and variant
-        set_smem(flash_bwd_dkdv_tc<D, kBias>, TcSmem<D>::kDkdv,
-                 flash_bwd_dq_tc<D, kBias>, TcSmem<D>::kDq);
-    if (err != cudaSuccess) return err;
-    return launch_pair(flash_bwd_dkdv_tc<D, kBias>, flash_bwd_dq_tc<D, kBias>,
-                       kTcThreads, kTcRows, TcSmem<D>::kDkdv, TcSmem<D>::kDq,
-                       qt, kt, vt, gt, bias, lse, delta, static_cast<T*>(dq),
-                       static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk,
-                       heads, st, bias_bh_stride, scale, stream);
-  } else {
-    static const cudaError_t err =
-        set_smem(flash_bwd_dkdv<D, kBias>, Smem<D>::kBytes,
-                 flash_bwd_dq<D, kBias>, Smem<D>::kBytes);
-    if (err != cudaSuccess) return err;
-    return launch_pair(flash_bwd_dkdv<D, kBias>, flash_bwd_dq<D, kBias>,
-                       kThreads, kTile, Smem<D>::kBytes, Smem<D>::kBytes, qt,
-                       kt, vt, gt, bias, lse, delta, static_cast<T*>(dq),
-                       static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk,
-                       heads, st, bias_bh_stride, scale, stream);
-  }
-}
-
-template <int D, typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const void* o, const void* g, const float* bias,
-                     const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int bh, int sq, int sk, int heads,
-                     const Strides& st, long long bias_bh_stride, float scale,
-                     cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* g, const float* bias,
+                       const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int bh, int sq, int sk, int heads,
+                       const Strides& st, long long bias_bh_stride,
+                       float scale, cudaStream_t stream) {
   const long long rows = (long long)bh * sq;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-  flash_bwd_delta<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(g), delta, rows, sq,
-      heads, D, st);
+  flash_bwd_delta<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(g), delta, rows,
+      sq, heads, D, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
   if (bias != nullptr)
-    return launch_typed<D, T, true>(q, k, v, g, bias, lse, delta, dq, dk, dv,
+    return launch_f32_kind<D, true>(f(q), f(k), f(v), f(g), bias, lse, delta,
+                                    w(dq), w(dk), w(dv), bh, sq, sk, heads,
+                                    st, bias_bh_stride, scale, stream);
+  return launch_f32_kind<D, false>(f(q), f(k), f(v), f(g), bias, lse, delta,
+                                   w(dq), w(dk), w(dv), bh, sq, sk, heads, st,
+                                   bias_bh_stride, scale, stream);
+}
+
+// bf16: dq (which writes delta), then dk/dv, on one set of tensor maps.
+template <int D, bool kBias>
+cudaError_t launch_bf16_kind(const CUtensorMap* maps, const void* o,
+                             const void* g, const float* bias,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int bh, int sq, int sk,
+                             int heads, const Strides& st,
+                             long long bias_bh_stride, float scale, int swaps,
+                             cudaStream_t stream) {
+  constexpr size_t smem = Bf16Layout<D>::kSmem;
+  static const cudaError_t err =  // once per process and variant
+      set_smem(flash_bwd_dkdv_bf16<D, kBias>, smem,
+               flash_bwd_dq_bf16<D, kBias>, smem);
+  if (err != cudaSuccess) return err;
+  const long long q_blocks = (long long)bh * ((sq + kRows - 1) / kRows);
+  const long long kv_blocks = (long long)bh * ((sk + kRows - 1) / kRows);
+  if (kv_blocks >= (1ll << 31) || q_blocks >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  flash_bwd_dq_bf16<D, kBias><<<(unsigned)q_blocks, kBf16Threads, smem,
+                                stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(o),
+      static_cast<const T*>(g), bias, lse, delta, static_cast<T*>(dq), sq, sk,
+      heads, st, bias_bh_stride, scale, swaps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_bf16<D, kBias><<<(unsigned)kv_blocks, kBf16Threads, smem,
+                                  stream>>>(
+      maps[0], maps[1], maps[2], maps[3], bias, lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads,
+      bias_bh_stride, scale, swaps);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* g, const float* bias,
+                        const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int batch, int heads, int sq, int sk,
+                        const Strides& st, long long bias_bh_stride,
+                        float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, dO: 64-row tiles
+  const void* bases[4] = {q, k, v, g};
+  const long long* strides[4] = {st.q, st.k, st.v, st.g};
+  const int lengths[4] = {sq, sk, sk, sq};
+  int swaps = 0;
+  for (int i = 0; i < 4; ++i) {
+    bool swap;
+    if (!make_view_map(&maps[i], bases[i], strides[i], batch, heads,
+                       lengths[i], D, kRows, &swap))
+      return cudaErrorInvalidValue;
+    swaps |= swap << i;
+  }
+  const int bh = batch * heads;
+  if (bias != nullptr)
+    return launch_bf16_kind<D, true>(maps, o, g, bias, lse, delta, dq, dk, dv,
+                                     bh, sq, sk, heads, st, bias_bh_stride,
+                                     scale, swaps, stream);
+  return launch_bf16_kind<D, false>(maps, o, g, bias, lse, delta, dq, dk, dv,
                                     bh, sq, sk, heads, st, bias_bh_stride,
-                                    scale, stream);
-  return launch_typed<D, T, false>(q, k, v, g, bias, lse, delta, dq, dk, dv,
-                                   bh, sq, sk, heads, st, bias_bh_stride,
-                                   scale, stream);
+                                    scale, swaps, stream);
 }
 
 }  // namespace
@@ -782,12 +1012,15 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // q, o, dout: [batch, heads, sq, d] and k, v: [batch, heads, sk, d], given
 // by element strides (15 values: batch, head and row strides of q, k, v,
 // o and dout in turn), the head dim contiguous; all f32 or all bf16
-// (is_bf16).  bias: null or contiguous f32 [1 or batch*heads, sq, sk]
-// (bias_per_bh).  lse: the forward's f32 [batch*heads, sq]; delta: f32
-// scratch of the same shape.  dq: contiguous [batch*heads, sq, d]; dk, dv:
-// contiguous [batch*heads, sk, d], in the inputs' dtype.  Launches three
-// kernels on `stream` without synchronising; returns the first
-// cudaError_t of the launches.
+// (is_bf16), for bf16 every row 16-byte aligned and every stride a whole
+// number of 16-byte units.  bias: null or contiguous f32 [1 or
+// batch*heads, sq, sk] (bias_per_bh).  lse: the forward's f32
+// [batch*heads, sq]; delta: f32 scratch of the same shape.  dq: contiguous
+// [batch*heads, sq, d]; dk, dv: contiguous [batch*heads, sk, d], in the
+// inputs' dtype.  Launches two kernels (bf16: dq, then dk/dv) or three
+// (f32: delta, dk/dv, dq) on `stream` without synchronising; returns the
+// first cudaError_t of the launches (cudaErrorInvalidValue also when the
+// driver refuses a tensor map).
 extern "C" int tlx_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* bias, const void* lse, void* delta,
@@ -808,25 +1041,29 @@ extern "C" int tlx_flash_attention_bwd(
   const long long bs = bias_per_bh ? (long long)sq * sk : 0;
   const int bh = batch * heads;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-#define TLX_LAUNCH(D, T)                                                    \
-  return launch_d<D, T>(q, k, v, o, dout, b, l, dl, dq, dk, dv, bh, sq, sk, \
-                        heads, st, bs, scale, cs)
   if (is_bf16) {
+#define TLX_LAUNCH(D)                                                       \
+  return launch_bf16<D>(q, k, v, o, dout, b, l, dl, dq, dk, dv, batch,      \
+                        heads, sq, sk, st, bs, scale, cs)
     switch (d) {
-      case 32: TLX_LAUNCH(32, __nv_bfloat16);
-      case 64: TLX_LAUNCH(64, __nv_bfloat16);
-      case 96: TLX_LAUNCH(96, __nv_bfloat16);
-      case 128: TLX_LAUNCH(128, __nv_bfloat16);
+      case 32: TLX_LAUNCH(32);
+      case 64: TLX_LAUNCH(64);
+      case 96: TLX_LAUNCH(96);
+      case 128: TLX_LAUNCH(128);
     }
-  } else {
-    switch (d) {
-      case 32: TLX_LAUNCH(32, float);
-      case 64: TLX_LAUNCH(64, float);
-      case 96: TLX_LAUNCH(96, float);
-      case 128: TLX_LAUNCH(128, float);
-    }
-  }
 #undef TLX_LAUNCH
+  } else {
+#define TLX_LAUNCH(D)                                                       \
+  return launch_f32<D>(q, k, v, o, dout, b, l, dl, dq, dk, dv, bh, sq, sk, \
+                       heads, st, bs, scale, cs)
+    switch (d) {
+      case 32: TLX_LAUNCH(32);
+      case 64: TLX_LAUNCH(64);
+      case 96: TLX_LAUNCH(96);
+      case 128: TLX_LAUNCH(128);
+    }
+#undef TLX_LAUNCH
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -276,6 +276,17 @@ __device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t da,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<32, 0>(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
                                        uint64_t db, int scale_d) {
   asm volatile(
@@ -405,10 +416,24 @@ static inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType dtype,
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, dtype, rank, const_cast<void*>(base), dims, strides, box,
-            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode = [&] {
+    return fn(map, dtype, rank, const_cast<void*>(base), dims, strides, box,
+              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // The encoder needs a current context, and a thread PyTorch has made
+    // none current on (autograd's backward thread) has none: bind the
+    // primary context of the tensor's device, as a launch would, and
+    // encode again.
+    cudaPointerAttributes attr;
+    if (cudaPointerGetAttributes(&attr, base) == cudaSuccess &&
+        cudaSetDevice(attr.device) == cudaSuccess)
+      r = encode();
+  }
+  return r == CUDA_SUCCESS;
 }
 
 static inline bool make_bf16_map(CUtensorMap* map, const void* base, int rank,

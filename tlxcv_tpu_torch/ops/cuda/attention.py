@@ -225,11 +225,12 @@ def _launch_kernel(q, k, v, bias, scale, with_lse=False):
 
 
 def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
-    """dq, dk, dv of a card forward: the backward kernel's three launches
-    (delta, dk and dv, dq) on the forward's inputs, its output ``out`` (as
-    the forward stored it), its log-sum-exp ``lse`` and the output's
-    gradient ``grad``; contiguous in q's, k's and v's shapes and dtype.
-    Counts one launch in ``flash_attention_backward.launches``."""
+    """dq, dk, dv of a card forward: the backward kernels (bf16: dq, which
+    also writes delta = rowsum(grad * out), then dk and dv; f32: delta, dk
+    and dv, dq) on the forward's inputs, its output ``out`` (as the forward
+    stored it), its log-sum-exp ``lse`` and the output's gradient
+    ``grad``; contiguous in q's, k's and v's shapes and dtype.  Counts one
+    launch in ``flash_attention_backward.launches``."""
     if q.device.index != torch.cuda.current_device():
         with torch.cuda.device(q.device):
             return flash_attention_backward(q, k, v, bias, scale, out, lse,
@@ -237,7 +238,8 @@ def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
     per_16_bytes = 16 // q.element_size()
     if (grad.dtype != q.dtype or grad.stride(-1) != 1 or grad.data_ptr() % 16
             or any(st % per_16_bytes for st in grad.stride()[:-1])):
-        # e.g. the expanded gradient of a sum: the kernels read bf16 pairs
+        # e.g. the expanded gradient of a sum: the kernels read it by TMA
+        # and 16-byte loads
         grad = grad.to(q.dtype).contiguous()
     sq, d = q.shape[-2:]
     batch, heads = (1, q.shape[0]) if q.ndim == 3 else q.shape[:2]
@@ -308,4 +310,4 @@ def flash_attention(q, k, v, bias=None, scale=None):
 
 
 flash_attention.launches = 0  # kernel launches since the last reset
-flash_attention_backward.launches = 0  # backward calls (3 kernels each)
+flash_attention_backward.launches = 0  # backward calls (2 or 3 kernels)
