@@ -26,6 +26,12 @@
                                       # contract line
     python3 chip_smoke.py --seg       # only HRNet-W18 segmentation, both
                                       # graphs checked and served
+    python3 chip_smoke.py --segmentation  # only flash attention at the
+                                      # head dims it pads (BIT's grids and
+                                      # D from 2 to 112, forward and
+                                      # backward) and the segmentation zoo
+                                      # and BIT, checked and served; no
+                                      # contract line
     python3 chip_smoke.py --transformers  # only DeiT-B and Swin-B
     python3 chip_smoke.py --detectors # only the flash kernel's checks and
                                       # times (DETR's grids among them) and
@@ -214,6 +220,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ours), each with gradients against the CPU (``train_check``), a loss
     falling on one batch and ``Trainer.train`` timed, bf16 over f32
     masters.
+
+15. (run after phase 12) flash_padded: flash attention at head dims the
+    kernel does not take, which its wrapper zero-pads to the next of 32,
+    64, 96 and 128: BIT's two b32 grids ([256, 8, 8, 4] encoder, [256,
+    1024 queries, 4 keys, 4] decoder) and D in {2, 4, 6, 8, 16, 24, 48,
+    80, 112}, bf16 and f32, forward and backward against the plain
+    versions at the real D, the backward bitwise over two runs; D = 129
+    raises; BIT's grids timed beside SDPA and the bound of the unpadded
+    bytes.  segmentation: the segmentation zoo built from the in-repo
+    YAMLs by ``build_seg_model`` (BiSeNetV2, Fast-SCNN, ENet, UNet,
+    DeepLabV3+ R50-vD, EncNet R101-vD, FastFCN R50-vD) and BIT, random
+    weights from a seed, each checked at b1 on a reduced frame against
+    the CPU in f32 and bf16, then served in bf16 (``phase_segmentation``
+    gives the batches and frames); BIT with 17 flash launches a forward.
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -3501,6 +3521,332 @@ def phase_detectors(flash_record, profile):
     torch.cuda.empty_cache()
 
 
+# ------------------------------- segmentation, BIT and padded head dims
+# BIT at b32 256^2 (a 32 x 32 grid at stride 8): width 32 over 8 heads, so
+# head dim 4, which the wrapper pads to 32; (name, Sq, Sk) of its token
+# encoder (4 tokens an image, both images' together) and of each decoder
+# layer (an image's 1024 pixels over its 4 tokens)
+BIT_BATCH, BIT_HEADS, BIT_D = 32, 8, 4
+BIT_GRIDS = [("bit_encoder", 8, 8), ("bit_decoder", 1024, 4)]
+PADDED_DS = (2, 4, 6, 8, 16, 24, 48, 80, 112)
+
+
+def bit_qkv(name, dtype, seed, batch=BIT_BATCH):
+    """q, k, v as BIT hands them over: the encoder's [B, H, 8, D] views of
+    its packed qkv projection, the decoder's [B, H, S, D] views of its
+    separate q, k and v projections."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h, d = BIT_HEADS, BIT_D
+    if name == "bit_encoder":
+        packed = torch.randn(batch, 8, 3, h, d, generator=g, device="cuda")
+        return list(packed.to(dtype).permute(2, 0, 3, 1, 4))
+    return [torch.randn(batch, n, h * d, generator=g, device="cuda")
+            .to(dtype).view(batch, n, h, d).transpose(1, 2)
+            for n in (1024, 4, 4)]
+
+
+def check_padded(name, q, k, v, dtype):
+    """The flash wrapper at a head dim it pads: the output against the
+    plain version at the real D (on the same inputs, in f32), and dq, dk,
+    dv through ``autograd.grad`` (the pad's and the slice's backward around
+    the backward kernel) against ``flash_attention_backward_plain`` at the
+    real D on the kernel's output, each within the forward's bound of its
+    largest magnitude, bitwise over two runs; one forward and one backward
+    launch a call.  Raises on a miss; returns the record."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    sk = k.shape[-2]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (A.flash_attention.launches, A.flash_attention_backward.launches)
+    out = A.flash_attention(*leaves)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    ref, lse = A.flash_attention_plain(qf, kf, vf, return_lse=True)
+    fwd_err = _rel_card(out, ref)
+    g = torch.Generator(device="cuda").manual_seed(sk)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    again = torch.autograd.grad(A.flash_attention(*leaves), leaves, dout)
+    torch.cuda.synchronize()
+    launched = (A.flash_attention.launches - before[0],
+                A.flash_attention_backward.launches - before[1])
+    want = A.flash_attention_backward_plain(qf, kf, vf, None, None,
+                                            out.detach().float(), lse,
+                                            dout.float())
+    errs = _grad_rel_errs(got, want, sk)
+    finite = bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(a).all()) for a in got)
+    bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+    record = {"case": name, "dtype": str(dtype)[6:],
+              "shape": [q.shape[:-2].numel(), q.shape[-2], sk, q.shape[-1]],
+              "padded_to": A.padded_head_dim(q.shape[-1]),
+              "forward_rel_err": fwd_err, "rel_err_dq_dk_dv": errs,
+              "bound": tol, "bitwise_repeat": bitwise, "finite": finite,
+              "launches": launched}
+    if (not finite or not bitwise or launched != (2, 2) or fwd_err > tol
+            or max(errs) > tol):
+        emit({"phase": "flash_padded", "failed": record})
+        raise AssertionError(f"flash at a padded head dim {name} {dtype}: "
+                             f"{record}")
+    return record
+
+
+def phase_padded_flash(flash_record):
+    """Flash attention at head dims the kernel does not take, which the
+    wrapper zero-pads to the next of 32/64/96/128 (``padded_head_dim``):
+    ``check_padded`` in bf16 and f32 at BIT's two b32 grids and at D in
+    ``PADDED_DS`` on [2, 3, 77, D] queries over 65 keys; D = 129 raises.
+    Then BIT's two grids timed in bf16: the wrapper with its pad
+    (``ms``: CUDA-graph replays; ``event_ms``: events around each call),
+    the kernel alone on inputs padded beforehand (``kernel_ms``), the plain
+    version, SDPA at the real D (``library_ms``) and the bound, which
+    counts the bytes of the unpadded q, k, v and output.  Adds the grids'
+    record to ``flash_record`` (``bit_grids``)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, _, _ in BIT_GRIDS:
+            results.append(check_padded(
+                name, *bit_qkv(name, dtype, seed=len(results)), dtype))
+        for d in PADDED_DS:
+            g = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v = (torch.randn(2, 3, n, d, generator=g, device="cuda")
+                       .to(dtype) for n in (77, 65, 65))
+            results.append(check_padded(f"d{d}", q, k, v, dtype))
+    try:
+        A.flash_attention(*qkv(2, 16, 129, torch.bfloat16, seed=1))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention took head dim 129")
+    emit({"phase": "flash_padded", "checks": results, "cases": len(results),
+          "worst": {dt: {key: max(max(r[key]) if isinstance(r[key], list)
+                                  else r[key] for r in results
+                                  if r["dtype"] == dt)
+                         for key in ("forward_rel_err", "rel_err_dq_dk_dv")}
+                    for dt in ("bfloat16", "float32")}})
+
+    def times(name, sq, sk):
+        q, k, v = bit_qkv(name, torch.bfloat16, seed=21)
+        dp = A.padded_head_dim(BIT_D)
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - BIT_D))
+                      for t in (q, k, v))
+        bh = BIT_BATCH * BIT_HEADS
+        bound, bound_by = attention_bound_ms(bh, sq, sk, BIT_D,
+                                             torch.bfloat16)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+        return {"shape": [bh, sq, sk, BIT_D], "padded_to": dp,
+                "ms": graph_ms(lambda: A.flash_attention(q, k, v)),
+                "event_ms": time_ms(lambda: A.flash_attention(q, k, v)),
+                "kernel_ms": graph_ms(lambda: A._launch_kernel(
+                    qp, kp, vp, None, BIT_D ** -0.5)),
+                "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v)),
+                "library_ms": graph_ms(sdpa),
+                "library_event_ms": time_ms(sdpa),
+                "bound_ms": bound, "bound_us": 1e3 * bound,
+                "bound_by": bound_by}
+
+    timings = {name: times(name, sq, sk) for name, sq, sk in BIT_GRIDS}
+    emit({"phase": "kernel_times", "flash_attention_bit": timings})
+    flash_record["bit_grids"] = timings
+    return results
+
+
+class PairPredict(torch.nn.Module):
+    """A change detector as the checks and ``serve`` take a model: one
+    [B, H, W, 6] tensor, the two images side by side on the channel axis,
+    handed over as ``model(t1, t2)``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x[..., :3], x[..., 3:])
+
+    def predict(self, x):
+        return self.forward(x)
+
+
+# (leg, config under configs/segmentation, served batch, served frame,
+# checked frame, input channels, expected launches a forward); the frames
+# are (H, W).  Cityscapes frames are 1024 x 2048 as PaddleSeg evaluates;
+# UNet's 1028 x 2052 is the nearest whose valid-padding halvings stay
+# whole (its output 988 x 2012); FastFCN serves its ADE20K crop.
+SEG_LEGS = [
+    ("bisenetv2", "bisenet/bisenet_cityscapes_1024x1024_160k.yml", 8,
+     (1024, 2048), (256, 512), 3),
+    ("fastscnn", "fastscnn/fastscnn_cityscapes_1024x1024_160k.yml", 8,
+     (1024, 2048), (256, 512), 3),
+    ("enet", "enet/enet_cityscapes_1024x512_80k.yml", 8, (1024, 2048),
+     (256, 512), 3),
+    ("unet", "unet/unet_cityscapes_1024x512_160k.yml", 8, (1028, 2052),
+     (260, 516), 1),
+    ("deeplabv3p_r50vd_os8",
+     "deeplabv3p/deeplabv3p_resnet50_os8_cityscapes_1024x512_80k.yml", 4,
+     (1024, 2048), (256, 512), 3),
+    ("encnet_r101vd_os8",
+     "encnet/encnet_resnet101_os8_cityscapes_1024x512_80k.yml", 4,
+     (1024, 2048), (256, 512), 3),
+    ("fastfcn_r50vd_os8",
+     "fastfcn/fastfcn_resnet50_os8_ade20k_480x480_120k.yml", 16,
+     (480, 480), (240, 240), 3),
+]
+
+
+def unet_out(hw, depth=3):
+    """A valid-padding UNet's output size: two 3x3 convs (-4) a level,
+    halved on the way down, doubled on the way up."""
+    out = []
+    for n in hw:
+        for _ in range(depth - 1):
+            n = (n - 4) // 2
+        n -= 4
+        for _ in range(depth - 1):
+            n = 2 * n - 4
+        out.append(n)
+    return tuple(out)
+
+
+def seg_logit_check(name, cpu, card, x1, expect):
+    """f32 and bf16 logits of ``card`` against the CPU's models on ``x1``;
+    ``card`` is left with bf16 parameters, and each card forward must
+    launch exactly ``expect`` kernels of ours.  The bounds are PERF.md
+    §2's, 1e-3 (f32) and 3e-2 (bf16) of the logits' largest magnitude
+    against the CPU's f32 model, where the CPU's own models meet them:
+    its f32 model within 1e-4 of that scale from its float64 model, its
+    bf16 model within 3e-2 from its f32 one.  Random BatchNorm networks
+    are chaotic at init (a rounding difference grows through the
+    normalised layers), and in bf16 most of these miss by far, the deep
+    ResNet-vD ones in f32 too (``model_check`` prints ``f32_chaotic`` and
+    ``bf16_chaotic``).  Where the CPU's own model misses, its dtype is
+    held as the detectors' are: f32
+    against the f64 model within ``CHAOTIC_F32_RMS`` times the CPU f32
+    model's rms error, bf16 within ``YOLO_BF16_RMS`` times the CPU bf16
+    model's rms error of the f32 model, and of the CPU's bf16 model.
+    Returns the card's f32 logits."""
+    with torch.inference_mode():
+        want = cpu(x1)
+        want64 = copy.deepcopy(cpu).double()(x1.double())
+        want16 = params_to(copy.deepcopy(cpu), torch.bfloat16)(
+            x1.to(torch.bfloat16)).float()
+        reset_launches()
+        got32 = card(x1.cuda()).float().cpu()
+        per_forward = launches()
+        params_to(card, torch.bfloat16)
+        got16 = card(x1.cuda().to(torch.bfloat16)).float().cpu()
+        if launches() != {k: 2 * v for k, v in per_forward.items()}:
+            raise AssertionError(f"{name}: the bf16 forward launched "
+                                 f"other kernels than the f32 one")
+    scale = want.abs().max().item()
+    err32 = (got32 - want).abs().max().item()
+    err16 = (got16 - want).abs().max().item()
+    chaotic32 = (want.double() - want64).abs().max().item() > 1e-4 * scale
+    chaotic16 = (want16 - want).abs().max().item() > 3e-2 * scale
+    rms = {"f32_card_f64": _rms(got32, want64),
+           "f32_cpu_f64": _rms(want, want64),
+           "bf16_card_f32_cpu": _rms(got16, want),
+           "bf16_cpu_f32_cpu": _rms(want16, want),
+           "bf16_card_bf16_cpu": _rms(got16, want16)}
+    ok32 = (rms["f32_card_f64"] <= CHAOTIC_F32_RMS * rms["f32_cpu_f64"]
+            if chaotic32 else err32 <= 1e-3 * scale)
+    ok16 = (rms["bf16_card_f32_cpu"]
+            <= YOLO_BF16_RMS[0] * rms["bf16_cpu_f32_cpu"]
+            and rms["bf16_card_bf16_cpu"]
+            <= YOLO_BF16_RMS[1] * rms["bf16_cpu_f32_cpu"]
+            if chaotic16 else err16 <= 3e-2 * scale)
+    check = {"logit_scale": scale, "f32_max_abs_err": err32,
+             "bf16_max_abs_err": err16, "f32_chaotic": chaotic32,
+             "bf16_chaotic": chaotic16, "rms": rms,
+             "launches_per_forward": {k: v for k, v in per_forward.items()
+                                      if v}}
+    emit({"phase": "model_check", "model": name, "batch": x1.shape[0],
+          "shape": list(got32.shape), **check})
+    if not (torch.isfinite(got32).all() and torch.isfinite(got16).all()):
+        raise AssertionError(f"non-finite {name} outputs on the card")
+    if not (ok32 and ok16):
+        raise AssertionError(f"{name} outputs disagree with the CPU: "
+                             f"{check}")
+    if per_forward != {k: expect.get(k, 0) for k in per_forward}:
+        raise AssertionError(f"{name}: kernel launches {per_forward} in one "
+                             f"forward, expected {expect}")
+    return got32
+
+
+def seg_leg(name, model, classes, batch, served, checked, channels, gen,
+            profile, expect=None):
+    """One segmentation leg: BatchNorm statistics from one train-mode
+    forward of 2 seeded images at the checked frame on the CPU
+    (``data_bn_statistics``); f32 and bf16 logits on the card at b1 on
+    the checked frame against the CPU (``seg_logit_check``, ``expect``
+    launches a forward); then the task's ``predict`` served in bf16 (float
+    parameters bf16, statistics f32) at ``batch`` on the served frame,
+    median of 10 rounds after 3, peak memory, and with ``profile`` the
+    idle share."""
+    from tlxcv_tpu_torch.tasks import ImageSegmentation
+
+    expect = expect or {}
+    pair = name == "bit"
+    c = 2 * channels if pair else channels
+    cpu = PairPredict(model) if pair else ImageSegmentation(model)
+    data_bn_statistics(cpu, torch.randn(2, *checked, c, generator=gen))
+    x1 = torch.randn(1, *checked, c, generator=gen)
+    card = copy.deepcopy(cpu).cuda()
+    out = seg_logit_check(name, cpu, card, x1, expect)
+    out_hw = unet_out(checked) if name == "unet" else checked
+    if out.shape != (1, *out_hw, classes):
+        raise AssertionError(f"{name}: logits {tuple(out.shape)} at "
+                             f"{checked}, expected {(1, *out_hw, classes)}")
+    del cpu
+    x = torch.randn(batch, *served, c, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    out_hw = unet_out(served) if name == "unet" else served
+    counts, step = serve(card.eval(), x, expect, name, "bfloat16",
+                         check=check_seg(classes, out_hw))
+    if profile:
+        phase_profile(name, card, x, step_s=step)
+    del card, x
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_segmentation(flash_record, profile):
+    """The segmentation zoo and BIT, each built as the JAX package builds
+    it (``build_seg_model`` on the in-repo YAML: its ``num_classes``, a
+    string backbone by its ``resnet_vd`` factory at output stride 8),
+    random weights from a seed, checked and served by ``seg_leg``:
+    BiSeNetV2, Fast-SCNN, ENet (19 classes) and UNet (its default 1 input
+    channel, 19 classes) at b8, DeepLabV3+ on ResNet50-vD and EncNet on
+    ResNet101-vD at b4, all on Cityscapes frames; FastFCN on ResNet50-vD
+    (150 classes) at b16 on ADE20K's 480^2 crop; BIT at its defaults
+    (``create_model("bit")``: width 32 over 8 heads, 4 tokens, 1 encoder
+    and 8 decoder layers, 2 classes, BIT's published LEVIR-CD setting),
+    ``model(t1, t2)`` at b32 256^2 pairs, 17 flash launches a forward (1 +
+    2 x 8) at head dim 4, padded.  None of the others launches a kernel of
+    ours: their resizes are plain torch, as in the reference's default
+    path."""
+    import os
+
+    from tlxcv_tpu_torch import build_seg_model, create_model, load_seg_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gen = torch.Generator().manual_seed(0)
+    for name, cfg, batch, served, checked, channels in SEG_LEGS:
+        path = os.path.join(root, "configs", "segmentation", cfg)
+        model = build_seg_model(path, device="cpu", generator=gen)
+        classes = load_seg_config(path)["model"]["num_classes"]
+        seg_leg(name, model, classes, batch, served, checked, channels, gen,
+                profile)
+    bit = create_model("bit", device="cpu", generator=gen)
+    counts = seg_leg("bit", bit, 2, BIT_BATCH, (256, 256), (256, 256), 3,
+                     gen, profile, expect={"flash_attention": 17})
+    flash_record["bit_launches"] = counts["flash_attention"]
+
+
 # -------------------------------------- pose, landmarks, YOLOv3 training,
 # QAT served in int8, train-state checkpoints
 class Predict(torch.nn.Module):
@@ -4431,6 +4777,13 @@ def main():
         hrnet_seg_leg(profile)
         print(card_line(), flush=True)
         return 0
+    if "--segmentation" in sys.argv[1:]:  # the padded flash, the seg zoo
+        flash = {"name": "flash_attention"}
+        phase_padded_flash(flash)
+        phase_segmentation(flash, profile)
+        emit({"kernels": [flash]})
+        print(card_line(), flush=True)
+        return 0
     if "--transformers" in sys.argv[1:]:  # DeiT-B and Swin-B alone
         transformer_legs({}, profile)
         print(card_line(), flush=True)
@@ -4513,6 +4866,8 @@ def main():
     hrnet_seg_leg(profile)
     transformer_legs(flash, profile)
     phase_detectors(flash, profile)
+    phase_padded_flash(flash)
+    phase_segmentation(flash, profile)
     phase_train_check()
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)
@@ -4523,7 +4878,8 @@ def main():
     extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
              "vjp_ms", "vit_launches", "grouped_launches", "grouped_ms",
              "grouped_plain_ms", "grouped_bound_ms", "deit_launches",
-             "detr_launches", "detr_grids", "library_op", "qat_launches",
+             "detr_launches", "detr_grids", "bit_launches", "bit_grids",
+             "library_op", "qat_launches",
              "qat_ms", "qat_bound_ms", "qat_library_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,

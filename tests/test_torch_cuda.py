@@ -291,8 +291,8 @@ def test_flash_kernels_run_on_autograds_thread(cuda, dtype):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(2, 16, 48, device=cuda)
-    with pytest.raises(ValueError):  # head dim
+    q = torch.zeros(2, 16, 129, device=cuda)
+    with pytest.raises(ValueError, match="128"):  # head dim past 128
         flash_attention(q, q, q)
     q = torch.zeros(2, 16, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):  # dtype
@@ -1447,3 +1447,126 @@ def test_trainer_checkpoint_on_the_card(cuda, tmp_path):
         for k, v in ta.items():
             assert tb[k].device == v.device and tb[k].dtype == v.dtype
             assert torch.equal(tb[k], v), k
+
+
+# ------------------------- head dims the wrapper pads; the segmentation zoo
+_PADDED_D = [2, 4, 6, 8, 16, 24, 48, 80, 112]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", _PADDED_D)
+@pytest.mark.parametrize("grid", ["bit_encoder", "bit_decoder", "ragged"])
+def test_padded_head_dims_match_plain(cuda, dtype, d, grid):
+    """A head dim the kernel does not take, zero-padded by the wrapper to
+    the next of 32/64/96/128: the output (q's shape, one launch) against
+    the plain version at the real D, and the gradients through autograd
+    (the pad's and the slice's backward around the backward kernel)
+    against ``flash_attention_backward_plain`` at the real D on the
+    kernel's output, bitwise over two runs.  Grids: BIT's encoder ([B, 8, 8, D] views of a packed qkv
+    projection) and decoder ([B, 8, 1024 queries, D] over 4 keys, views of
+    separate projections), and a ragged [6, 77, 65, D]."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    if grid == "bit_encoder":
+        packed = torch.randn(2, 8, 3, 8, d, generator=gen, device=cuda)
+        q, k, v = packed.to(dtype).permute(2, 0, 3, 1, 4)
+    elif grid == "bit_decoder":
+        q, k, v = (torch.randn(2, n, 8 * d, generator=gen, device=cuda)
+                   .to(dtype).view(2, n, 8, d).transpose(1, 2)
+                   for n in (1024, 4, 4))
+    else:
+        q = torch.randn(6, 77, d, generator=gen, device=cuda).to(dtype)
+        k, v = (torch.randn(6, 65, d, generator=gen, device=cuda).to(dtype)
+                for _ in range(2))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (A.flash_attention.launches, A.flash_attention_backward.launches)
+    out = A.flash_attention(*leaves)
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(
+        out.float(), A.flash_attention_plain(q.float(), k.float(), v.float()),
+        atol=_TOL[dtype], rtol=0)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    again = torch.autograd.grad(A.flash_attention(*leaves), leaves, dout)
+    assert (A.flash_attention.launches - before[0],
+            A.flash_attention_backward.launches - before[1]) == (2, 2)
+    _, lse = A.flash_attention_plain(q.float(), k.float(), v.float(),
+                                     return_lse=True)
+    want = A.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), None, None, out.detach().float(),
+        lse, dout.float())
+    for a, b, w, scale in zip(got, again, want,
+                              _bwd_scales(want, k.shape[-2])):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w, rtol=0,
+                                   atol=_TOL[dtype] * scale)
+
+
+def test_padding_leaves_the_kernels_own_head_dims_alone(cuda):
+    """At D = 64 the wrapper hands the kernel q, k, v as they are (ViT's
+    strided views, no copy): the output is the kernel's own token-major
+    store."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    packed = torch.randn(2, 50, 3, 4, 64, generator=g, device=cuda)
+    q, k, v = packed.to(torch.bfloat16).permute(2, 0, 3, 1, 4)
+    out = flash_attention(q, k, v)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+def test_bit_on_the_card_matches_the_cpu_with_17_launches(cuda):
+    """BIT at its published width (D = 4 padded to 32) at 64 px: 17 flash
+    launches a forward (1 encoder + 2 x 8 decoder), f32 against the
+    CPU."""
+    gen = torch.Generator().manual_seed(6)
+    cpu = create_model("bit", device="cpu", generator=gen).eval()
+    t1, t2 = (torch.randn(2, 64, 64, 3, generator=gen) for _ in range(2))
+    card = copy.deepcopy(cpu).to(cuda)
+    with torch.inference_mode():
+        want = cpu(t1, t2)
+        before = flash_attention.launches
+        got = card(t1.to(cuda), t2.to(cuda)).cpu()
+    assert flash_attention.launches == before + 17
+    torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max(),
+                               rtol=0)
+
+
+def test_enet_indices_on_the_card_equal_the_cpus(cuda):
+    """ENet's argmax pool on a tie-heavy input (ReLU'd small integers):
+    the card's values and indices bitwise the CPU's, and the unpool's
+    scatter through them."""
+    from tlxcv_tpu_torch.ops.image import (max_pool2d_with_argmax,
+                                           max_unpool2d)
+
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randint(-3, 3, (2, 64, 96, 16), generator=gen).clamp_min(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype)
+        want_v, want_i = max_pool2d_with_argmax(xc, 2, 2)
+        got_v, got_i = max_pool2d_with_argmax(xc.to(cuda), 2, 2)
+        assert torch.equal(got_i.cpu(), want_i)
+        assert torch.equal(got_v.cpu(), want_v)
+        y = torch.randn(want_v.shape, generator=gen).to(dtype)
+        assert torch.equal(
+            max_unpool2d(y.to(cuda), got_i, (64, 96)).cpu(),
+            max_unpool2d(y, want_i, (64, 96)))
+
+
+@pytest.mark.parametrize("name", ["BiSeNetV2", "ENet", "FastSCNN"])
+def test_segmentation_models_on_the_card_match_the_cpu(cuda, name):
+    """The fixed-width segmentation models at 128 px, f32 on the card (TF32
+    off) against the CPU; no kernel of ours launched."""
+    from tlxcv_tpu_torch.models import segmentation as S
+
+    gen = torch.Generator().manual_seed(9)
+    cpu = getattr(S, name)(num_classes=7, device="cpu", generator=gen).eval()
+    x = torch.randn(2, 128, 128, 3, generator=gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    before = (flash_attention.launches, int8_matmul.launches)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(cuda)).cpu()
+    assert (flash_attention.launches, int8_matmul.launches) == before
+    torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max(),
+                               rtol=0)

@@ -51,7 +51,13 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.facial_landmark_detection.pfld",
                  "tasks.human_pose_estimation",
                  "tasks.facial_landmark_detection", "ops.quant",
-                 "ops.hungarian", "train.bn_recal", "data.transforms"):
+                 "ops.hungarian", "train.bn_recal", "data.transforms",
+                 "models.backbones.resnet_vd", "models.segmentation.bisenet",
+                 "models.segmentation.unet", "models.segmentation.fast_scnn",
+                 "models.segmentation.deeplab",
+                 "models.segmentation.fastfcn", "models.segmentation.encnet",
+                 "models.segmentation.enet", "models.rs.layers",
+                 "models.rs.cd", "config", "ops.image"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -1,8 +1,11 @@
 """Model registry (counterpart of ``tlxcv_tpu/config.py:13-35``): a flat
-table of model factories keyed by name."""
+table of model factories keyed by name; and the segmentation configs
+(``load_seg_config``, ``build_seg_model``: ``tlxcv_tpu/config.py:161-201``),
+PaddleSeg-style YAMLs such as ``configs/segmentation/*/*.yml``."""
 from __future__ import annotations
 
 import functools
+import os
 import typing as tp
 
 from .device import resolve_device
@@ -47,6 +50,7 @@ def _populate():
     from .models import detection as D
     from .models import facial_landmark_detection as F
     from .models import human_pose_estimation as P
+    from .models import rs as RS
     from .models import segmentation as S
 
     for mod in (C, S):
@@ -58,6 +62,57 @@ def _populate():
     _MODEL_REGISTRY.setdefault("detr", D.detr_resnet50)
     _MODEL_REGISTRY.setdefault("pose_hrnet_w32", P.pose_hrnet_w32)
     _MODEL_REGISTRY.setdefault("pfld", F.PFLD)
+    _MODEL_REGISTRY.setdefault("bit", RS.BIT)
     for arch in ("ppyoloe_s", "ppyoloe_m", "ppyoloe_l", "ppyoloe_x"):
         _MODEL_REGISTRY.setdefault(
             arch, functools.partial(D.ppyoloe, arch))
+
+
+def load_seg_config(path):
+    """Load a PaddleSeg-style segmentation YAML with ``_base_`` inheritance
+    (the base's path is relative to the file): the child's top-level keys
+    replace the base's.  Needs PyYAML."""
+    try:
+        import yaml
+    except ImportError as err:
+        raise ImportError("load_seg_config reads YAML and needs PyYAML "
+                          "(the yaml module), which is not installed") \
+            from err
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    base_rel = cfg.pop("_base_", None)
+    if base_rel:
+        base = load_seg_config(
+            os.path.normpath(os.path.join(os.path.dirname(path), base_rel)))
+        base.update(cfg)
+        cfg = base
+    return cfg
+
+
+def build_seg_model(cfg_or_path, device=None, generator=None):
+    """Build the segmentation model a seg config names (a dict or a YAML
+    path) on ``device`` (``None``: the card), as the JAX package does: the
+    ``model.type`` class of ``models.segmentation`` (else a registered
+    name) with the config's ``num_classes`` and nothing else of the model
+    section, and a string ``backbone`` built by its ``resnet_vd`` factory
+    at its defaults (output stride 8)."""
+    cfg = (load_seg_config(cfg_or_path) if isinstance(cfg_or_path, str)
+           else dict(cfg_or_path))
+    from .models import segmentation as S
+    from .models.backbones import resnet_vd
+
+    device = resolve_device(device)
+    m = dict(cfg["model"])
+    name = m.pop("type")
+    kwargs = {"device": device, "generator": generator}
+    if "num_classes" in m:
+        kwargs["num_classes"] = m["num_classes"]
+    if isinstance(m.get("backbone"), str):
+        if name == "DeepLabV3P":
+            return S.deeplabv3p(backbone=m["backbone"], **kwargs)
+        kwargs["backbone"] = getattr(resnet_vd, m["backbone"])(
+            device=device, generator=generator)
+    factory = getattr(S, name, None)
+    if factory is None:
+        return create_model(name, **kwargs)
+    return factory(**kwargs)

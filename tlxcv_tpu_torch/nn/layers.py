@@ -611,13 +611,20 @@ def _max_pool(x, window, stride, padding):
     return out.contiguous()
 
 
+def _acc_dtype(x):
+    """f32 for the sums of f32 and bf16 inputs; float64 inputs (a CPU
+    reference) stay float64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _avg_pool(x, window, stride, padding):
     """Window mean in f32 that leaves padding out of the count (torch's
     count_include_pad=False), back in the input's dtype."""
     (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = _pool_geometry(
         x, window, stride, padding)
-    xf = F.pad(x.float().permute(0, 3, 1, 2), (w0, w1, h0, h1))
-    ones = F.pad(x.new_ones((1, 1, *x.shape[1:3]), dtype=torch.float32),
+    acc = _acc_dtype(x)
+    xf = F.pad(x.to(acc).permute(0, 3, 1, 2), (w0, w1, h0, h1))
+    ones = F.pad(x.new_ones((1, 1, *x.shape[1:3]), dtype=acc),
                  (w0, w1, h0, h1))
     summed = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)
     counts = F.avg_pool2d(ones, (kh, kw), (sh, sw), divisor_override=1)
@@ -665,9 +672,10 @@ class AdaptiveAvgPool2d(nn.Module):
         n, h, w, c = x.shape
         if h % oh == 0 and w % ow == 0:
             return x.reshape(n, oh, h // oh, ow, w // ow, c).mean((2, 4))
-        ah = _avg_matrix(h, oh).to(x.device)
-        aw = _avg_matrix(w, ow).to(x.device)
-        out = torch.einsum("ih,nhwc->niwc", ah, x.float())
+        acc = _acc_dtype(x)
+        ah = _avg_matrix(h, oh).to(x.device, acc)
+        aw = _avg_matrix(w, ow).to(x.device, acc)
+        out = torch.einsum("ih,nhwc->niwc", ah, x.to(acc))
         out = torch.einsum("jw,niwc->nijc", aw, out)
         return out.to(x.dtype)
 

@@ -18,6 +18,15 @@ from that statistic, deterministic).  The TPU kernel has no VJP; the JAX
 package trains on its einsum path, whose gradient this is.
 ``flash_attention_backward_plain`` is the backward's arithmetic in plain
 torch, for the tests and ``chip_smoke.py``.
+
+The kernel takes head dims 32, 64, 96 and 128.  On the card the wrapper
+zero-pads any other D up to 128 to the next of them (``padded_head_dim``)
+through ``F.pad``, so autograd slices the gradients back, and slices the
+output: zero columns add nothing to q.kᵀ and give zero output columns,
+and the scale stays D**-0.5 of the real D.  D > 128 raises.  The padding
+lives here, not in the kernel: a bf16 row of D = 4 is 8 bytes, below the
+16-byte global strides a TMA tensor map needs, and below ``wgmma``'s depth
+of 16 bf16 values.
 """
 from __future__ import annotations
 
@@ -25,11 +34,13 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_backward",
-           "flash_attention_plain", "flash_attention_backward_plain", "NEG"]
+           "flash_attention_plain", "flash_attention_backward_plain",
+           "padded_head_dim", "NEG"]
 
 # Clamp for additive bias entries (the reference's _NEG): an all -inf tile
 # would otherwise give exp(-inf - -inf) = NaN in the online softmax.
@@ -56,6 +67,16 @@ def _check_shapes(q, k, v, bias):
         if tuple(bias.shape[1:]) != (sq, sk):
             raise ValueError(f"bias must be [1|BH, {sq}, {sk}], got "
                              f"{tuple(bias.shape)}")
+
+
+def padded_head_dim(d):
+    """The kernel's head dim for a call at head dim ``d``: the least of
+    ``HEAD_DIMS`` that holds it; raises past 128."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"the kernel takes head dims up to {HEAD_DIMS[-1]} "
+                     f"(padding smaller ones to {HEAD_DIMS}), got {d}")
 
 
 def _acc_dtype(t):
@@ -288,25 +309,33 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, bias=None, scale=None):
     """softmax(q kᵀ·scale + bias)·v.  q: [BH, Sq, D] or [B, H, Sq, D]; k,
     v: [BH, Sk, D] or [B, H, Sk, D] with q's leading dims and D (any key
-    length: DETR's cross-attention has 100 queries over H·W keys); any
-    strides over a contiguous head dim; bias: optional additive [1|BH, Sq,
-    Sk] (BH = B·H), a constant (on the card a bias that requires grad
-    raises: the backward gives it none); scale defaults to D**-0.5.
-    Returns q's shape in q's dtype: [BH, Sq, D] contiguous, or [B, H, Sq,
-    D] stored token-major (a view of [B, Sq, H, D]).  On the card the
-    result has a ``grad_fn`` whose backward is the backward kernel."""
+    length: DETR's cross-attention has 100 queries over H·W keys; on the
+    card D <= 128, padded to the kernel's next head dim where it is not
+    one of them); any strides over a contiguous head dim; bias: optional
+    additive [1|BH, Sq, Sk] (BH = B·H), a constant (on the card a bias
+    that requires grad raises: the backward gives it none); scale
+    defaults to D**-0.5.  Returns q's shape in q's dtype: [BH, Sq, D]
+    contiguous, or [B, H, Sq, D] stored token-major (a view of [B, Sq, H,
+    D]); at a padded head dim the first D columns of the padded output.
+    On the card the result has a ``grad_fn`` whose backward is the
+    backward kernel."""
     _check_shapes(q, k, v, bias)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    scale = d ** -0.5 if scale is None else float(scale)
+    if dp != d:  # zero columns: q.kᵀ and the kept columns of P.v unchanged
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
     _check_kernel_inputs(q, k, v, bias)
     train = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if train and bias is not None and bias.requires_grad:
         raise ValueError("flash_attention on the card takes a constant bias: "
                          "its backward gives the bias no gradient")
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     out = _FlashAttention.apply(q, k, v, bias, scale, train)
-    return out if q.ndim == 3 else out.transpose(1, 2)
+    out = out if q.ndim == 3 else out.transpose(1, 2)
+    return out if dp == d else out[..., :d]
 
 
 flash_attention.launches = 0  # kernel launches since the last reset

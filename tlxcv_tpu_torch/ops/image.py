@@ -9,8 +9,12 @@ autograd Function whose forward is the hand-written kernel for CUDA
 tensors (its plain version for CPU ones) and whose backward is the
 transposed resize kernel (its plain version).  Any other call takes the
 plain composition, as the reference's default path does.
-``max_pool2d_with_argmax``, ``max_unpool2d``, ``unfold`` and ``pad2d``
-come with the segmentation slices.
+
+``interpolate(mode="bicubic")`` is the reference's ``jax.image.resize(...,
+"cubic")``: Keys' kernel with a = -0.5, antialiased when downscaling, which
+is not ``F.interpolate``'s bicubic (a = -0.75, no antialias).
+``max_pool2d_with_argmax`` and ``max_unpool2d`` are ENet's pair; ``unfold``
+and ``pad2d`` come with the slices that need them.
 """
 from __future__ import annotations
 
@@ -18,9 +22,14 @@ import torch
 
 from .cuda.upsample import apply_taps, resize_taps, upsample_add_fused
 
-__all__ = ["interpolate", "resize", "upsample_add"]
+__all__ = ["interpolate", "resize", "upsample_add", "max_pool2d_with_argmax",
+           "max_unpool2d"]
 
 _F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
 def _out_size(in_hw, size, scale_factor):
@@ -66,8 +75,47 @@ def _resize_axis_linear(x, out_size, axis, align_corners):
         + x.index_select(axis, i1) * w1
 
 
+def _keys_cubic(t):
+    """Keys' cubic convolution kernel, a = -0.5, of |distance| ``t``."""
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, 0.0, out)
+
+
+def _cubic_matrix(in_size, out_size, device):
+    """[in, out] f32 weights of ``jax.image.resize``'s cubic resize along
+    one axis: half-pixel centres, the kernel widened by in/out when
+    downscaling (antialias), each column normalised to sum 1, zero where
+    the sample falls outside the input."""
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) \
+        * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[
+        :, None]).abs() / kernel_scale
+    weights = _keys_cubic(dist)
+    total = weights.sum(0, keepdim=True)
+    weights = torch.where(
+        total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+        weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0).to(device)
+
+
+def _bicubic(x, oh, ow):
+    """The reference's ``jax.image.resize(x, ..., "cubic")``: a separable
+    product per resized axis (an axis of unchanged size is left as it is),
+    the weights rounded to x's dtype, the products in f32, one rounding."""
+    y = x.float()
+    for axis, n in ((1, oh), (2, ow)):
+        if y.shape[axis] != n:
+            m = _cubic_matrix(y.shape[axis], n, x.device).to(x.dtype).float()
+            y = torch.tensordot(y, m, dims=([axis], [0])).movedim(-1, axis)
+    return y.to(x.dtype)
+
+
 def interpolate(x, size=None, scale_factor=None, mode="bilinear",
-                align_corners=False):
+                align_corners=False, fast_path=True):
     """NHWC resize with torch's ``F.interpolate`` coordinates, as the
     reference computes it on its default path:
 
@@ -75,19 +123,26 @@ def interpolate(x, size=None, scale_factor=None, mode="bilinear",
     - bilinear, half-pixel, an integer upscale of an f32 or bf16 tensor:
       the reference's static-matrix route, each separable pass in f32 and
       rounded to x's dtype (``upsample2x_matmul`` / ``upsample_matmul``);
+      ``fast_path=False`` takes the gather route instead, as the
+      reference's keyword does;
     - bilinear otherwise, either ``align_corners``: the gather route, f32
-      weights applied in x's dtype.
+      weights applied in x's dtype (an axis of unchanged size is returned
+      as it is);
+    - bicubic: ``jax.image.resize``'s cubic (``_bicubic``), half-pixel
+      centres whatever ``align_corners``, as the reference's.
     """
     h, w = x.shape[1:3]
     oh, ow = _out_size((h, w), size, scale_factor)
     if mode == "nearest":
         x = x.index_select(1, _nearest_index(h, oh, x.device))
         return x.index_select(2, _nearest_index(w, ow, x.device))
+    if mode == "bicubic":
+        return _bicubic(x, oh, ow)
     if mode not in ("bilinear", "linear"):
-        raise NotImplementedError(f"interpolate mode {mode!r} is not "
-                                  f"ported (nearest and bilinear are)")
-    if (not align_corners and x.ndim == 4 and oh > h and ow > w
-            and oh % h == 0 and ow % w == 0 and x.dtype in _F32_BF16):
+        raise ValueError(f"unknown interpolate mode {mode!r}")
+    if (fast_path and not align_corners and x.ndim == 4 and oh > h
+            and ow > w and oh % h == 0 and ow % w == 0
+            and x.dtype in _F32_BF16):
         y = apply_taps(x, 1, resize_taps(oh, h, "bilinear", x.device))
         y = apply_taps(y.to(x.dtype), 2,
                        resize_taps(ow, w, "bilinear", x.device))
@@ -111,3 +166,49 @@ def upsample_add(x, skip, mode="bilinear", align_corners=False):
         return upsample_add_fused(x, skip, mode=mode)
     return interpolate(x, size=(oh, ow), mode=mode,
                        align_corners=align_corners) + skip
+
+
+def max_pool2d_with_argmax(x, kernel_size, stride=None, padding=0):
+    """Window max of NHWC ``x`` and, per (n, c), the flat ``H*W`` index of
+    the element it took (int32), as the reference's reduce_window over
+    (value, index) pairs: an element replaces the running one only when
+    strictly greater, so ties go to the first in the window's row-major
+    order, which is ``torch.argmax``'s documented "first maximal value".
+    Padding holds the dtype's least finite value and never wins a window
+    that holds a real element above it."""
+    kh, kw = _pair(kernel_size)
+    sh, sw = (kh, kw) if stride is None else _pair(stride)
+    ph, pw = _pair(padding)
+    n, h, w, c = x.shape
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (w + 2 * pw - kw) // sw + 1
+    least = (torch.finfo(x.dtype).min if x.is_floating_point()
+             else torch.iinfo(x.dtype).min)
+    xp = torch.nn.functional.pad(x, (0, 0, pw, pw, ph, ph), value=least)
+    windows = torch.stack(
+        [xp[:, i:i + (ho - 1) * sh + 1:sh, j:j + (wo - 1) * sw + 1:sw]
+         for i in range(kh) for j in range(kw)], -1)  # [N, Ho, Wo, C, k]
+    pick = windows.argmax(-1)
+    values = windows.gather(-1, pick[..., None])[..., 0]
+    di = torch.div(pick, kw, rounding_mode="floor")
+    rows = torch.arange(ho, device=x.device)[:, None, None] * sh - ph + di
+    cols = torch.arange(wo, device=x.device)[None, :, None] * sw - pw \
+        + pick - di * kw
+    return values, (rows * w + cols).to(torch.int32)
+
+
+def max_unpool2d(x, indices, output_hw):
+    """Scatter NHWC pooled values to their flat ``H*W`` indices, per (n,
+    c), into zeros of ``output_hw``, as the reference's ``.at[].set(...,
+    mode="drop")``: a negative index counts from the end, one outside
+    ``[-H*W, H*W)`` is dropped."""
+    n, h, w, c = x.shape
+    oh, ow = output_hw
+    size = oh * ow
+    idx = indices.reshape(n, h * w, c).long()
+    idx = torch.where(idx < 0, idx + size, idx)
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    out = x.new_zeros(n, size + 1, c)  # the last row takes the drops
+    out.scatter_(1, idx, x.reshape(n, h * w, c))
+    return out[:, :size].reshape(n, oh, ow, c)
+
