@@ -6,10 +6,14 @@
                                       # and the idle shares of Mask R-CNN,
                                       # YOLOv3, ViT-B/16 int8, HRNet-W18
                                       # seg, Swin-B, DETR-R50, PP-YOLOE-L,
-                                      # SSD, pose HRNet-W32, PFLD and the
-                                      # QAT-served ResNet-50, served, and
-                                      # of the training steps of Mask
-                                      # R-CNN and of the training legs
+                                      # SSD, FCOS-R50 and FCOS-DCN-R50
+                                      # (with the deformable sampler's
+                                      # device time), the segmentation and
+                                      # remote-sensing legs, pose
+                                      # HRNet-W32, PFLD and the QAT-served
+                                      # ResNet-50, served, and of the
+                                      # training steps of Mask R-CNN and of
+                                      # the training legs
     python3 chip_smoke.py --kernels   # only the flash-attention and bf16
                                       # GEMM kernels, checked, timed and
                                       # profiled, the GEMM probe, and
@@ -32,12 +36,17 @@
                                       # backward) and the segmentation zoo
                                       # and BIT, checked and served; no
                                       # contract line
+    python3 chip_smoke.py --remote-sensing  # only the remote-sensing
+                                      # legs (FC-EF, CDNet, SNUNet, DSIFN,
+                                      # STANet BAM and PAM, DSAMNet, FCCDN,
+                                      # FarSeg, the PaddleRS UNet), checked
+                                      # and served; no contract line
     python3 chip_smoke.py --transformers  # only DeiT-B and Swin-B
     python3 chip_smoke.py --detectors # only the flash kernel's checks and
                                       # times (DETR's grids among them) and
-                                      # DETR-R50, PP-YOLOE-L and SSD,
-                                      # checked and served; no contract
-                                      # line
+                                      # DETR-R50, PP-YOLOE-L, SSD, FCOS-R50
+                                      # and FCOS-DCN-R50, checked and
+                                      # served; no contract line
     python3 chip_smoke.py --mask-rcnn # only the row gather and the
                                       # upsample-add, checked and timed, and
                                       # Mask R-CNN, checked and served; with
@@ -184,7 +193,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     alone on the CPU's inputs, the matched share, a count > 0 per image),
     in f32 and bf16, then served in bf16: DETR-R50 b8 800x1344, PP-YOLOE-L
     b32 640^2, SSD b128 300^2 (``phase_detectors`` says how their random
-    weights and statistics are drawn).
+    weights and statistics are drawn).  FCOS-R50 and FCOS-DCN-R50 (b2
+    320x544 stage by stage as PP-YOLOE-L; ``loss_fn`` at b2 on seeded
+    boxes and the FPN at an unpadded 800x1333 in f32; the card's bf16
+    detections against the CPU's NMS of the card's own head outputs),
+    served in bf16 at b8 800x1344; with ``--profile`` the deformable
+    sampler's device time a forward (``fcos_legs``).
 
 13. (run after phase 10) training legs: HRNet-W32 pose (17 joints,
     256x192, 64x48 heatmaps, sigma 2) and PFLD (68 landmarks, 112^2),
@@ -235,6 +249,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     the CPU in f32 and bf16, then served in bf16 (``phase_segmentation``
     gives the batches and frames); BIT with 17 flash launches a forward.
 
+16. (run after phase 15) remote_sensing: FC-EF, CDNet, SNUNet (width
+    32), DSIFN, STANet (BAM and PAM), DSAMNet and FCCDN as change
+    detectors on pairs, FarSeg (ResNet-50, 16 classes) and the PaddleRS
+    UNet, random weights from a seed, each checked at b1 on a frame of
+    half the side against the CPU in f32 and bf16, then served in bf16
+    (``phase_remote_sensing`` gives the batches and frames); no kernel of
+    ours launched.
+
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
 card, and the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -243,6 +265,7 @@ CUDA device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import statistics
@@ -3391,6 +3414,151 @@ def ssd_decode(model, heads, hw):
     return model.decode(*heads, model.priors(SSD_HWS, heads[0].device), hw)
 
 
+def fcos_stages(model, x):
+    with torch.inference_mode():
+        outs, hws = model.head_outputs(x)
+        boxes, scores = model.decode(outs, hws, tuple(x.shape[1:3]))
+        dets, counts = model.nms(boxes, scores)
+    return {"heads": [t for level in outs for t in level], "boxes": boxes,
+            "scores": scores, "dets": dets, "counts": counts}
+
+
+def fcos_decode(model, heads, hw):
+    """FCOS's decode on a flat list of head outputs (cls, reg, ctr a
+    level)."""
+    outs = [heads[i:i + 3] for i in range(0, len(heads), 3)]
+    return model.decode(outs, [tuple(t.shape[1:3]) for t in heads[::3]],
+                        tuple(hw))
+
+
+# FCOS-R50 (PaddleDetection's fcos_r50_fpn_1x_coco): COCO's 800x1333
+# padded to a multiple of 32, as the DETR leg does; checked at b2 on a
+# frame of 2/5 the side; the FPN's half-pixel nearest resize checked on an
+# unpadded 800x1333, where C4 [50, 84] goes up to C3's [100, 167] at a ratio
+# that is not an integer
+FCOS_BATCH, FCOS_HW, FCOS_CHECK_HW, FCOS_ODD_HW = 8, (800, 1344), \
+    (320, 544), (800, 1333)
+
+
+def fcos_targets_for(batch, hw, gen, boxes=3, classes=80):
+    """Seeded boxes in pixels (xyxy, at least 16 px a side) and labels,
+    the last row of each image padding."""
+    h, w = hw
+    xy = torch.rand(batch, boxes, 2, generator=gen) * torch.tensor(
+        [w / 2, h / 2])
+    wh = 16 + torch.rand(batch, boxes, 2, generator=gen) * torch.tensor(
+        [w / 2, h / 2])
+    mask = torch.ones(batch, boxes)
+    mask[:, -1] = 0
+    return {"boxes": torch.cat([xy, xy + wh], -1),
+            "class_labels": torch.randint(0, classes, (batch, boxes),
+                                          generator=gen),
+            "mask": mask}
+
+
+def fcos_check(name, cpu, card, x2, gen):
+    """FCOS beyond ``dense_detector_check``'s stages, in f32 on the card
+    (TF32 off) against f32 on the CPU: ``loss_fn`` on the train-mode
+    outputs (BatchNorm on the batch's statistics, copies of both models)
+    at b2 on seeded boxes, within ``TRAIN_BOUND``'s f32 loss bound (the
+    training checks'); the neck on an unpadded 800x1333 frame's C3-C5 (the CPU's,
+    handed to both), whose top-down resize is not 2x, within
+    ``YOLO_F32_BOUND`` a level, the levels' sizes the CPU's, and the
+    card's own head outputs at that frame of the CPU's shapes."""
+    tg = fcos_targets_for(2, x2.shape[1:3], gen)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        m = copy.deepcopy(model).train()
+        with torch.no_grad():
+            losses.append(m.loss_fn(m(x2.to(dev)), {
+                k: v.to(dev) for k, v in tg.items()}).item())
+        del m
+    loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    x1 = torch.randn(1, *FCOS_ODD_HW, 3, generator=gen)
+    with torch.inference_mode():
+        feats = cpu.backbone.features(x1)[1:]
+        want = cpu.neck(feats)
+        got = card.neck([f.cuda() for f in feats])
+        heads, hws = card.head_outputs(x1.cuda())
+    level_err = [_rel(g, w) for g, w in zip(got, want)]
+    shapes = [tuple(f.shape[1:3]) for f in want]
+    check = {"phase": "model_check", "model": name, "stage": "loss_and_neck",
+             "cpu_loss": losses[0], "loss": losses[1],
+             "loss_rel_err": loss_err, "loss_bound": TRAIN_BOUND["float32"][0],
+             "odd_frame": list(FCOS_ODD_HW), "c_levels": [
+                 list(f.shape[1:3]) for f in feats],
+             "p_levels": shapes, "neck_rel_max_abs_err": level_err,
+             "bound": YOLO_F32_BOUND}
+    emit(check)
+    if not (loss_err <= TRAIN_BOUND["float32"][0] and math.isfinite(losses[1])
+            and max(level_err) <= YOLO_F32_BOUND
+            and list(hws) == shapes
+            and [tuple(t.shape[1:3]) for t, _, _ in heads] == shapes):
+        raise AssertionError(f"{name}: {check}")
+
+
+def deform_sampler_ms(task, x):
+    """Time of the deformable sampler (``DeformConv2d.sample``, all but the
+    1x1 projection) over one served forward: each deformable conv's inputs
+    captured in one forward, then each sampled again; the sums over the
+    calls of the device time from CUDA-graph replays and of the CUDA-event
+    time around each call (which also counts the host's launches where
+    they outlast the device's work)."""
+    from tlxcv_tpu_torch.models.detection.deform import DeformConv2d
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for m in task.modules() if isinstance(m, DeformConv2d)]
+    with torch.inference_mode():
+        task.predict(x)
+        for h in hooks:
+            h.remove()
+        calls = [functools.partial(mod.sample, inp) for mod, inp in seen]
+        return (len(calls),
+                sum(graph_ms(fn, reps=3, calls=2) for fn in calls),
+                sum(time_ms(fn, reps=5, warmup=1) for fn in calls))
+
+
+def offset_stats(model, x):
+    """What the deformable convs' offset convs give on ``x``: the rms and
+    the largest offset in pixels, the share of samples that fall outside
+    the map (clamped to its border) and the range of the masks."""
+    from tlxcv_tpu_torch.models.detection.deform import DeformConv2d
+
+    offs = []
+    hooks = [d.offset_conv.register_forward_hook(
+        lambda mod, args, out: offs.append(out.float()))
+        for d in model.modules() if isinstance(d, DeformConv2d)]
+    try:
+        with torch.inference_mode():
+            model.head_outputs(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    sq = peak = outside = masks_hi = 0.0
+    masks_lo, n_off, n_taps = 1.0, 0, 0
+    for off in offs:
+        _, h, w, _ = off.shape
+        gy = torch.arange(h, device=off.device).view(1, h, 1, 1)
+        gx = torch.arange(w, device=off.device).view(1, 1, w, 1)
+        taps = torch.arange(9, device=off.device)
+        y = gy + (taps // 3 - 1) + off[..., 0:18:2]
+        xx = gx + (taps % 3 - 1) + off[..., 1:18:2]
+        outside += float(((y < 0) | (y > h - 1) | (xx < 0)
+                          | (xx > w - 1)).sum())
+        n_taps += y.numel()
+        sq += float(off[..., :18].square().sum())
+        n_off += off[..., :18].numel()
+        peak = max(peak, float(off[..., :18].abs().max()))
+        mask = torch.sigmoid(off[..., 18:])
+        masks_lo = min(masks_lo, float(mask.min()))
+        masks_hi = max(masks_hi, float(mask.max()))
+    return {"calls": len(offs), "offset_rms_px": math.sqrt(sq / n_off),
+            "offset_max_px": peak, "outside_share": outside / n_taps,
+            "mask_range": [masks_lo, masks_hi]}
+
+
 @torch.no_grad()
 def redraw(convs, std, gen):
     """Draw the weights of ``convs`` anew from N(0, std^2)."""
@@ -3422,6 +3590,32 @@ def detr_outputs_check(out, batch):
 # the share of queries whose top class the card's f32 DETR gives as the
 # CPU does (the f32 logits differ by summation order only)
 DETR_LABEL_FLOOR = 0.9
+
+
+def detector_checked(name, hw, redraw_heads=lambda m: None, gen=None,
+                     **kw):
+    """The model on the CPU with its heads redrawn and statistics from the
+    2 check images, its copy on the card, and those images."""
+    from tlxcv_tpu_torch import create_model
+
+    cpu = create_model(name, device="cpu", generator=gen, **kw)
+    redraw_heads(cpu)
+    x2 = torch.randn(2, *hw, 3, generator=gen)
+    data_bn_statistics(cpu, x2)
+    return cpu, copy.deepcopy(cpu).cuda(), x2
+
+
+def detector_served(name, card, x, expect, check, profile=False):
+    """``predict`` of the detector served and timed (``serve``), with
+    ``profile`` its device time and idle share."""
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+
+    task = ObjectDetection(card.eval())
+    counts, step = serve(task, x, expect, name, "bfloat16", check=check)
+    if profile:
+        phase_profile(name, task, x, step_s=step)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_detectors(flash_record, profile):
@@ -3460,65 +3654,116 @@ def phase_detectors(flash_record, profile):
     alone and a count > 0 per image, and the end-to-end share is reported
     beside the CPU bf16 model's, not held.  No kernel of ours runs in
     PP-YOLOE or SSD; every launch is counted."""
-    from tlxcv_tpu_torch import create_model
-    from tlxcv_tpu_torch.tasks import ObjectDetection
-
     gen = torch.Generator().manual_seed(0)
-
-    def checked(name, hw, redraw_heads=lambda m: None, **kw):
-        """The model on the CPU with its heads redrawn and statistics from
-        the 2 check images, its copy on the card, and those images."""
-        cpu = create_model(name, device="cpu", generator=gen, **kw)
-        redraw_heads(cpu)
-        x2 = torch.randn(2, *hw, 3, generator=gen)
-        data_bn_statistics(cpu, x2)
-        return cpu, copy.deepcopy(cpu).cuda(), x2
-
-    def served(name, card, x, expect, check):
-        task = ObjectDetection(card.eval())
-        counts, step = serve(task, x, expect, name, "bfloat16", check=check)
-        if profile:
-            phase_profile(name, task, x, step_s=step)
-        torch.cuda.empty_cache()
-        return counts
-
-    cpu, card, x2 = checked("detr", DETR_HW)
+    cpu, card, x2 = detector_checked("detr", DETR_HW, gen=gen)
     detr_check(cpu, card, x2)
     del cpu
     x = torch.randn(DETR_BATCH, *DETR_HW, 3, generator=gen)
-    counts = served("detr_resnet50", card, x.to("cuda", torch.bfloat16),
-                    {"flash_attention": 18}, detr_outputs_check)
+    counts = detector_served("detr_resnet50", card,
+                             x.to("cuda", torch.bfloat16),
+                             {"flash_attention": 18}, detr_outputs_check,
+                             profile)
     flash_record["detr_launches"] = counts["flash_attention"]
     del card
 
     def ppyoloe_heads(m):
         redraw([*m.yolo_head.pred_cls, *m.yolo_head.pred_reg], 0.02, gen)
 
-    cpu, card, x2 = checked("ppyoloe_l", (640, 640), ppyoloe_heads)
+    cpu, card, x2 = detector_checked("ppyoloe_l", (640, 640), ppyoloe_heads,
+                                     gen)
     dense_detector_check("ppyoloe_l", cpu, card, x2, ppyoloe_stages,
                          ppyoloe_decode,
                          lambda m, b, s: m.yolo_head.nms(b, s),
                          bf16_share_floor=None, f64_truth=True)
     del cpu
     x = torch.randn(32, 640, 640, 3, generator=gen)
-    served("ppyoloe_l", card, x.to("cuda", torch.bfloat16), {},
-           dets_check(100))
+    detector_served("ppyoloe_l", card, x.to("cuda", torch.bfloat16), {},
+                    dets_check(100), profile)
     del card
 
     def ssd_heads(m):
         redraw(m.ssd_head.score_convs, 0.1, gen)
         redraw(m.ssd_head.box_convs, 0.05, gen)
 
-    cpu, card, x2 = checked("ssd", (300, 300), ssd_heads,
-                            image_size=(300, 300))
+    cpu, card, x2 = detector_checked("ssd", (300, 300), ssd_heads, gen,
+                                     image_size=(300, 300))
     dense_detector_check("ssd", cpu, card, x2, ssd_stages, ssd_decode,
                          lambda m, b, s: m.nms(b, s), bf16_share_floor=None,
                          f64_truth=True)
     del cpu
     x = torch.randn(128, 300, 300, 3, generator=gen)
-    served("ssd", card, x.to("cuda", torch.bfloat16), {}, dets_check(200))
+    detector_served("ssd", card, x.to("cuda", torch.bfloat16), {},
+                    dets_check(200), profile)
     del card
     torch.cuda.empty_cache()
+    fcos_legs(profile, gen)
+
+
+def fcos_legs(profile, gen):
+    """FCOS-R50 and FCOS-DCN-R50 (80 classes): the classifier and
+    centerness convs drawn from N(0, 0.05^2) and the distance conv from
+    N(0, 0.02^2), biases kept (at their N(0, 0.01^2) init every score is
+    about sigmoid(-4.6) / 2 = 0.005, under the 0.025 threshold, and no box
+    survives); the deformable convs' offset convs drawn from N(0, 0.05^2)
+    (zero at init, where every tap samples its own pixel with mask 1/2 and
+    neither the bilinear blend nor the border clamp is exercised: drawn,
+    offsets of a few pixels and mask logits away from 0, as
+    ``offset_stats`` records); statistics from the 2 check images; b2 at
+    320x544 against
+    the CPU stage by stage (``dense_detector_check``, f32 held against the
+    CPU's f64 model), ``fcos_check``, then the detections of the card's
+    bf16 head outputs against the CPU's decode and NMS of those very
+    outputs; served in bf16 at b8 800x1344 (~22,300 points, NMS score
+    0.025, IoU 0.6, top 1000, keep 100).  No kernel of ours runs; with
+    ``profile``, the deformable sampler's device time a served forward."""
+    from tlxcv_tpu_torch.models.detection.deform import DeformConv2d
+
+    def fcos_heads(m):
+        redraw([m.head.cls_pred, m.head.ctr_pred], 0.05, gen)
+        redraw([m.head.reg_pred], 0.02, gen)
+        redraw([d.offset_conv for d in m.head.modules()
+                if isinstance(d, DeformConv2d)], 0.05, gen)
+
+    for name in ("fcos_r50", "fcos_dcn_r50"):
+        cpu, card, x2 = detector_checked(name, FCOS_CHECK_HW, fcos_heads,
+                                         gen)
+        if name == "fcos_dcn_r50":  # the sampler off its grid, past the map
+            stats = offset_stats(card, x2.cuda())
+            emit({"phase": "model_check", "model": name,
+                  "stage": "deform_offsets", **stats})
+            if stats["offset_rms_px"] < 0.5 or stats["outside_share"] == 0:
+                raise AssertionError(f"{name}: offsets too small {stats}")
+        fcos_check(name, cpu, card, x2, gen)
+        dense_detector_check(name, cpu, card, x2, fcos_stages, fcos_decode,
+                             lambda m, b, s: m.nms(b, s),
+                             bf16_share_floor=None, f64_truth=True)
+        got = fcos_stages(card, x2.to("cuda", torch.bfloat16))
+        with torch.inference_mode():  # the CPU's decode and NMS of them
+            ref, ref_counts = cpu.nms(*fcos_decode(
+                cpu, [h.cpu() for h in got["heads"]], x2.shape[1:3]))
+        share = matched_share(ref, got["dets"])
+        emit({"phase": "model_check", "model": name,
+              "stage": "nms_of_card_heads", "dtype": "bfloat16",
+              "matched_share": share, "floor": YOLO_NMS_SHARE_FLOOR,
+              "counts": got["counts"].tolist(),
+              "cpu_counts": ref_counts.tolist()})
+        if share < YOLO_NMS_SHARE_FLOOR:
+            raise AssertionError(f"{name}: the card's detections of its own "
+                                 f"heads match {share} of the CPU's")
+        del cpu, got, ref
+        x = torch.randn(FCOS_BATCH, *FCOS_HW, 3, generator=gen).to(
+            "cuda", torch.bfloat16)
+        detector_served(name, card, x, {}, dets_check(100), profile)
+        if profile and name == "fcos_dcn_r50":
+            from tlxcv_tpu_torch.tasks import ObjectDetection
+
+            calls, ms, event_ms = deform_sampler_ms(
+                ObjectDetection(card.eval()), x)
+            emit({"phase": "deform_sampler", "model": name,
+                  "batch": FCOS_BATCH, "calls_per_forward": calls,
+                  "ms_per_forward": ms, "event_ms_per_forward": event_ms})
+        del card, x
+        torch.cuda.empty_cache()
 
 
 # ------------------------------- segmentation, BIT and padded head dims
@@ -3778,7 +4023,7 @@ def seg_logit_check(name, cpu, card, x1, expect):
 
 
 def seg_leg(name, model, classes, batch, served, checked, channels, gen,
-            profile, expect=None):
+            profile, expect=None, pair=False):
     """One segmentation leg: BatchNorm statistics from one train-mode
     forward of 2 seeded images at the checked frame on the CPU
     (``data_bn_statistics``); f32 and bf16 logits on the card at b1 on
@@ -3786,11 +4031,12 @@ def seg_leg(name, model, classes, batch, served, checked, channels, gen,
     launches a forward); then the task's ``predict`` served in bf16 (float
     parameters bf16, statistics f32) at ``batch`` on the served frame,
     median of 10 rounds after 3, peak memory, and with ``profile`` the
-    idle share."""
+    idle share.  With ``pair`` the model is a change detector, called as
+    ``model(t1, t2)`` on two images of ``channels`` each (``PairPredict``);
+    ``batch`` counts pairs."""
     from tlxcv_tpu_torch.tasks import ImageSegmentation
 
     expect = expect or {}
-    pair = name == "bit"
     c = 2 * channels if pair else channels
     cpu = PairPredict(model) if pair else ImageSegmentation(model)
     data_bn_statistics(cpu, torch.randn(2, *checked, c, generator=gen))
@@ -3843,8 +4089,58 @@ def phase_segmentation(flash_record, profile):
                 profile)
     bit = create_model("bit", device="cpu", generator=gen)
     counts = seg_leg("bit", bit, 2, BIT_BATCH, (256, 256), (256, 256), 3,
-                     gen, profile, expect={"flash_attention": 17})
+                     gen, profile, expect={"flash_attention": 17}, pair=True)
     flash_record["bit_launches"] = counts["flash_attention"]
+
+
+# (leg, the port's registry name or ``models.rs`` class, keyword arguments,
+# served batch, served frame, checked frame, a change detector (a pair of
+# 3-channel images), classes).  The change detectors serve LEVIR-CD's 256^2
+# crops of its 1024^2 tiles, as PaddleRS's LEVIR-CD configs crop (batch in
+# pairs); FarSeg iSAID's 896^2 patches (16 classes); the UNet PaddleRS's
+# 512^2 crops.  Each is checked at b1 on a frame of half the side, but
+# FCCDN on its served frame: its centre (stride 64 of the input after the
+# NL-FPN's pools) normalises over 2 x 2 positions at 128^2, and statistics
+# taken there blow its served logits up to ~10^6 (~10^2 with statistics
+# taken at 256^2).
+RS_LEGS = [
+    ("fc_ef", "fc_ef", {}, 32, 256, 128, True, 2),
+    ("cdnet", "CDNet", {}, 32, 256, 128, True, 2),
+    ("snunet", "snunet", {}, 32, 256, 128, True, 2),
+    ("dsifn", "DSIFN", {}, 16, 256, 128, True, 2),
+    ("stanet_bam", "STANet", {"att_type": "BAM"}, 16, 256, 128, True, 2),
+    ("stanet_pam", "STANet", {"att_type": "PAM"}, 16, 256, 128, True, 2),
+    ("dsamnet", "DSAMNet", {}, 16, 256, 128, True, 2),
+    ("fccdn", "FCCDN", {}, 32, 256, 256, True, 2),
+    ("farseg", "farseg", {}, 8, 896, 448, False, 16),
+    ("rsunet", "RSUNet", {"width": 64, "num_classes": 2}, 8, 512, 256, False,
+     2),
+]
+
+
+def phase_remote_sensing(profile):
+    """The remote-sensing models, random weights from a seed, each checked
+    and served by ``seg_leg`` (bf16 serving: float parameters bf16,
+    BatchNorm statistics f32): FC-EF and CDNet (2 classes), SNUNet at
+    width 32 (``create_model("snunet")``), FCCDN (output stride 16, SE) at
+    b32 256^2 pairs; DSIFN (VGG-16 trunk), STANet with BAM and with PAM
+    (ResNet-18, width 64, ``ds_factor`` 1) and DSAMNet at b16 256^2 pairs;
+    FarSeg (``create_model("farseg")``: ResNet-50, 16 classes) at b8
+    896^2; the PaddleRS UNet (width 64, 2 classes) at b8 512^2.  STANet's
+    BAM attends over every position of the 64 x 128 stride-4 map of a
+    pair: its [16, 8192, 8192] energy and softmax take 2 GiB each in bf16.
+    No kernel of ours runs in any of them: every launch count must stay
+    0."""
+    from tlxcv_tpu_torch import create_model, list_models
+    from tlxcv_tpu_torch.models import rs
+
+    gen = torch.Generator().manual_seed(0)
+    for leg, name, kw, batch, served, checked, pair, classes in RS_LEGS:
+        build = (functools.partial(create_model, name)
+                 if name in list_models() else getattr(rs, name))
+        model = build(device="cpu", generator=gen, **kw)
+        seg_leg(leg, model, classes, batch, (served, served),
+                (checked, checked), 3, gen, profile, pair=pair)
 
 
 # -------------------------------------- pose, landmarks, YOLOv3 training,
@@ -4784,6 +5080,10 @@ def main():
         emit({"kernels": [flash]})
         print(card_line(), flush=True)
         return 0
+    if "--remote-sensing" in sys.argv[1:]:  # the remote-sensing legs alone
+        phase_remote_sensing(profile)
+        print(card_line(), flush=True)
+        return 0
     if "--transformers" in sys.argv[1:]:  # DeiT-B and Swin-B alone
         transformer_legs({}, profile)
         print(card_line(), flush=True)
@@ -4868,6 +5168,7 @@ def main():
     phase_detectors(flash, profile)
     phase_padded_flash(flash)
     phase_segmentation(flash, profile)
+    phase_remote_sensing(profile)
     phase_train_check()
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)

@@ -1570,3 +1570,112 @@ def test_segmentation_models_on_the_card_match_the_cpu(cuda, name):
     assert (flash_attention.launches, int8_matmul.launches) == before
     torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max(),
                                rtol=0)
+
+
+def _rms(a, b):
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+# (registry name or rs class, keyword arguments, takes a pair); at 64 px
+_RS_FCOS = [("FCEarlyFusion", {}, True), ("CDNet", {}, True),
+            ("snunet", {}, True), ("DSIFN", {}, True), ("STANet", {}, True),
+            ("STANet", {"att_type": "PAM"}, True), ("DSAMNet", {}, True),
+            ("FCCDN", {}, True), ("farseg", {"backbone_depth": 18}, False),
+            ("RSUNet", {"width": 16}, False), ("fcos_r50", {}, False),
+            ("fcos_dcn_r50", {}, False)]
+
+
+@pytest.mark.parametrize("name,kw,pair", _RS_FCOS,
+                         ids=[n + "_" + kw.get("att_type", "")
+                              for n, kw, _ in _RS_FCOS])
+def test_rs_and_fcos_bf16_on_the_card_match_the_cpu(cuda, name, kw, pair):
+    """The remote-sensing models and FCOS in bf16 on the card (float
+    parameters bf16, statistics f32) against f32 on the CPU, held to the
+    CPU's own bf16 model: random BatchNorm networks are chaotic in bf16
+    (PERF.md §2).  FCOS by its head outputs, every level; FCOS-DCN's
+    offset convs drawn (zero at init, where every tap samples its own
+    pixel), so that its taps fall between pixels and past the border.  No
+    kernel of ours is launched."""
+    from tlxcv_tpu_torch.models import rs
+    from tlxcv_tpu_torch.models.detection.deform import DeformConv2d
+
+    gen = torch.Generator().manual_seed(10)
+    build = getattr(rs, name, None) or (
+        lambda **k: create_model(name, **k))
+    cpu = build(device="cpu", generator=gen, **kw).eval()
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, DeformConv2d):
+                m.offset_conv.weight.normal_(0, 0.05, generator=gen)
+    x = [torch.randn(2, 64, 64, 3, generator=gen) for _ in range(2 if pair
+                                                                else 1)]
+
+    def run(model, xs):
+        with torch.inference_mode():
+            if name.startswith("fcos"):
+                outs, _ = model.head_outputs(*xs)
+                return torch.cat([t.float().flatten(1) for lvl in outs
+                                  for t in lvl], 1)
+            return model(*xs).float()
+
+    def bf16(model):
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
+        return model
+
+    want = run(cpu, x)
+    want16 = run(bf16(copy.deepcopy(cpu)), [t.bfloat16() for t in x])
+    card = bf16(copy.deepcopy(cpu).to(cuda))
+    before = (flash_attention.launches, int8_matmul.launches)
+    got = run(card, [t.to(cuda, torch.bfloat16) for t in x]).cpu()
+    assert (flash_attention.launches, int8_matmul.launches) == before
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rms(got, want) <= 2 * _rms(want16, want) + 1e-6 * want.abs().max()
+
+
+def test_deform_conv_carries_gradients_on_the_card(cuda):
+    """The deformable conv's sampler under autograd: the gradients of the
+    input, the offset conv and the projection on the card (f32, TF32 off)
+    against the CPU's, with offsets of several pixels, some past the
+    border."""
+    from tlxcv_tpu_torch.models.detection.deform import DeformConv2d
+
+    gen = torch.Generator().manual_seed(11)
+    cpu = DeformConv2d(16, 8, device="cpu", generator=gen)
+    with torch.no_grad():
+        cpu.offset_conv.weight.normal_(0, 0.3, generator=gen)
+        cpu.offset_conv.bias.normal_(0, 2.0, generator=gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(2, 12, 10, 16, generator=gen)
+    w = torch.randn(2, 12, 10, 8, generator=gen)
+
+    def grads(model, xs, ws):
+        xs = xs.clone().requires_grad_(True)
+        (model(xs) * ws).sum().backward()
+        return [xs.grad] + [p.grad for p in (model.offset_conv.weight,
+                                             model.proj.weight)]
+
+    want = grads(cpu, x, w)
+    got = grads(card, x.to(cuda), w.to(cuda))
+    for g, e in zip(got, want):
+        assert g is not None and bool(g.abs().sum() > 0)
+        torch.testing.assert_close(g.cpu(), e, rtol=0,
+                                   atol=1e-4 * e.abs().max())
+
+
+def test_group_norm_in_bf16_on_the_card(cuda):
+    """GroupNorm's f32 statistics and affine on a bf16 input: the card's
+    bf16 output within one bf16 ulp of the CPU's."""
+    from tlxcv_tpu_torch.nn import GroupNorm
+
+    gen = torch.Generator().manual_seed(12)
+    cpu = GroupNorm(32, 256, device="cpu")
+    with torch.no_grad():
+        cpu.weight.uniform_(0.5, 1.5, generator=gen)
+        cpu.bias.normal_(0, 1, generator=gen)
+    x = (3 * torch.randn(2, 25, 42, 256, generator=gen) + 1).bfloat16()
+    want = cpu(x)
+    got = copy.deepcopy(cpu).to(cuda)(x.to(cuda)).cpu()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-6)

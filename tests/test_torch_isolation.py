@@ -57,7 +57,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.segmentation.deeplab",
                  "models.segmentation.fastfcn", "models.segmentation.encnet",
                  "models.segmentation.enet", "models.rs.layers",
-                 "models.rs.cd", "config", "ops.image"):
+                 "models.rs.cd", "models.rs.seg", "models.detection.fcos",
+                 "models.detection.deform", "models.detection.tood",
+                 "config", "ops.image"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -62,7 +62,12 @@ def _populate():
     _MODEL_REGISTRY.setdefault("detr", D.detr_resnet50)
     _MODEL_REGISTRY.setdefault("pose_hrnet_w32", P.pose_hrnet_w32)
     _MODEL_REGISTRY.setdefault("pfld", F.PFLD)
+    _MODEL_REGISTRY.setdefault("fcos_r50", D.fcos_r50)
+    _MODEL_REGISTRY.setdefault("fcos_dcn_r50", D.fcos_dcn_r50)
     _MODEL_REGISTRY.setdefault("bit", RS.BIT)
+    _MODEL_REGISTRY.setdefault("snunet", RS.SNUNet)
+    _MODEL_REGISTRY.setdefault("fc_ef", RS.FCEarlyFusion)
+    _MODEL_REGISTRY.setdefault("farseg", RS.FarSeg)
     for arch in ("ppyoloe_s", "ppyoloe_m", "ppyoloe_l", "ppyoloe_x"):
         _MODEL_REGISTRY.setdefault(
             arch, functools.partial(D.ppyoloe, arch))

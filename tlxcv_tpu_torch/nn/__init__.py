@@ -2,12 +2,13 @@ from .attention import (Attention, MultiHeadAttention,
                         scaled_dot_product_attention, use_int8_attention)
 from .layers import (Activation, AdaptiveAvgPool2d, AvgPool2d, BatchNorm,
                      BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, DropPath,
-                     GlobalAvgPool2d, Identity, LayerNorm, Linear, MaxPool2d,
-                     Sequential, get_activation, leaky_relu, relu)
+                     GlobalAvgPool2d, GroupNorm, Identity, LayerNorm, Linear,
+                     MaxPool2d, PReLU, Sequential, get_activation,
+                     leaky_relu, relu)
 
 __all__ = ["Attention", "MultiHeadAttention", "scaled_dot_product_attention",
            "use_int8_attention",
            "Activation", "AdaptiveAvgPool2d", "AvgPool2d", "BatchNorm",
            "BatchNorm2d", "Conv2d", "ConvTranspose2d", "Dropout", "DropPath",
-           "GlobalAvgPool2d", "Identity", "LayerNorm", "Linear", "MaxPool2d",
-           "Sequential", "get_activation", "leaky_relu", "relu"]
+           "GlobalAvgPool2d", "GroupNorm", "Identity", "LayerNorm", "Linear",
+           "MaxPool2d", "PReLU", "Sequential", "get_activation", "leaky_relu", "relu"]

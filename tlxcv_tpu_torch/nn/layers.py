@@ -38,7 +38,7 @@ from ..device import resolve_device
 from ..ops.cuda.matmul import int8_matmul_requant, pad_k, padded_k
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm", "BatchNorm2d",
-           "LayerNorm", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
+           "LayerNorm", "GroupNorm", "PReLU", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
            "Dropout", "DropPath", "Identity", "Sequential", "Activation",
            "leaky_relu", "relu", "get_activation", "set_quant_attr"]
 
@@ -93,6 +93,19 @@ class Activation(nn.Module):
 class Identity(nn.Module):
     def forward(self, x, *a, **k):
         return x
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU: ``x`` where ``x >= 0``, else ``a * x``, the slope
+    (one shared by default) cast to x's dtype."""
+
+    def __init__(self, num_parameters=1, init=0.25, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(I.constant(
+            (num_parameters,), init, device=resolve_device(device)))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 class Sequential(nn.Module):
@@ -571,6 +584,36 @@ class LayerNorm(nn.Module):
             return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(),
                                 self.eps).to(x.dtype)
         return F.layer_norm(x, x.shape[-1:], w, b, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """Group normalisation of NHWC input over (H, W, C / groups), channel
+    ``c`` in group ``c // (C / groups)``: statistics, normalisation and
+    affine in f32 (``F.group_norm`` on an f32 copy, since on a bf16 tensor
+    it applies the affine in bf16), then back to the input's dtype."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-5, affine=True,
+                 device=None):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into "
+                             f"{num_groups} groups")
+        device = resolve_device(device)
+        self.num_groups = num_groups
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(I.ones((num_channels,), device=device))
+            self.bias = nn.Parameter(I.zeros((num_channels,), device=device))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x):
+        acc = _acc_dtype(x)
+        w, b = self.weight, self.bias
+        y = F.group_norm(x.to(acc).movedim(-1, 1), self.num_groups,
+                         None if w is None else w.to(acc),
+                         None if b is None else b.to(acc), self.eps)
+        return y.movedim(1, -1).to(x.dtype)
 
 
 # --------------------------------------------------------------- pooling
