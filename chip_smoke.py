@@ -46,7 +46,14 @@
                                       # times (DETR's grids among them) and
                                       # DETR-R50, PP-YOLOE-L, SSD, FCOS-R50
                                       # and FCOS-DCN-R50, checked and
-                                      # served; no contract line
+                                      # served, then the --zoo legs; no
+                                      # contract line
+    python3 chip_smoke.py --zoo       # only the detection zoo (RetinaNet,
+                                      # GFL, TOOD, Faster and Cascade
+                                      # R-CNN, YOLOX-s, CenterNet, TTFNet,
+                                      # PicoDet, SOLOv2), checked and
+                                      # served, and FCOS-R50 trained; no
+                                      # contract line
     python3 chip_smoke.py --mask-rcnn # only the row gather and the
                                       # upsample-add, checked and timed, and
                                       # Mask R-CNN, checked and served; with
@@ -198,7 +205,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     boxes and the FPN at an unpadded 800x1333 in f32; the card's bf16
     detections against the CPU's NMS of the card's own head outputs),
     served in bf16 at b8 800x1344; with ``--profile`` the deformable
-    sampler's device time a forward (``fcos_legs``).
+    sampler's device time a forward (``fcos_legs``).  Then the rest of the
+    detection zoo (``ZOO_LEGS``: RetinaNet, GFL and TOOD b8 800x1344,
+    Faster and Cascade R-CNN b16 640^2, YOLOX-s b64 640^2, CenterNet and
+    TTFNet b32 512^2, PicoDet b64 416^2, SOLOv2 b8 800x1344), each checked
+    at b2 on a smaller frame (``zoo_check``: every head output under the
+    chaotic-net rule in f32 and bf16, the CPU's decode and NMS of the
+    card's own heads, a count > 0 an image) and served in bf16, with
+    exactly 1 row gather a Faster R-CNN forward, 3 a Cascade one and 3
+    upsample-adds a forward of each and of SOLOv2 (``zoo_legs``); and
+    FCOS-R50 trained, gradients at b2 against the CPU, then b8 800x1344
+    through ``Trainer.train`` (``leg_fcos_train``).
 
 13. (run after phase 10) training legs: HRNet-W32 pose (17 joints,
     256x192, 64x48 heatmaps, sigma 2) and PFLD (68 landmarks, 112^2),
@@ -3618,7 +3635,7 @@ def detector_served(name, card, x, expect, check, profile=False):
     return counts
 
 
-def phase_detectors(flash_record, profile):
+def phase_detectors(flash_record, profile, gather_record, upsample_record):
     """The reference's three other detectors, random weights from a seed,
     bf16 parameters with f32 statistics as the JAX package's bench keeps
     them.  BatchNorm (and DETR's frozen BatchNorm) statistics come from one
@@ -3697,6 +3714,8 @@ def phase_detectors(flash_record, profile):
     del card
     torch.cuda.empty_cache()
     fcos_legs(profile, gen)
+    zoo_legs(gather_record, upsample_record, profile, gen)
+    leg_fcos_train(profile)
 
 
 def fcos_legs(profile, gen):
@@ -3764,6 +3783,379 @@ def fcos_legs(profile, gen):
                   "ms_per_forward": ms, "event_ms_per_forward": event_ms})
         del card, x
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ the detection zoo
+# The rest of the reference's detection zoo at its published settings:
+# (registry name, check frame, served batch, served frame, launches of our
+# kernels a forward).  COCO's 800x1333 padded to 1344, as the FCOS and DETR
+# legs serve it; the two-stage models at the Mask R-CNN leg's b16 640^2;
+# YOLOX-s at its 640^2, CenterNet and TTFNet at their 512^2, PicoDet-S at
+# its 416^2.  Each is checked at b2 on the smaller frame first.
+ZOO_LEGS = [
+    ("retinanet", (320, 544), 8, (800, 1344), {}),
+    ("gfl_r50", (320, 544), 8, (800, 1344), {}),
+    ("tood_r50", (320, 544), 8, (800, 1344), {}),
+    ("faster_rcnn", (384, 384), 16, (640, 640),
+     {"gather_rows": 1, "upsample_add_fused": 3}),
+    ("cascade_rcnn", (384, 384), 16, (640, 640),
+     {"gather_rows": 3, "upsample_add_fused": 3}),
+    ("yolox_s", (320, 320), 64, (640, 640), {}),
+    ("centernet", (256, 256), 32, (512, 512), {}),
+    ("ttfnet", (256, 256), 32, (512, 512), {}),
+    ("picodet_lcnet", (320, 320), 64, (416, 416), {}),
+    ("solov2_r50", (320, 544), 8, (800, 1344), {"upsample_add_fused": 3}),
+]
+
+
+def _levels(outs):
+    return [t for level in outs for t in level]
+
+
+def _regroup(heads, per_level):
+    return [heads[i:i + per_level] for i in range(0, len(heads), per_level)]
+
+
+def _hws(heads, per_level):
+    return tuple(tuple(t.shape[1:3]) for t in heads[::per_level])
+
+
+def zoo_heads(name, gen):
+    """Redraw the score-bearing convs of a random ``name`` (at their
+    normal(0.01) init every score sits at its prior, under the leg's
+    threshold, or, where the bias is 0, at one value for every box, so
+    that a check would compare ties), with stds read off the CPU's full
+    models at the check frames: counts of 64 to 100 an image at b2, the
+    scores spread below saturation.  The box convs too, so that boxes
+    differ from their anchors or cells."""
+    def draw(*pairs):
+        def heads(m):
+            for convs, std in pairs:
+                redraw(convs(m), std, gen)
+        return heads
+    return {
+        "retinanet": draw((lambda m: [m.head.cls_pred], 0.05),
+                          (lambda m: [m.head.reg_pred], 0.02)),
+        "gfl_r50": draw((lambda m: [m.head.cls_pred], 0.02),
+                        (lambda m: [m.head.reg_pred], 0.02)),
+        "tood_r50": draw((lambda m: [m.head.cls_pred], 0.05),
+                         (lambda m: [m.head.cls_prob_conv2], 0.1),
+                         (lambda m: [m.head.reg_pred], 0.02)),
+        "faster_rcnn": draw((lambda m: [m.cls_score], 0.003)),
+        "cascade_rcnn": draw((lambda m: list(m.stage_cls), 0.01)),
+        "yolox_s": draw((lambda m: [*m.head.cls_preds, *m.head.obj_preds],
+                         0.05), (lambda m: list(m.head.reg_preds), 0.02)),
+        "centernet": draw((lambda m: [m.hm_head.pred], 0.05),
+                          (lambda m: [m.wh_head.pred], 0.5),
+                          (lambda m: [m.off_head.pred], 0.1)),
+        "ttfnet": draw((lambda m: [m.hm_head.pred], 0.05),
+                       (lambda m: [m.wh_head.pred], 0.05)),
+        "picodet_lcnet": draw((lambda m: list(m.head.preds), 0.05)),
+        "solov2_r50": draw((lambda m: [m.head.cate_pred], 0.05)),
+    }[name]
+
+
+def zoo_stages(name):
+    """``(stages, select)`` of a zoo detector.  ``stages(model, x, ref)``
+    runs one forward and gives the outputs to compare (``heads``: every
+    head output, in f32 or bf16 as the model makes them) and the
+    detections (``dets``); two-stage models take the proposals of the
+    reference run ``ref`` in place of their own (with random weights the
+    top 512 of 100k near-equal objectness logits differ between devices,
+    as the Mask R-CNN leg found).  ``select(model, out, hw)`` makes the
+    detections of ``out``'s heads alone: the decode and the NMS (the
+    peaks' top-k for CenterNet and TTFNet, the matrix NMS for SOLOv2)."""
+    from tlxcv_tpu_torch.models.detection import CascadeRCNN
+
+    def dense(per_level, with_hw=True):
+        def decode(m, heads, hws, hw):
+            outs = _regroup(heads, per_level)
+            return m.nms(*(m.decode(outs, hws, hw) if with_hw
+                           else m.decode(outs, hws)))
+
+        def stages(m, x, ref=None):
+            outs, hws = m.head_outputs(x)
+            heads = _levels(outs)
+            return {"heads": heads,
+                    "dets": decode(m, heads, hws, tuple(x.shape[1:3]))}
+
+        def select(m, out, hw):
+            return decode(m, out["heads"], _hws(out["heads"], per_level), hw)
+        return stages, select
+
+    def retina():
+        def stages(m, x, ref=None):
+            cls, reg, hws = m.head_outputs(x)
+            return {"heads": [cls, reg], "hws": hws,
+                    "dets": select(m, {"heads": [cls, reg], "hws": hws},
+                                   tuple(x.shape[1:3]))}
+
+        def select(m, out, hw):
+            cls, reg = out["heads"]
+            return m.nms(*m.decode(cls, reg, m.anchors(out["hws"],
+                                                       cls.device), hw))
+        return stages, select
+
+    def peaks():
+        def stages(m, x, ref=None):
+            heads = list(m.head_outputs(x))
+            return {"heads": heads, "dets": m.select(*m.cells(*heads))}
+
+        def select(m, out, hw):
+            return m.select(*m.cells(*out["heads"]))
+        return stages, select
+
+    def rcnn():
+        def stages(m, x, ref=None):
+            hw = tuple(x.shape[1:3])
+            feats, logits, deltas, _, props, pmask = m.forward_features(x)
+            if ref is not None:
+                props = ref["props"].to(x.device, props.dtype)
+                pmask = ref["pmask"].to(x.device)
+            if isinstance(m, CascadeRCNN):
+                steps, final = m._run_cascade(feats, props, hw)
+                box = [t for i, (b, c, d) in enumerate(steps)
+                       for t in ((c, d) if i == 0 else (b, c, d))] + [final]
+            else:
+                box = list(m.box_logits(feats, props))
+            out = {"heads": feats + [logits, deltas] + box, "props": props,
+                   "pmask": pmask}
+            out["dets"] = select(m, out, hw)
+            return out
+
+        def select(m, out, hw):
+            box = out["heads"][len(out["heads"]) - (9 if isinstance(
+                m, CascadeRCNN) else 2):]
+            props, pmask = out["props"], out["pmask"]
+            if isinstance(m, CascadeRCNN):
+                c0, d0, b1, c1, d1, b2, c2, d2, final = box
+                return m.postprocess([(props, c0, d0), (b1, c1, d1),
+                                      (b2, c2, d2)], final, pmask)
+            return m._postprocess(None, props, pmask, *box, hw)
+        return stages, select
+
+    def solo():
+        def stages(m, x, ref=None):
+            outs, mfeat = m.head_outputs(x)
+            return {"heads": _levels(outs) + [mfeat],
+                    "dets": m.post_process(outs, mfeat)}
+
+        def select(m, out, hw):
+            return m.post_process(_regroup(out["heads"][:-1], 2),
+                                  out["heads"][-1])
+        return stages, select
+
+    family = {"retinanet": retina, "gfl_r50": lambda: dense(2),
+              "tood_r50": lambda: dense(2), "faster_rcnn": rcnn,
+              "cascade_rcnn": rcnn, "yolox_s": lambda: dense(3, False),
+              "centernet": peaks, "ttfnet": peaks,
+              "picodet_lcnet": lambda: dense(2), "solov2_r50": solo}[name]
+    stages, select = family()
+
+    def run(m, x, ref=None):
+        with torch.inference_mode():
+            return stages(m, x, ref)
+
+    def run_select(m, out, hw):
+        with torch.inference_mode():
+            return select(m, out, hw)
+    return run, run_select
+
+
+def mask_matched_share(want, got):
+    """SOLOv2: the share of the reference's valid instances that an
+    instance of the card matches, the same label and mask IoU >= 0.9 (the
+    masks cut at 0.5)."""
+    hits = total = 0
+    for wl, wm, gl, gm in zip(want[0], want[2], got[0], got[2]):
+        keep, gkeep = wl >= 0, gl.cpu() >= 0
+        w = (wm[keep] > 0.5).flatten(1).float()
+        g = (gm.cpu()[gkeep] > 0.5).flatten(1).float()
+        if len(w) == 0:
+            continue
+        inter = w @ g.T
+        iou = inter / (w.sum(1)[:, None] + g.sum(1)[None] - inter).clamp_min(1)
+        same = wl[keep][:, None] == gl.cpu()[gkeep][None]
+        hits += int(((iou >= 0.9) & same).any(1).sum())
+        total += len(w)
+    return hits / max(total, 1)
+
+
+def zoo_share(want, got):
+    if len(want) == 4:
+        return mask_matched_share(want, got)
+    return matched_share(want[0], got[0])
+
+
+def _to_cpu(out):
+    return {k: [t.cpu() for t in v] if isinstance(v, list)
+            else v.cpu() if torch.is_tensor(v) else v
+            for k, v in out.items()}
+
+
+def zoo_check(name, cpu, card, x2, expect, dev="cuda"):
+    """A zoo detector at b2 on the card against the CPU, in f32 (TF32
+    off) and bf16, stage by stage under the chaotic-net rule of PERF.md
+    §2: every head output in f32 within ``CHAOTIC_F32_RMS`` times the CPU
+    f32 model's rms error from the CPU's model in f64, in bf16 within
+    ``YOLO_BF16_RMS`` times the CPU bf16 model's own rms error from its
+    f32 model (of the f32 model, and of the bf16 model); a count > 0 an
+    image; the detections the CPU's decode and NMS make of the card's own
+    head outputs reproduced to ``YOLO_NMS_SHARE_FLOOR``; exactly
+    ``expect`` launches of our kernels in one forward.  The end-to-end
+    share of the CPU's f32 detections is reported, not held (random nets
+    are chaotic).  ``card`` is left with bf16 parameters."""
+    stages, select = zoo_stages(name)
+    hw = tuple(x2.shape[1:3])
+    t0 = time.perf_counter()
+    want = stages(cpu, x2)
+    cpu_s = time.perf_counter() - t0
+    truth = stages(copy.deepcopy(cpu).double(), x2.double(), want)
+    want16 = stages(params_to(copy.deepcopy(cpu), torch.bfloat16),
+                    x2.to(torch.bfloat16), want)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        if dtype == torch.bfloat16:
+            params_to(card, dtype)
+        reset_launches()
+        got = stages(card, x2.to(dev, dtype), want)
+        per_forward = {k: v for k, v in launches().items() if v}
+        heads = zip(got["heads"], want["heads"], truth["heads"],
+                    want16["heads"])
+        if dtype == torch.float32:
+            ratio = [_rms(g, t) / max(_rms(w, t), 1e-30)
+                     for g, w, t, _ in heads]
+            held = max(ratio) <= CHAOTIC_F32_RMS
+        else:
+            ratio = [(_rms(g, w) / max(_rms(c, w), 1e-30),
+                      _rms(g, c) / max(_rms(c, w), 1e-30))
+                     for g, w, _, c in heads]
+            held = all(a <= YOLO_BF16_RMS[0] and b <= YOLO_BF16_RMS[1]
+                       for a, b in ratio)
+        own = select(cpu, _to_cpu(got), hw)
+        own_share = zoo_share(own, got["dets"])
+        # detections an image: the last of (dets, counts) or of SOLOv2's
+        # (labels, scores, masks, counts)
+        counts = got["dets"][-1].cpu().tolist()
+        finite = all(bool(torch.isfinite(t).all()) for t in got["heads"])
+        check = {"phase": "model_check", "model": name, "batch": 2,
+                 "frame": list(hw), "dtype": dname,
+                 "heads": len(got["heads"]),
+                 "rms_ratios": ratio,
+                 "rms_bound": CHAOTIC_F32_RMS if dtype == torch.float32
+                 else YOLO_BF16_RMS, "held": held, "counts": counts,
+                 "cpu_counts": want["dets"][-1].tolist(),
+                 "matched_share_end_to_end": zoo_share(want["dets"],
+                                                       got["dets"]),
+                 "own_heads_share": own_share,
+                 "own_heads_floor": YOLO_NMS_SHARE_FLOOR,
+                 "launches_per_forward": per_forward, "finite": finite,
+                 "cpu_reference_s": cpu_s}
+        emit(check)
+        if not (held and finite and min(counts) > 0
+                and own_share >= YOLO_NMS_SHARE_FLOOR):
+            raise AssertionError(f"{name} {dname} disagrees with the CPU: "
+                                 f"{check}")
+        if dev == "cuda" and per_forward != expect:
+            raise AssertionError(f"{name}: kernel launches {per_forward} in "
+                                 f"one forward, expected {expect}")
+    del want, truth, want16, got
+
+
+def solo_check(keep):
+    def check(out, batch):
+        labels, scores, masks, counts = out
+        if labels.shape != (batch, keep) or masks.shape[:2] != (batch, keep):
+            raise AssertionError(f"bad SOLOv2 outputs {masks.shape}")
+        if not (torch.isfinite(scores).all() and torch.isfinite(masks).all()
+                and int(counts.min()) > 0):
+            raise AssertionError("non-finite or empty SOLOv2 outputs")
+    return check
+
+
+def zoo_legs(gather_record, upsample_record, profile, gen):
+    """The rest of the detection zoo (``ZOO_LEGS``), 80 classes, random
+    weights from a seed, the score-bearing convs drawn (``zoo_heads``),
+    BatchNorm statistics from the 2 check images: each checked at b2
+    (``zoo_check``), then served in bf16 with its launches checked,
+    exactly, a forward: Faster R-CNN 1 row gather (RoIAlign of its box
+    head) and 3 upsample-adds (the FPN), Cascade R-CNN 3 gathers (one a
+    stage) and 3 upsample-adds, SOLOv2 3 upsample-adds, the others none.
+    The launch counts of the served runs go into the two kernels'
+    records."""
+    for name, check_hw, batch, hw, expect in ZOO_LEGS:
+        cpu, card, x2 = detector_checked(name, check_hw,
+                                         zoo_heads(name, gen), gen)
+        zoo_check(name, cpu, card, x2, expect)
+        del cpu
+        x = torch.randn(batch, *hw, 3, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        keep = 100
+        counts = detector_served(
+            name, card, x, expect,
+            solo_check(keep) if name == "solov2_r50" else dets_check(keep),
+            profile)
+        for record, kernel in ((gather_record, "gather_rows"),
+                               (upsample_record, "upsample_add_fused")):
+            if kernel in expect:
+                record[f"{name}_launches"] = counts[kernel]
+        del card, x
+        torch.cuda.empty_cache()
+
+
+def padded_shapes(batch, seed, hw):
+    """``shapes_targets`` at the frame's height, its images zero-padded on
+    the right to its width (COCO's batches padded to one frame): boxes in
+    pixels."""
+    import numpy as np
+
+    x, t = shapes_targets(batch, seed, hw[0], normalise=False)
+    pad = np.zeros((batch, hw[0], hw[1] - hw[0], 3), x.dtype)
+    return np.concatenate([x, pad], 2), t
+
+
+def leg_fcos_train(profile, dev="cuda", train_batch=8, hw=(800, 1344),
+                   check_size=256):
+    """FCOS-R50 training (``create_model("fcos_r50")``, 80 classes),
+    random weights from a seed, BatchNorm in train mode, the distance
+    conv drawn as the serving leg draws it (at its normal(0.01) init the
+    distances sit within bf16's rounding of 0, so their ReLU opens at other
+    cells in bf16 than in f32, and a level's scale lost its every gradient
+    on the card in bf16); the classifier and centerness keep their prior:
+    gradients at b2 256^2 against the CPU
+    (``train_check``), the loss falling on one batch, then
+    ``Trainer.train`` at b8 800x1344 on ``ShapesDetection`` padded to the
+    frame, bf16 over f32 masters, Adam: 10 timed steps after 3, no kernel
+    of ours."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import ObjectDetection
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    name = "fcos_r50"
+
+    def build(seed=71):
+        gen = torch.Generator().manual_seed(seed)
+        model = create_model(name, device="cpu", generator=gen)
+        redraw([model.head.reg_pred], 0.02, gen)
+        return ObjectDetection(model)
+
+    xg, yg = shapes_targets(2, 9, check_size, normalise=False)
+
+    def loss(task, o, t):
+        return task.loss_fn(o, _to(o["outs"][0][0].device, t))
+
+    train_check(name, build, xg, yg, loss,
+                ["backbone.backbone.conv1.weight",
+                 "backbone.neck.lateral.0.weight",
+                 "backbone.head.cls_tower.0.weight",
+                 "backbone.head.reg_pred.weight"], bf16_cpu_loss=True)
+    trainer = Trainer(build(73).to(dev), optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(padded_shapes(train_batch, s, hw))
+               for s in (10, 11)]
+    attention_train(name, trainer, batches, {}, train_batch, profile)
+    del trainer, batches
+    empty_cache(dev)
 
 
 # ------------------------------- segmentation, BIT and padded head dims
@@ -5121,13 +5513,24 @@ def main():
         emit({"kernels": [bwd, int8]})
         print(card_line(), flush=True)
         return 0
+    if "--zoo" in sys.argv[1:]:  # the detection zoo and FCOS training
+        gather = {"name": "gather_rows"}
+        upsample = {"name": "upsample_add_fused"}
+        zoo_legs(gather, upsample, profile, torch.Generator().manual_seed(0))
+        leg_fcos_train(profile)
+        emit({"kernels": [gather, upsample]})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
     bwd = phase_flash_backward()
-    if "--detectors" in sys.argv[1:]:  # DETR-R50, PP-YOLOE-L and SSD alone
-        phase_detectors(flash, profile)
+    if "--detectors" in sys.argv[1:]:  # the detector legs alone
+        gather = {"name": "gather_rows"}
+        upsample = {"name": "upsample_add_fused"}
+        phase_detectors(flash, profile, gather, upsample)
         phase_backward_profile()
         emit({"kernels": [{key: flash[key] for key in
-                           ("name", "detr_launches", "detr_grids")}]})
+                           ("name", "detr_launches", "detr_grids")},
+                          gather, upsample]})
         print(card_line(), flush=True)
         return 0
     if "--kernels" in sys.argv[1:]:  # the redesigned kernels alone
@@ -5165,7 +5568,7 @@ def main():
     vit_int8_and_grouped(int8, profile)
     hrnet_seg_leg(profile)
     transformer_legs(flash, profile)
-    phase_detectors(flash, profile)
+    phase_detectors(flash, profile, gather, upsample)
     phase_padded_flash(flash)
     phase_segmentation(flash, profile)
     phase_remote_sensing(profile)
@@ -5181,7 +5584,9 @@ def main():
              "grouped_plain_ms", "grouped_bound_ms", "deit_launches",
              "detr_launches", "detr_grids", "bit_launches", "bit_grids",
              "library_op", "qat_launches",
-             "qat_ms", "qat_bound_ms", "qat_library_ms")
+             "qat_ms", "qat_bound_ms", "qat_library_ms",
+             "faster_rcnn_launches", "cascade_rcnn_launches",
+             "solov2_r50_launches")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

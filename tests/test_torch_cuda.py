@@ -1679,3 +1679,95 @@ def test_group_norm_in_bf16_on_the_card(cuda):
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name,gathers", [("faster_rcnn", 1),
+                                          ("cascade_rcnn", 3)])
+def test_rcnn_stages_take_the_gather_kernel(cuda, name, gathers,
+                                            monkeypatch):
+    """A micro Faster or Cascade R-CNN on the card: each box stage's
+    RoIAlign takes the gather kernel (1 launch a forward, 3 for Cascade's
+    three stages), every call bitwise the plain gather on the same table
+    and rows; 3 upsample-adds (the FPN); the detections the CPU's."""
+    from tlxcv_tpu_torch.models.classification import resnet18
+    from tlxcv_tpu_torch.ops import roi_align
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample_add_fused
+
+    same = []
+
+    def checked(table, idx):
+        out = gather_rows(table, idx)
+        same.append(torch.equal(out, gather_rows_plain(table, idx)))
+        return out
+
+    monkeypatch.setattr(roi_align, "gather_rows", checked)
+    gen = torch.Generator().manual_seed(0)
+    cpu = create_model(name, device="cpu", num_classes=4, num_proposals=16,
+                       pre_nms_top_k=64, detections_per_image=8,
+                       box_score_thresh=0.0,
+                       backbone=resnet18(num_classes=0, with_pool=False,
+                                         device="cpu", generator=gen),
+                       generator=gen).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(2, 128, 128, 3, generator=gen)
+    with torch.inference_mode():
+        want, want_counts = cpu(x)
+        g0, u0 = gather_rows.launches, upsample_add_fused.launches
+        got, counts = card(x.to(cuda))
+        torch.cuda.synchronize()
+    assert gather_rows.launches == g0 + gathers
+    assert upsample_add_fused.launches == u0 + 3
+    assert len(same) == 2 * gathers and all(same)  # the CPU's, then ours
+    assert counts.cpu().tolist() == want_counts.tolist()
+    assert (counts > 0).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-3 * want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["retinanet", "gfl_r50", "tood_r50",
+                                  "yolox_nano", "centernet", "ttfnet",
+                                  "picodet_lcnet", "solov2_r50"])
+def test_zoo_bf16_heads_on_the_card_match_the_cpu(cuda, name):
+    """The one-stage detectors and SOLOv2 in bf16 on the card (float
+    parameters bf16, statistics f32) against f32 on the CPU by their head
+    outputs, held to the CPU's own bf16 model (random BatchNorm networks
+    are chaotic in bf16, PERF.md §2); only SOLOv2 launches a kernel of
+    ours, its FPN's 3 upsample-adds."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import upsample_add_fused
+
+    gen = torch.Generator().manual_seed(16)
+    cpu = create_model(name, device="cpu", num_classes=8,
+                       generator=gen).eval()
+    x = torch.randn(2, 64, 96, 3, generator=gen)
+
+    def run(model, xs):
+        with torch.inference_mode():
+            outs = model.head_outputs(xs)
+        flat = []
+
+        def walk(t):
+            if torch.is_tensor(t) and t.is_floating_point():
+                flat.append(t.float().flatten(1).cpu())
+            elif isinstance(t, (list, tuple)):
+                for s in t:
+                    walk(s)
+        walk(outs)
+        return torch.cat(flat, 1)
+
+    def bf16(model):
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
+        return model
+
+    want = run(cpu, x)
+    want16 = run(bf16(copy.deepcopy(cpu)), x.bfloat16())
+    card = bf16(copy.deepcopy(cpu).to(cuda))
+    before = upsample_add_fused.launches
+    got = run(card, x.to(cuda, torch.bfloat16))
+    assert upsample_add_fused.launches - before == (
+        3 if name == "solov2_r50" else 0)
+    rms = lambda a, b: (a - b).double().pow(2).mean().sqrt()  # noqa: E731
+    assert torch.isfinite(got).all()
+    assert rms(got, want) <= 1.25 * rms(want16, want)
+    assert rms(got, want16) <= 2 ** 0.5 * rms(want16, want)

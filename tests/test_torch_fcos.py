@@ -45,6 +45,16 @@ from tlxcv_tpu_torch.utils import load_jax_params
 FRAMES = [(64, 64), (80, 104)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: these micro models' small ops gain nothing
+    from more, and several test processes share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _images(rng, hw, n=2):
     return rng.normal(size=(n, *hw, 3)).astype(np.float32)
 

@@ -59,7 +59,12 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.segmentation.enet", "models.rs.layers",
                  "models.rs.cd", "models.rs.seg", "models.detection.fcos",
                  "models.detection.deform", "models.detection.tood",
-                 "config", "ops.image"):
+                 "config", "ops.image", "models.detection.retinanet",
+                 "models.detection.gfl", "models.detection.cascade_rcnn",
+                 "models.detection.yolox", "models.detection.centernet",
+                 "models.detection.ttfnet", "models.detection.picodet",
+                 "models.detection.solov2",
+                 "models.classification.pp_lcnet"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -22,6 +22,16 @@ from tlxcv_tpu_torch.ops.cuda.matmul import (int8_matmul, int8_matmul_nt,
 from tlxcv_tpu_torch.utils import load_jax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: these micro models' small ops gain nothing
+    from more, and several test processes share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(jax_module):
     params, state = split(jax_module)
     return {k: np.asarray(v) for k, v in {**params, **state}.items()}

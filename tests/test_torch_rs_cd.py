@@ -56,6 +56,16 @@ CD = [("fc_ef", "FCEarlyFusion", {}), ("cdnet", "CDNet", {}),
       ("fccdn_os8", "FCCDN", {"os": 8}), ("fccdn_os4", "FCCDN", {"os": 4})]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: these micro models' small ops gain nothing
+    from more, and several test processes share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tame_attention(jm):
     """STANet's q and k convs at a tenth of their init (module docstring)."""
     for path, mod in jm.modules():

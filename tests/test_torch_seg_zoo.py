@@ -42,6 +42,16 @@ from tlxcv_tpu_torch.utils import load_jax_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: these micro models' small ops gain nothing
+    from more, and several test processes share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mods(name):
     """The JAX and the port's module ``models.segmentation.<name>`` (the
     packages export factories that shadow some module names)."""

@@ -31,6 +31,16 @@ HW = (64, 64)
 NC = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads: these micro models' small ops gain nothing
+    from more, and several test processes share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _colliding_gts(rng, b=2, m=10):
     """Boxes in normalised cxcywh: pairs that share a centre and nearly a
     size (one best anchor, one slot), a triple on one cell, sizes that pass

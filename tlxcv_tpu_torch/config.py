@@ -68,9 +68,20 @@ def _populate():
     _MODEL_REGISTRY.setdefault("snunet", RS.SNUNet)
     _MODEL_REGISTRY.setdefault("fc_ef", RS.FCEarlyFusion)
     _MODEL_REGISTRY.setdefault("farseg", RS.FarSeg)
+    for name, factory in (("retinanet", D.retinanet_r50),
+                          ("faster_rcnn", D.faster_rcnn),
+                          ("cascade_rcnn", D.cascade_rcnn_r50),
+                          ("gfl_r50", D.gfl_r50), ("tood_r50", D.tood_r50),
+                          ("centernet", D.centernet_r50),
+                          ("ttfnet", D.ttfnet_darknet53),
+                          ("picodet_lcnet", D.picodet_lcnet),
+                          ("solov2_r50", D.solov2_r50)):
+        _MODEL_REGISTRY.setdefault(name, factory)
     for arch in ("ppyoloe_s", "ppyoloe_m", "ppyoloe_l", "ppyoloe_x"):
         _MODEL_REGISTRY.setdefault(
             arch, functools.partial(D.ppyoloe, arch))
+    for arch in D.YOLOX_SIZES:
+        _MODEL_REGISTRY.setdefault(arch, functools.partial(D.yolox, arch))
 
 
 def load_seg_config(path):

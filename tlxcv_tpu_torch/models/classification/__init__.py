@@ -1,6 +1,7 @@
 from .deit import (DistilledVisionTransformer, deit_base, deit_small,
                    deit_tiny, distilled_vision_transformer, dvt)
 from .mobilenetv1 import MobileNetV1, mobilenet_v1
+from .pp_lcnet import PPLCNet, pp_lcnet
 from .resnet import (ResNet, resnet18, resnet34, resnet50, resnet101,
                      resnet152, resnext50_32x4d, resnext101_32x4d,
                      resnext101_64x4d, wide_resnet50_2, wide_resnet101_2)
@@ -21,7 +22,7 @@ MODELS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
           "vit_large_patch16_384", "vit_large_patch32_384", "deit_tiny",
           "deit_small", "deit_base", "dvt", "distilled_vision_transformer",
           "swin_tiny", "swin_small", "swin_base", "swin_large",
-          "swin_transformer_base", "mobilenet_v1"]
+          "swin_transformer_base", "mobilenet_v1", "pp_lcnet"]
 
-__all__ = ["ResNet", "MobileNetV1", "VisionTransformer", "DistilledVisionTransformer",
+__all__ = ["ResNet", "MobileNetV1", "PPLCNet", "VisionTransformer", "DistilledVisionTransformer",
            "SwinTransformer", "set_window_pack", *MODELS]

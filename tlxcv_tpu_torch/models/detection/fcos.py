@@ -34,9 +34,9 @@ from ...ops.boxes import aligned_iou, distance2bbox
 from ...ops.losses import sigmoid_focal_loss
 from ...ops.nms import multiclass_nms
 from ..classification.resnet import ResNet
-from .deform import DeformConv2d
 
-__all__ = ["FCOS", "FCOSHead", "FPNP3P7", "fcos_r50", "fcos_targets"]
+__all__ = ["FCOS", "FCOSHead", "FPNP3P7", "fcos_r50", "fcos_targets",
+           "ground_truth"]
 
 STRIDES = (8, 16, 32, 64, 128)
 # the largest regression distance each level takes (FCOS's
@@ -122,6 +122,10 @@ class FCOSHead(tnn.Module):
             convs = []
             for i in range(num_convs):
                 if dcn_last and i == num_convs - 1:
+                    # here, not at the top: deform imports tood, which
+                    # imports this module
+                    from .deform import DeformConv2d
+
                     convs.append(DeformConv2d(in_ch, in_ch, **kw))
                 else:
                     convs.append(nn.Conv2d(in_ch, in_ch, 3, padding=1,
@@ -159,6 +163,17 @@ class FCOSHead(tnn.Module):
             outs.append((self.cls_pred(c), nn.relu(scale(self.reg_pred(r))),
                          self.ctr_pred(r)))
         return outs
+
+
+def ground_truth(targets):
+    """A detector's targets: ``boxes`` [B, M, 4] f32 xyxy pixels,
+    ``class_labels`` [B, M] int64 and the validity [B, M] f32 (``mask``;
+    by default, the boxes of positive width)."""
+    boxes = targets["boxes"].float()
+    valid = targets.get("mask")
+    if valid is None:
+        valid = boxes[..., 2] > boxes[..., 0]
+    return boxes, targets["class_labels"].long(), valid.float()
 
 
 def _level_points(feat_hws, strides=STRIDES, device=None):
@@ -263,11 +278,7 @@ class FCOS(tnn.Module):
     def loss_fn(self, outputs, targets):
         """targets: ``boxes`` [B, M, 4] xyxy pixels, ``class_labels`` [B,
         M], optional ``mask`` [B, M] (default: boxes of positive width)."""
-        gt_boxes = targets["boxes"].float()
-        gt_labels = targets["class_labels"].long()
-        gt_valid = targets.get("mask")
-        if gt_valid is None:
-            gt_valid = (gt_boxes[..., 2] > gt_boxes[..., 0]).float()
+        gt_boxes, gt_labels, gt_valid = ground_truth(targets)
         outs = outputs["outs"]
         dev = outs[0][0].device
         pts = _level_points(outputs["feat_hws"], device=dev)

@@ -12,7 +12,8 @@ plain composition, as the reference's default path does.
 
 ``interpolate(mode="bicubic")`` is the reference's ``jax.image.resize(...,
 "cubic")``: Keys' kernel with a = -0.5, antialiased when downscaling, which
-is not ``F.interpolate``'s bicubic (a = -0.75, no antialias).
+is not ``F.interpolate``'s bicubic (a = -0.75, no antialias);
+``resize_linear`` is its ``"bilinear"``, likewise antialiased.
 ``max_pool2d_with_argmax`` and ``max_unpool2d`` are ENet's pair; ``unfold``
 and ``pad2d`` come with the slices that need them.
 """
@@ -22,8 +23,8 @@ import torch
 
 from .cuda.upsample import apply_taps, resize_taps, upsample_add_fused
 
-__all__ = ["interpolate", "resize", "upsample_add", "max_pool2d_with_argmax",
-           "max_unpool2d"]
+__all__ = ["interpolate", "resize", "resize_linear", "upsample_add",
+           "max_pool2d_with_argmax", "max_unpool2d"]
 
 _F32_BF16 = (torch.float32, torch.bfloat16)
 
@@ -82,18 +83,23 @@ def _keys_cubic(t):
     return torch.where(t >= 2.0, 0.0, out)
 
 
-def _cubic_matrix(in_size, out_size, device):
-    """[in, out] f32 weights of ``jax.image.resize``'s cubic resize along
-    one axis: half-pixel centres, the kernel widened by in/out when
-    downscaling (antialias), each column normalised to sum 1, zero where
-    the sample falls outside the input."""
+def _triangle(t):
+    """The linear kernel, max(0, 1 - |t|)."""
+    return torch.clamp_min(1.0 - t.abs(), 0.0)
+
+
+def _resize_matrix(in_size, out_size, kernel, device):
+    """[in, out] f32 weights of ``jax.image.resize`` along one axis:
+    half-pixel centres, the kernel widened by in/out when downscaling
+    (antialias), each column normalised to sum 1, zero where the sample
+    falls outside the input."""
     inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
     kernel_scale = torch.clamp_min(inv_scale, 1.0)
     sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) \
         * inv_scale - 0.5
     dist = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[
         :, None]).abs() / kernel_scale
-    weights = _keys_cubic(dist)
+    weights = kernel(dist)
     total = weights.sum(0, keepdim=True)
     weights = torch.where(
         total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
@@ -102,16 +108,32 @@ def _cubic_matrix(in_size, out_size, device):
     return torch.where(inside[None, :], weights, 0.0).to(device)
 
 
-def _bicubic(x, oh, ow):
-    """The reference's ``jax.image.resize(x, ..., "cubic")``: a separable
-    product per resized axis (an axis of unchanged size is left as it is),
-    the weights rounded to x's dtype, the products in f32, one rounding."""
-    y = x.float()
-    for axis, n in ((1, oh), (2, ow)):
+def _separable(x, sizes, kernel):
+    """``jax.image.resize`` with ``kernel`` over the axes of ``sizes``
+    ({axis: out}; an axis of unchanged size is left as it is): a product
+    per resized axis, the weights rounded to x's dtype, the products in
+    f32 (f64 for f64), one rounding."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = x.to(acc)
+    for axis, n in sizes.items():
         if y.shape[axis] != n:
-            m = _cubic_matrix(y.shape[axis], n, x.device).to(x.dtype).float()
+            m = _resize_matrix(y.shape[axis], n, kernel,
+                               x.device).to(x.dtype).to(acc)
             y = torch.tensordot(y, m, dims=([axis], [0])).movedim(-1, axis)
     return y.to(x.dtype)
+
+
+def _bicubic(x, oh, ow):
+    """The reference's ``jax.image.resize(x, ..., "cubic")``."""
+    return _separable(x, {1: oh, 2: ow}, _keys_cubic)
+
+
+def resize_linear(x, hw, axes=(1, 2)):
+    """``jax.image.resize(x, ..., "bilinear")`` to ``hw`` over ``axes``
+    (NHWC's H and W by default): the triangle kernel, antialiased when it
+    shrinks (widened by in/out, as ``F.interpolate(..., antialias=True)``
+    is not at every factor), half-pixel centres."""
+    return _separable(x, dict(zip(axes, hw)), _triangle)
 
 
 def interpolate(x, size=None, scale_factor=None, mode="bilinear",
