@@ -48,6 +48,14 @@
                                       # and FCOS-DCN-R50, checked and
                                       # served, then the --zoo legs; no
                                       # contract line
+    python3 chip_smoke.py --classification  # only the first half of the
+                                      # classification zoo (TNT-S through
+                                      # flash, PP-HGNet, PVTv2, Twins, CSWin,
+                                      # LeViT, ConvNeXt, VAN, RedNet,
+                                      # SE-ResNeXt also in int8, ResNeSt,
+                                      # Res2Net, RegNets, mobile nets),
+                                      # checked and served, and flash at
+                                      # TNT-S's grids; no contract line
     python3 chip_smoke.py --zoo       # only the detection zoo (RetinaNet,
                                       # GFL, TOOD, Faster and Cascade
                                       # R-CNN, YOLOX-s, CenterNet, TTFNet,
@@ -274,6 +282,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     (``phase_remote_sensing`` gives the batches and frames); no kernel of
     ours launched.
 
+17. (run after phase 16) classification: flash attention at TNT-S's two
+    b64 grids as its blocks hand them over (the inner one at head dim 6,
+    padded to 32) against the plain version and timed beside SDPA; the
+    first half of the classification zoo (``CLS_LEGS``: TNT-S, PP-HGNet,
+    PVTv2-B2, Twins PCPVT-S and SVT-S, CSWin-T, LeViT-256, ConvNeXt-T,
+    VAN-B1, RedNet-50, SE-ResNeXt-50, ResNeSt-50, Res2Net-50, RegNetX/Y-4GF
+    at b64, MobileNetV2, V3-Large, EfficientNet-B0, GhostNet at b256, all
+    224^2), random weights with their small starts drawn, each checked at
+    b2 against the CPU (``float_logit_check``) and served in bf16, TNT-S
+    with exactly 12 flash launches a forward; SE-ResNeXt-50 in full int8
+    (``quantize_weights`` and ``calibrate_activations`` on the CPU), each
+    int8 layer bitwise on the CPU's input, 582 int8 GEMM launches a
+    forward (each 32-group 3x3 one a group), served at b64 and the GEMM
+    timed at every shape of its forward (``phase_classification``).
+
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
 card, and the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -298,7 +321,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
                   torch.int8: 1979e12}     # dense tensor-core int8
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``elapsed_s``), which say where the run's time goes."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _STARTED, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1587,7 +1617,9 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
     routes; summed over the forward.  Returns the int32 route's totals (the
     contract of the TPU kernel it replaces, beside torch._int_mm) and the
     fused route's as ``fused_*`` (beside torch._int_mm and the PyTorch
-    epilogue)."""
+    epilogue).  A grouped conv hands over one GEMM a group, each at its
+    group's shape, timed with group 0's epilogue; their sums are also
+    returned under ``grouped`` (calls, fused route, its bound, plain)."""
     from tlxcv_tpu_torch.nn import Conv2d, Linear
 
     seen = []
@@ -1596,17 +1628,25 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
         if mod.weight.dtype != torch.int8:
             return
         k = mod.weight.shape[1]  # packed Kp; the function's own K below
+        groups = mod.groups if isinstance(mod, Conv2d) else 1
         if isinstance(mod, Conv2d):
-            k_fn = mod.kernel_size[0] * mod.kernel_size[1] * args[0].shape[-1]
+            k_fn = (mod.kernel_size[0] * mod.kernel_size[1]
+                    * args[0].shape[-1] // groups)
         else:
             k_fn = mod.in_features
+        n = out.shape[-1] // groups  # a grouped conv: one GEMM a group,
+        rows = slice(0, n)           # timed with group 0's epilogue
         out_scale = getattr(mod, "out_scale", None)
-        key = (out.numel() // out.shape[-1], k_fn, out.shape[-1], k,
+        key = (out.numel() // out.shape[-1], k_fn, n, k,
                str(out.dtype)[6:], mod.bias is not None,
-               out_scale is not None and getattr(mod, "relu_fused", False))
-        seen.append((key, {"scale": mod.a_scale * mod.w_scale,
-                           "bias": mod.bias, "relu": key[-1],
-                           "out_scale": out_scale, "out_dtype": out.dtype}))
+               out_scale is not None and getattr(mod, "relu_fused", False),
+               groups > 1)
+        for _ in range(groups):
+            seen.append((key, {
+                "scale": (mod.a_scale * mod.w_scale)[rows],
+                "bias": None if mod.bias is None else mod.bias[rows],
+                "relu": key[6], "out_scale": out_scale,
+                "out_dtype": out.dtype}))
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, (Conv2d, Linear))]
@@ -1622,6 +1662,8 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
         "library_event_ms", "fused_ms", "fused_event_ms", "fused_bound_ms",
         "fused_library_ms", "fused_library_event_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
+    grouped = {"calls": 0, "fused_ms": 0.0, "fused_bound_ms": 0.0,
+               "plain_ms": 0.0}
     for i, key in enumerate(sorted(set(keys))):
         m, k_fn, n, kp = key[:4]
         with torch.inference_mode():
@@ -1633,7 +1675,8 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
             m, k_fn, n, {"int8": 1, "bfloat16": 2}.get(key[4], 4))
         calls = keys.count(key)
         per_shape.append({"m": m, "k": k_fn, "kp": kp, "n": n,
-                          "calls": calls, **t, "fused": fused})
+                          "calls": calls, "grouped": key[7], **t,
+                          "fused": fused})
         for part, src in (("", t), ("fused_", fused)):
             for k in ("ms", "event_ms", "bound_ms", "library_ms",
                       "library_event_ms"):
@@ -1643,11 +1686,17 @@ def int8_forward_times(model, x, name="int8_matmul_per_forward"):
                     total[part + k] += calls * src[k]
         total["plain_ms"] += calls * t["plain_ms"]
         by[t["bound_by"]] += calls * t["bound_ms"]
+        if key[7]:
+            for part, value in (("calls", 1), ("fused_ms", fused["ms"]),
+                                ("fused_bound_ms", fused["bound_ms"]),
+                                ("plain_ms", t["plain_ms"])):
+                grouped[part] += calls * value
         torch.cuda.empty_cache()
     emit({"phase": "kernel_times", name: {
         "batch": x.shape[0], "calls": len(keys), "totals_ms": total,
-        "shapes": per_shape}})
-    return {**total, "bound_by": max(by, key=by.get)}
+        "grouped_totals_ms": grouped, "shapes": per_shape}})
+    return {**total, "bound_by": max(by, key=by.get),
+            **({"grouped": grouped} if grouped["calls"] else {})}
 
 
 # ------------------------------------------------------ row gather, upsample
@@ -2018,9 +2067,40 @@ def _rms(a, b):
     return (a.double().cpu() - b.double().cpu()).pow(2).mean().sqrt().item()
 
 
+def int8_layers_bitwise(name, cpu8, run, kinds):
+    """``run(cpu8)`` on the CPU, recording each layer of ``kinds`` with its
+    input and output; then each of those layers of a copy of ``cpu8`` on
+    the card, given the CPU's input, must return the CPU's output bitwise
+    (an int8 layer is an exact int32 GEMM between IEEE element-wise ops).
+    Returns the card's copy, the CPU's output, the layers checked and the
+    CPU forward's seconds."""
+    seen = []
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in cpu8.modules() if isinstance(m, kinds)]
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            want = run(cpu8)
+    finally:
+        for h in handles:
+            h.remove()
+    cpu_s = time.perf_counter() - t0
+    card8 = copy.deepcopy(cpu8).cuda()
+    names = {id(m): p for p, m in cpu8.named_modules()}
+    card_mods = dict(card8.named_modules())
+    with torch.inference_mode():
+        for mod, xin, yout in seen:
+            got = card_mods[names[id(mod)]](xin.cuda()).cpu()
+            if not torch.equal(got, yout):
+                raise AssertionError(f"int8 layer {names[id(mod)]} of {name} "
+                                     f"differs from the CPU on its input")
+    return card8, want, len(seen), cpu_s
+
+
 def yolo_int8_check(cpu8, cpu, x1):
     """int8 YOLOv3 on the card against the same int8 model on the CPU, at
-    b1 416^2 (the CPU's int32 products take seconds per image).  Layer by
+    b1 416^2.  Layer by
     layer it must be exact: each int8 conv on the card, given the CPU's
     input to it, returns the CPU's output bitwise (an exact int32 GEMM
     between IEEE element-wise ops).  End to end the two chains drift apart
@@ -2043,33 +2123,10 @@ def yolo_int8_check(cpu8, cpu, x1):
     from tlxcv_tpu_torch.nn import Conv2d
     from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
 
-    seen = []
-    convs = [m for m in cpu8.modules() if isinstance(m, Conv2d)]
-    handles = [m.register_forward_hook(
-        lambda mod, args, out: seen.append((mod, args[0], out)))
-        for m in convs]
-    t0 = time.perf_counter()
-    try:
-        with torch.inference_mode():
-            want8 = cpu8.head_outputs(x1)
-    finally:
-        for h in handles:
-            h.remove()
-    cpu_s = time.perf_counter() - t0
+    card8, want8, layers_equal, cpu_s = int8_layers_bitwise(
+        "yolov3", cpu8, lambda m: m.head_outputs(x1), (Conv2d,))
     with torch.inference_mode():
         want32 = cpu.head_outputs(x1)
-    card8 = copy.deepcopy(cpu8).cuda()
-    names = {id(m): p for p, m in cpu8.named_modules()}
-    card_mods = dict(card8.named_modules())
-    layers_equal = 0
-    with torch.inference_mode():
-        for mod, xin, yout in seen:
-            got = card_mods[names[id(mod)]](xin.cuda()).cpu()
-            if not torch.equal(got, yout):
-                raise AssertionError(f"int8 layer {names[id(mod)]} differs "
-                                     f"from the CPU on the CPU's input")
-            layers_equal += 1
-        del seen
         reset_launches()
         got8 = card8.head_outputs(x1.cuda())
         per_forward = int8_matmul.launches
@@ -4228,17 +4285,41 @@ def check_padded(name, q, k, v, dtype):
     return record
 
 
+def padded_flash_times(q, k, v):
+    """Flash attention on the inputs a model hands it, at a head dim its
+    wrapper may pad: the wrapper with its pad (``ms``: CUDA-graph replays;
+    ``event_ms``: events around each call), the kernel alone on inputs
+    padded beforehand (``kernel_ms``), the plain version, SDPA at the real
+    D (``library_ms``) and the bound, which counts the bytes of the
+    unpadded q, k, v and output."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    d = q.shape[-1]
+    bh, sq, sk = q.shape[:-2].numel(), q.shape[-2], k.shape[-2]
+    dp = A.padded_head_dim(d)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    bound, bound_by = attention_bound_ms(bh, sq, sk, d, q.dtype)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+    return {"shape": [bh, sq, sk, d], "padded_to": dp,
+            "ms": graph_ms(lambda: A.flash_attention(q, k, v)),
+            "event_ms": time_ms(lambda: A.flash_attention(q, k, v)),
+            "kernel_ms": graph_ms(lambda: A._launch_kernel(
+                qp, kp, vp, None, d ** -0.5)),
+            "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v)),
+            "library_ms": graph_ms(sdpa), "library_event_ms": time_ms(sdpa),
+            "bound_ms": bound, "bound_us": 1e3 * bound, "bound_by": bound_by}
+
+
 def phase_padded_flash(flash_record):
     """Flash attention at head dims the kernel does not take, which the
     wrapper zero-pads to the next of 32/64/96/128 (``padded_head_dim``):
     ``check_padded`` in bf16 and f32 at BIT's two b32 grids and at D in
     ``PADDED_DS`` on [2, 3, 77, D] queries over 65 keys; D = 129 raises.
-    Then BIT's two grids timed in bf16: the wrapper with its pad
-    (``ms``: CUDA-graph replays; ``event_ms``: events around each call),
-    the kernel alone on inputs padded beforehand (``kernel_ms``), the plain
-    version, SDPA at the real D (``library_ms``) and the bound, which
-    counts the bytes of the unpadded q, k, v and output.  Adds the grids'
-    record to ``flash_record`` (``bit_grids``)."""
+    Then BIT's two grids timed in bf16 (``padded_flash_times``).
+    Adds the grids' record to ``flash_record`` (``bit_grids``)."""
     from tlxcv_tpu_torch.ops.cuda import attention as A
 
     results = []
@@ -4264,30 +4345,9 @@ def phase_padded_flash(flash_record):
                          for key in ("forward_rel_err", "rel_err_dq_dk_dv")}
                     for dt in ("bfloat16", "float32")}})
 
-    def times(name, sq, sk):
-        q, k, v = bit_qkv(name, torch.bfloat16, seed=21)
-        dp = A.padded_head_dim(BIT_D)
-        qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - BIT_D))
-                      for t in (q, k, v))
-        bh = BIT_BATCH * BIT_HEADS
-        bound, bound_by = attention_bound_ms(bh, sq, sk, BIT_D,
-                                             torch.bfloat16)
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
-
-        return {"shape": [bh, sq, sk, BIT_D], "padded_to": dp,
-                "ms": graph_ms(lambda: A.flash_attention(q, k, v)),
-                "event_ms": time_ms(lambda: A.flash_attention(q, k, v)),
-                "kernel_ms": graph_ms(lambda: A._launch_kernel(
-                    qp, kp, vp, None, BIT_D ** -0.5)),
-                "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v)),
-                "library_ms": graph_ms(sdpa),
-                "library_event_ms": time_ms(sdpa),
-                "bound_ms": bound, "bound_us": 1e3 * bound,
-                "bound_by": bound_by}
-
-    timings = {name: times(name, sq, sk) for name, sq, sk in BIT_GRIDS}
+    timings = {name: padded_flash_times(*bit_qkv(name, torch.bfloat16,
+                                                 seed=21))
+               for name, _, _ in BIT_GRIDS}
     emit({"phase": "kernel_times", "flash_attention_bit": timings})
     flash_record["bit_grids"] = timings
     return results
@@ -5433,6 +5493,267 @@ def transformer_legs(flash, profile):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------ the classification zoo, first half
+# (registry name, served batch, our kernels' launches a forward): each at
+# its published ImageNet setting, 224^2; the mobile nets at b256, as
+# ResNet-50's cell.  TNT-S is the reference's, at depth 6: its inner and
+# outer attention launch the flash kernel once each a block.
+CLS_LEGS = [
+    ("tnt_s", 64, {"flash_attention": 12}),
+    ("pp_hgnet_small", 64, {}), ("pvt_v2_b2", 64, {}),
+    ("pcpvt_small", 64, {}), ("alt_gvt_small", 64, {}),
+    ("cswin_tiny", 64, {}), ("levit_256", 64, {}),
+    ("convnext_tiny", 64, {}), ("van_b1", 64, {}), ("rednet50", 64, {}),
+    ("se_resnext50_32x4d", 64, {}), ("resnest50", 64, {}),
+    ("res2net50_26w_4s", 64, {}), ("regnetx_4gf", 64, {}),
+    ("regnety_4gf", 64, {}), ("mobilenet_v2", 256, {}),
+    ("mobilenet_v3_large", 256, {}), ("efficientnet_b0", 256, {}),
+    ("ghostnet", 256, {}),
+]
+# legs whose bf16 logits are held to the CPU bf16 model's own rms error
+# (``float_logit_check``'s ``chaotic``) rather than 3e-2 of their scale:
+# random BatchNorm networks whose own CPU bf16 model misses that bound or
+# comes near it (PP-HGNet, SE-ResNeXt, Res2Net, the RegNets, the mobile
+# nets), and LeViT with drawn statistics
+CLS_CHAOTIC = {"pp_hgnet_small", "levit_256", "se_resnext50_32x4d",
+               "res2net50_26w_4s", "regnetx_4gf", "regnety_4gf",
+               "mobilenet_v2", "mobilenet_v3_large", "efficientnet_b0",
+               "ghostnet"}
+# BatchNorm statistics come from the model's own activations
+# (``data_bn_statistics``), except where a BatchNorm normalises one vector
+# an image (LeViT's head, ResNeSt's split attention): over a few images of
+# noise its variance is tiny and the logits reach 1e3, so these legs'
+# statistics are drawn (``random_bn_statistics``)
+CLS_RANDOM_BN = {"levit_256", "resnest50"}
+# Involution multiplies each pixel's neighbours by weights made from the
+# pixel, so a random RedNet-50 squares, block after block, any deviation
+# from the images its statistics came from (1e26 by block 11 on other
+# images; bf16 rounding alone suffices): its bottlenecks' last BatchNorm
+# scale starts at 0.1, as a zero-gamma start keeps residual branches
+# small (then f32 and f64 agree to 1e-6 of the logits on the CPU)
+CLS_RESIDUAL_BN_SCALE = {"rednet50": 0.1}
+# TNT-S's attention at b64 224^2 as its blocks hand it over: (name, BH,
+# heads, S, D); the inner attention over each patch's 16 pixel tokens (24
+# channels, 4 heads: D = 6, which the wrapper pads to 32), the outer over
+# the 197 patch tokens
+TNT_GRIDS = [("tnt_inner", 64 * 196 * 4, 4, 16, 6),
+             ("tnt_outer", 64 * 6, 6, 197, 64)]
+SE_RESNEXT_INT8_LAUNCHES = 582  # 37 convs, 16 x 32 groups, 33 linears
+
+
+def draw_small_starts(model, gen):
+    """The parameters that start at or near zero, drawn at O(1) from
+    ``gen`` so that the paths they scale are checked and timed as a
+    trained model runs them: the layer scales (ConvNeXt's ``gamma``, 1e-6;
+    VAN's ``ls1`` and ``ls2``, 1e-2) around 1, LeViT's attention biases
+    (zeros) and the BatchNorm scales it starts at zero, TNT's position
+    embeddings and class token (std 0.02)."""
+    from tlxcv_tpu_torch.nn import BatchNorm
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rpartition(".")[2]
+            if leaf in ("gamma", "ls1", "ls2"):
+                p.copy_(1 + 0.5 * torch.randn(p.shape, generator=gen))
+            elif leaf == "attention_biases":
+                p.copy_(torch.randn(p.shape, generator=gen))
+            elif leaf in ("pixel_pos", "patch_pos", "cls_token"):
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+        for mod in model.modules():
+            if (isinstance(mod, BatchNorm) and mod.weight is not None
+                    and not mod.weight.any()):
+                mod.weight.copy_(0.5 + torch.rand(mod.weight.shape,
+                                                  generator=gen))
+
+
+def cls_model(name, gen):
+    """``create_model(name)`` on the CPU in a task, eval mode, with random
+    weights from ``gen`` and its small starts drawn; BatchNorm statistics
+    from one train-mode forward of 4 other images (``data_bn_statistics``)
+    or, for ``CLS_RANDOM_BN``, drawn (``random_bn_statistics``); RedNet's
+    residual branches damped (``CLS_RESIDUAL_BN_SCALE``)."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.models.classification.rednet import BottleneckRed
+    from tlxcv_tpu_torch.nn import BatchNorm
+    from tlxcv_tpu_torch.tasks import ImageClassification
+
+    cpu = ImageClassification(create_model(name, device="cpu",
+                                           generator=gen)).eval()
+    draw_small_starts(cpu, gen)
+    if name in CLS_RESIDUAL_BN_SCALE:
+        with torch.no_grad():
+            for mod in cpu.modules():
+                if isinstance(mod, BottleneckRed):
+                    mod.conv3[1].weight.fill_(CLS_RESIDUAL_BN_SCALE[name])
+    if name in CLS_RANDOM_BN:
+        random_bn_statistics(cpu, gen)
+    elif any(isinstance(m, BatchNorm) for m in cpu.modules()):
+        data_bn_statistics(cpu, torch.randn(4, 224, 224, 3, generator=gen))
+    return cpu
+
+
+def cls_leg(name, batch, expect, gen, profile):
+    """One leg: f32 and bf16 logits at b2 224^2 against f32 on the CPU
+    (``float_logit_check``, the launches of one forward exactly
+    ``expect``), then ``predict`` served at ``batch`` in bf16.  Returns
+    the launch counts of the served run."""
+    cpu = cls_model(name, gen)
+    x2 = torch.randn(2, 224, 224, 3, generator=gen)
+    card = copy.deepcopy(cpu).cuda()
+    params = sum(p.numel() for p in cpu.parameters())
+    float_logit_check(name, cpu, card, x2, depth=f"{params / 1e6:.1f}M "
+                      f"parameters", expect=expect,
+                      chaotic=name in CLS_CHAOTIC)
+    del cpu
+    x = torch.randn(batch, 224, 224, 3, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    counts, step = serve(card, x, expect, name, "bfloat16")
+    if profile:
+        phase_profile(name, card, x, step_s=step)
+    del card, x
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tnt_flash_grids():
+    """Flash attention at TNT-S's two b64 grids (``TNT_GRIDS``) as its
+    blocks hand them over, [B, H, S, D] views of the packed qkv
+    projection: checked in bf16 against the plain version in f32 on the
+    same inputs (within 2e-2 of the largest magnitude, the kernel's bf16
+    bound), one launch a call; then timed (``padded_flash_times``)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    grids = {}
+    for i, (name, bh, heads, s, d) in enumerate(TNT_GRIDS):
+        q, k, v = qkv(bh, s, d, torch.bfloat16, seed=40 + i, heads=heads)
+        before = A.flash_attention.launches
+        out = A.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launched = A.flash_attention.launches - before
+        err = _rel_card(out, A.flash_attention_plain(q.float(), k.float(),
+                                                     v.float()))
+        grids[name] = {"max_rel_err": err, "bound_rel_err": 2e-2,
+                       "launches": launched, **padded_flash_times(q, k, v)}
+        del q, k, v, out
+        if launched != 1 or not err <= 2e-2:
+            emit({"phase": "kernel_times", "failed": grids[name]})
+            raise AssertionError(f"flash at {name}: {grids[name]}")
+    emit({"phase": "kernel_times", "flash_attention_tnt": grids})
+    return grids
+
+
+def int8_layer_check(name, cpu8, cpu32, x, expect):
+    """The int8 model on the card against the same int8 model on the CPU,
+    as ``yolo_int8_check`` holds YOLOv3's: each int8 Conv2d and Linear
+    bitwise on the CPU's input (``int8_layers_bitwise``); the logits held
+    to the int8 model's own error against its f32 model on the CPU, the
+    card's within 1.25 times it of the f32 model and within sqrt(2) times
+    it of the CPU's int8 model (the float BatchNorms between the int8
+    layers round differently on the two devices, and a code moved by one
+    moves the next layer's inputs).  The int8 GEMM launches of one
+    forward must be exactly ``expect``."""
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+    from tlxcv_tpu_torch.ops.cuda.matmul import int8_matmul
+
+    card8, want8, layers, cpu_s = int8_layers_bitwise(
+        name, cpu8, lambda m: m(x), (Conv2d, Linear))
+    with torch.inference_mode():
+        want32 = cpu32(x)
+        reset_launches()
+        got8 = card8(x.cuda()).float().cpu()
+        per_forward = int8_matmul.launches
+    check = {"batch": x.shape[0], "cpu_s": cpu_s,
+             "layers_bitwise_equal": layers,
+             "rms_card_cpu": _rms(got8, want8),
+             "rms_card_f32_cpu": _rms(got8, want32),
+             "rms_int8_f32_cpu": _rms(want8, want32),
+             "logit_scale": want32.abs().max().item(),
+             "launches_per_forward": per_forward,
+             "expected_launches": expect,
+             "finite": bool(torch.isfinite(got8).all())}
+    emit({"phase": "model_check", "model": name, **check})
+    if (not check["finite"]
+            or check["rms_card_f32_cpu"] > 1.25 * check["rms_int8_f32_cpu"]
+            or check["rms_card_cpu"] > math.sqrt(2)
+            * check["rms_int8_f32_cpu"] or per_forward != expect):
+        raise AssertionError(f"int8 {name} disagrees with the CPU: {check}")
+    return card8
+
+
+def leg_se_resnext_int8(int8_record, gen, profile):
+    """SE-ResNeXt-50 32x4d in full int8, quantized as the int8 YOLOv3 leg
+    is (``quantize_weights``, then ``calibrate_activations`` on 4 images,
+    on the CPU in f32; BatchNorm in float between the int8 layers).  Each
+    int8 Conv2d and Linear launches the int8 GEMM once, each 32-group 3x3
+    once a group (``nn.layers.Conv2d._grouped_int8``): the count is
+    derived from the model and must be ``SE_RESNEXT_INT8_LAUNCHES``.
+    Checked at b2 224^2 (``int8_layer_check``), served at b64 (bf16
+    input), and the int8 GEMM timed at every shape its forward hands it
+    (``int8_forward_times``), the grouped route's sum apart."""
+    from tlxcv_tpu_torch.nn import Conv2d, Linear
+    from tlxcv_tpu_torch.ops.quant import (calibrate_activations,
+                                           quantize_weights)
+
+    name = "se_resnext50_32x4d_int8"
+    cpu32 = cls_model("se_resnext50_32x4d", gen)
+    cpu8 = copy.deepcopy(cpu32)
+    layers = (quantize_weights(cpu8.backbone),
+              calibrate_activations(cpu8.backbone, [
+                  torch.randn(4, 224, 224, 3, generator=gen)]))
+    derived = sum(m.groups if isinstance(m, Conv2d) else 1
+                  for m in cpu8.modules() if isinstance(m, (Conv2d, Linear))
+                  and m.weight.dtype == torch.int8)
+    if layers != (86, 86) or derived != SE_RESNEXT_INT8_LAUNCHES:
+        raise AssertionError(f"{name}: {layers} layers quantized and "
+                             f"calibrated, {derived} GEMMs a forward")
+    card8 = int8_layer_check(name, cpu8, cpu32,
+                             torch.randn(2, 224, 224, 3, generator=gen),
+                             derived)
+    del cpu8, cpu32
+    x = torch.randn(64, 224, 224, 3, generator=gen).to("cuda",
+                                                       torch.bfloat16)
+    expect = {"int8_matmul": derived}
+    counts, step = serve(card8, x, expect, name, "int8 (bf16 input)")
+    if profile:
+        phase_profile(name, card8, x, step_s=step)
+    times = int8_forward_times(card8, x, name="int8_matmul_per_"
+                               "se_resnext50_int8_forward")
+    int8_record.update({
+        "se_resnext_int8_launches": counts["int8_matmul"],
+        "se_resnext_int8_ms": times["fused_ms"],
+        "se_resnext_int8_bound_ms": times["fused_bound_ms"],
+        "se_resnext_int8_grouped_ms": times["grouped"]["fused_ms"],
+        "se_resnext_int8_grouped_bound_ms": times["grouped"]["fused_bound_ms"],
+        "se_resnext_int8_grouped_calls": times["grouped"]["calls"]})
+    del card8, x
+    torch.cuda.empty_cache()
+
+
+def phase_classification(flash_record, int8_record, profile):
+    """The first half of the classification zoo (``CLS_LEGS``), each
+    checked at b2 and served (``cls_leg``), flash attention at TNT-S's two
+    grids (``tnt_flash_grids``) and SE-ResNeXt-50 in full int8
+    (``leg_se_resnext_int8``); the phase's own seconds."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    flash_record["tnt_grids"] = tnt_flash_grids()
+    failed = {}
+    for name, batch, expect in CLS_LEGS:
+        try:  # every leg runs; a failure fails the phase at its end
+            counts = cls_leg(name, batch, expect, gen, profile)
+        except AssertionError as err:
+            failed[name] = str(err)[:2000]
+            torch.cuda.empty_cache()
+            continue
+        if name == "tnt_s":
+            flash_record["tnt_launches"] = counts["flash_attention"]
+    leg_se_resnext_int8(int8_record, gen, profile)
+    emit({"phase": "classification", "legs": len(CLS_LEGS) + 1,
+          "failed": failed, "seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError(f"classification legs failed: {list(failed)}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5513,6 +5834,13 @@ def main():
         emit({"kernels": [bwd, int8]})
         print(card_line(), flush=True)
         return 0
+    if "--classification" in sys.argv[1:]:  # the zoo's first half alone
+        flash = {"name": "flash_attention"}
+        int8 = {"name": "int8_matmul"}
+        phase_classification(flash, int8, profile)
+        emit({"kernels": [flash, int8]})
+        print(card_line(), flush=True)
+        return 0
     if "--zoo" in sys.argv[1:]:  # the detection zoo and FCOS training
         gather = {"name": "gather_rows"}
         upsample = {"name": "upsample_add_fused"}
@@ -5572,6 +5900,7 @@ def main():
     phase_padded_flash(flash)
     phase_segmentation(flash, profile)
     phase_remote_sensing(profile)
+    phase_classification(flash, int8, profile)
     phase_train_check()
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)
@@ -5586,7 +5915,11 @@ def main():
              "library_op", "qat_launches",
              "qat_ms", "qat_bound_ms", "qat_library_ms",
              "faster_rcnn_launches", "cascade_rcnn_launches",
-             "solov2_r50_launches")
+             "solov2_r50_launches", "tnt_launches", "tnt_grids",
+             "se_resnext_int8_launches", "se_resnext_int8_ms",
+             "se_resnext_int8_bound_ms", "se_resnext_int8_grouped_ms",
+             "se_resnext_int8_grouped_bound_ms",
+             "se_resnext_int8_grouped_calls")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

@@ -1771,3 +1771,80 @@ def test_zoo_bf16_heads_on_the_card_match_the_cpu(cuda, name):
     assert torch.isfinite(got).all()
     assert rms(got, want) <= 1.25 * rms(want16, want)
     assert rms(got, want16) <= 2 ** 0.5 * rms(want16, want)
+
+
+def test_tnt_attention_takes_the_flash_kernel(cuda, monkeypatch):
+    """TNT-S at its published width (depth cut to 2) at b2 224^2 in bf16:
+    each block's inner attention (head dim 6, padded to 32) and outer
+    attention go through the flash kernel, one launch each, and each
+    output matches the plain version on the same inputs within the
+    kernel's bf16 bound."""
+    from tlxcv_tpu_torch.nn import attention as NA
+
+    calls = []
+
+    def recorded(q, k, v, bias=None, scale=None):
+        out = flash_attention(q, k, v, bias=bias, scale=scale)
+        calls.append((q, k, v, scale, out))
+        return out
+
+    monkeypatch.setattr(NA, "flash_attention", recorded)
+    gen = torch.Generator().manual_seed(17)
+    model = create_model("tnt_s", depth=2, device="cpu",
+                         generator=gen).eval()
+    for p in model.parameters():
+        p.data = p.data.to(cuda, torch.bfloat16)
+    x = torch.randn(2, 224, 224, 3, generator=gen).to(cuda, torch.bfloat16)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 4 and len(calls) == 4
+    assert torch.isfinite(out).all()
+    shapes = [tuple(q.shape) for q, *_ in calls]
+    assert shapes == [(2 * 196, 4, 16, 6), (2, 6, 197, 64)] * 2
+    for q, k, v, scale, got in calls:
+        want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                     scale=scale)
+        err = (got.float() - want).abs().max() / want.abs().max()
+        assert err <= _TOL[torch.bfloat16]
+
+
+def test_se_resnext_grouped_int8_convs_on_the_card_are_bitwise(cuda):
+    """SE-ResNeXt-50 32x4d quantized and calibrated on the CPU: each
+    grouped 3x3 of its first stage (128 -> 128, 32 groups, 56^2 at 224^2)
+    on the card, given the CPU's input to it, launches the int8 GEMM once a
+    group and returns the CPU's output bitwise; the whole int8 forward
+    launches it 582 times (37 convs, 16 x 32 groups, 33 linears)."""
+    gen = torch.Generator().manual_seed(18)
+    cpu = create_model("se_resnext50_32x4d", device="cpu",
+                       generator=gen).eval()
+    x = torch.randn(1, 224, 224, 3, generator=gen)
+    assert quantize_weights(cpu) == 86
+    assert calibrate_activations(cpu, [x]) == 86
+    seen = []
+    grouped = [cpu.blocks[i].conv2[0] for i in range(3)]
+    handles = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in grouped]
+    with torch.inference_mode():
+        cpu(x)
+    for h in handles:
+        h.remove()
+    card = copy.deepcopy(cpu).to(cuda)
+    names = {id(m): p for p, m in cpu.named_modules()}
+    mods = dict(card.named_modules())
+    assert len(seen) == 3
+    with torch.inference_mode():
+        for mod, xin, want in seen:
+            assert mod.groups == 32 and tuple(xin.shape) == (1, 56, 56, 128)
+            before = int8_matmul.launches
+            got = mods[names[id(mod)]](xin.to(cuda))
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == before + 32
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+        before = int8_matmul.launches
+        logits = card(x.to(cuda, torch.bfloat16))
+        torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 582
+    assert torch.isfinite(logits).all()

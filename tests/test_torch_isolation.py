@@ -64,7 +64,12 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.detection.yolox", "models.detection.centernet",
                  "models.detection.ttfnet", "models.detection.picodet",
                  "models.detection.solov2",
-                 "models.classification.pp_lcnet"):
+                 "models.classification.pp_lcnet",
+                 *(f"models.classification.{m}" for m in (
+                     "tnt", "pvt_v2", "gvt", "cswin", "levit", "convnext",
+                     "van", "rednet", "se_resnext", "res2net", "regnet",
+                     "mobilenetv2", "mobilenetv3", "efficientnet",
+                     "ghostnet"))):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

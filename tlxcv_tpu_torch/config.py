@@ -56,6 +56,7 @@ def _populate():
     for mod in (C, S):
         for name in mod.MODELS:
             _MODEL_REGISTRY.setdefault(name, getattr(mod, name))
+    _MODEL_REGISTRY.setdefault("pp_hgnet", C.pp_hgnet_small)  # JAX's alias
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)
     _MODEL_REGISTRY.setdefault("ssd", D.SSD)

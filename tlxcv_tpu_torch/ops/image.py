@@ -15,7 +15,7 @@ plain composition, as the reference's default path does.
 is not ``F.interpolate``'s bicubic (a = -0.75, no antialias);
 ``resize_linear`` is its ``"bilinear"``, likewise antialiased.
 ``max_pool2d_with_argmax`` and ``max_unpool2d`` are ENet's pair; ``unfold``
-and ``pad2d`` come with the slices that need them.
+is RedNet's im2col; ``pad2d`` comes with the slice that needs it.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 from .cuda.upsample import apply_taps, resize_taps, upsample_add_fused
 
 __all__ = ["interpolate", "resize", "resize_linear", "upsample_add",
-           "max_pool2d_with_argmax", "max_unpool2d"]
+           "max_pool2d_with_argmax", "max_unpool2d", "unfold"]
 
 _F32_BF16 = (torch.float32, torch.bfloat16)
 
@@ -234,3 +234,16 @@ def max_unpool2d(x, indices, output_hw):
     out.scatter_(1, idx, x.reshape(n, h * w, c))
     return out[:, :size].reshape(n, oh, ow, c)
 
+
+
+def unfold(x, kernel_size, stride=1, padding=0, dilation=1):
+    """im2col of NHWC ``x``: ``[N, L, C*kh*kw]`` patches and the output's
+    ``(oh, ow)``.  Within a patch the values are channel-major, (c, i, j),
+    as the reference's ``lax.conv_general_dilated_patches`` (and torch's
+    ``F.unfold``) order them; Involution (RedNet) reshapes by that order."""
+    k, s, p, d = (_pair(v) for v in (kernel_size, stride, padding, dilation))
+    n, h, w, _ = x.shape
+    oh = (h + 2 * p[0] - d[0] * (k[0] - 1) - 1) // s[0] + 1
+    ow = (w + 2 * p[1] - d[1] * (k[1] - 1) - 1) // s[1] + 1
+    cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), k, d, p, s)
+    return cols.transpose(1, 2), (oh, ow)
