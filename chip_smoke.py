@@ -56,6 +56,18 @@
                                       # Res2Net, RegNets, mobile nets),
                                       # checked and served, and flash at
                                       # TNT-S's grids; no contract line
+    python3 chip_smoke.py --classic   # only the classic CNNs (AlexNet,
+                                      # VGG-16, GoogLeNet, SqueezeNet 1.1,
+                                      # DenseNet-121, ShuffleNetV2, ESNet,
+                                      # PP-LCNetV2, MixNet-S, ReXNet,
+                                      # PeleeNet, HarDNet-68, DPN-68,
+                                      # DLA-34, Inception-v3, Xception-41,
+                                      # Xception-65 DeepLab, CSPDarkNet-53),
+                                      # checked and served; no contract line
+    python3 chip_smoke.py --faces     # only RetinaFace-R50 (through the
+                                      # upsample-add kernel) and ArcFace-R50,
+                                      # checked and served; with
+                                      # --classic, both; no contract line
     python3 chip_smoke.py --zoo       # only the detection zoo (RetinaNet,
                                       # GFL, TOOD, Faster and Cascade
                                       # R-CNN, YOLOX-s, CenterNet, TTFNet,
@@ -297,6 +309,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     forward (each 32-group 3x3 one a group), served at b64 and the GEMM
     timed at every shape of its forward (``phase_classification``).
 
+18. (run after phase 17) classic: the classic CNNs (``CLASSIC_LEGS``:
+    AlexNet, GoogLeNet, SqueezeNet 1.1, ShuffleNetV2 x1.0, ESNet x1.0,
+    PP-LCNetV2, MixNet-S, ReXNet 1.0, PeleeNet at b256, VGG-16,
+    DenseNet-121, HarDNet-68, DPN-68, DLA-34 at b64, all 224^2;
+    Inception-v3, Xception-41 and Xception-65 DeepLab b64 299^2;
+    CSPDarkNet-53 b64 256^2), random weights, BatchNorm statistics from
+    data, each checked at b2 against the CPU and served in bf16, no launch
+    of ours (``phase_classic``).  faces: RetinaFace-R50 checked at b1
+    600^2 (the C4 -> C3 merge 38 -> 75, not 2x) against the CPU in f32 and
+    bf16, its two FPN merges each one upsample-add launch, bitwise the
+    plain version, the host's post-process (``tasks.face_recognition.
+    post_process``) reproducing the CPU's faces both ways; served at b16
+    640^2 in bf16, 2 launches a forward, the post-process of a served
+    batch timed (its scores drawn for WIDER FACE's density, at random
+    places) and the two merges timed beside their plain version,
+    ``F.interpolate`` + add and the bound; ArcFace-R50's margin logits and
+    loss at b2 128^2 against the CPU and its embeddings served at b256
+    128^2 (``phase_faces``).
+
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
 card, and the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -304,6 +335,7 @@ CUDA device the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -1985,50 +2017,40 @@ def phase_mask_rcnn(gather_record, upsample_record):
     return task, x, step
 
 
-def mrcnn_kernel_times(task, x, gather_record, upsample_record):
-    """Both kernels timed alone on the inputs one served forward hands
-    them (captured by wrapping the wrappers, outside any counted run),
-    with their plain versions, the library calls and the bounds; summed
-    over the forward.  Device times from CUDA-graph replays; the
-    event-timed calls, which also count the wrapper's host time where it
-    is the longer, beside them."""
+@contextlib.contextmanager
+def recorded_merges():
+    """``ops.image``'s upsample-add kernel wrapped for the ``with`` block:
+    each call's inputs and whether its output is bitwise the plain
+    version's on them, appended to the list it yields."""
     import tlxcv_tpu_torch.ops.image as image
-    import tlxcv_tpu_torch.ops.roi_align as roi_align
-    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
     from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
                                                    upsample_add_plain)
 
-    seen = {"gather": [], "upsample": []}
-    roi_align.gather_rows = lambda t, i: (
-        seen["gather"].append((t, i)) or gather_rows(t, i))
-    image.upsample_add_fused = lambda a, b, mode: (
-        seen["upsample"].append((a, b, mode)) or upsample_add_fused(a, b,
-                                                                     mode))
+    calls = []
+
+    def wrapped(x, skip, mode):
+        out = upsample_add_fused(x, skip, mode)
+        calls.append((x, skip, mode, torch.equal(
+            out, upsample_add_plain(x, skip, mode))))
+        return out
+
+    image.upsample_add_fused = wrapped
     try:
-        with torch.inference_mode():
-            task.predict(x)
+        yield calls
     finally:
-        roi_align.gather_rows = gather_rows
         image.upsample_add_fused = upsample_add_fused
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def merge_time_rows(calls):
+    """Each upsample-add call that ``recorded_merges`` saw timed alone: the
+    kernel, its plain version and ``F.interpolate`` plus the add, device
+    time from CUDA-graph replays, the kernel's event-timed call beside
+    them, the bound, and whether the call was bitwise its plain version."""
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
     rows = []
-    for (table, idx), branch in zip(seen["gather"], ("box", "mask")):
-        bound, bound_2r, distinct = gather_bound_ms(table, idx)
-        rows.append({"branch": branch, "table": list(table.shape),
-                     "rows": idx.numel(), "distinct_rows": distinct,
-                     "ms": graph_ms(lambda: gather_rows(table, idx)),
-                     "plain_ms": graph_ms(lambda: gather_rows_plain(table,
-                                                                    idx)),
-                     "library_ms": graph_ms(
-                         lambda: torch.index_select(table, 0, idx)),
-                     "event_ms": time_ms(lambda: gather_rows(table, idx)),
-                     "bound_ms": bound, "bound_ms_2_r_row_bytes": bound_2r})
-    gather_record.update({k: sum(r[k] for r in rows) for k in keys},
-                         bound_by="bytes")
-    emit({"phase": "kernel_times", "gather_rows_per_forward": rows})
-    del seen["gather"]
-    rows = []
-    for a, b, mode in seen["upsample"]:
+    for a, b, mode, same in calls:
         size = tuple(b.shape[1:3])
 
         def library(a=a, b=b, mode=mode, size=size):
@@ -2044,11 +2066,54 @@ def mrcnn_kernel_times(task, x, gather_record, upsample_record):
                      "library_ms": graph_ms(library),
                      "event_ms": time_ms(lambda: upsample_add_fused(a, b,
                                                                     mode)),
-                     "bound_ms": upsample_bound_ms(a, b)})
+                     "bound_ms": upsample_bound_ms(a, b), "bitwise": same})
+    return rows
+
+
+def mrcnn_kernel_times(task, x, gather_record, upsample_record):
+    """Both kernels timed alone on the inputs one served forward hands
+    them (captured by wrapping the wrappers, outside any counted run; each
+    merge held bitwise against its plain version on the same inputs),
+    with their plain versions, the library calls and the bounds; summed
+    over the forward.  Device times from CUDA-graph replays; the
+    event-timed calls, which also count the wrapper's host time where it
+    is the longer, beside them."""
+    import tlxcv_tpu_torch.ops.roi_align as roi_align
+    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+    gathers = []
+    roi_align.gather_rows = lambda t, i: (
+        gathers.append((t, i)) or gather_rows(t, i))
+    try:
+        with recorded_merges() as merges, torch.inference_mode():
+            task.predict(x)
+    finally:
+        roi_align.gather_rows = gather_rows
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    rows = []
+    for (table, idx), branch in zip(gathers, ("box", "mask")):
+        bound, bound_2r, distinct = gather_bound_ms(table, idx)
+        rows.append({"branch": branch, "table": list(table.shape),
+                     "rows": idx.numel(), "distinct_rows": distinct,
+                     "ms": graph_ms(lambda: gather_rows(table, idx)),
+                     "plain_ms": graph_ms(lambda: gather_rows_plain(table,
+                                                                    idx)),
+                     "library_ms": graph_ms(
+                         lambda: torch.index_select(table, 0, idx)),
+                     "event_ms": time_ms(lambda: gather_rows(table, idx)),
+                     "bound_ms": bound, "bound_ms_2_r_row_bytes": bound_2r})
+    gather_record.update({k: sum(r[k] for r in rows) for k in keys},
+                         bound_by="bytes")
+    emit({"phase": "kernel_times", "gather_rows_per_forward": rows})
+    del gathers
+    rows = merge_time_rows(merges)
     upsample_record.update({k: sum(r[k] for r in rows) for k in keys},
                            bound_by="bytes")
     emit({"phase": "kernel_times", "upsample_add_fused_per_forward": rows})
     torch.cuda.empty_cache()
+    if not all(r["bitwise"] for r in rows):
+        raise AssertionError(f"Mask R-CNN's merges differ from the plain "
+                             f"version: {rows}")
 
 
 # ----------------------------------------------------------------- YOLOv3
@@ -5510,15 +5575,22 @@ CLS_LEGS = [
     ("mobilenet_v3_large", 256, {}), ("efficientnet_b0", 256, {}),
     ("ghostnet", 256, {}),
 ]
-# legs whose bf16 logits are held to the CPU bf16 model's own rms error
-# (``float_logit_check``'s ``chaotic``) rather than 3e-2 of their scale:
-# random BatchNorm networks whose own CPU bf16 model misses that bound or
-# comes near it (PP-HGNet, SE-ResNeXt, Res2Net, the RegNets, the mobile
-# nets), and LeViT with drawn statistics
+# legs (of ``CLS_LEGS`` and ``CLASSIC_LEGS``) whose bf16 logits are held
+# to the CPU bf16 model's own rms error (``float_logit_check``'s
+# ``chaotic``) rather than 3e-2 of their scale: random BatchNorm networks
+# whose own CPU bf16 model misses that bound or comes near it (PP-HGNet,
+# SE-ResNeXt, Res2Net, the RegNets, the mobile nets), LeViT with drawn
+# statistics, and every classic CNN but AlexNet, VGG-16, SqueezeNet and
+# PP-LCNetV2, whose card bf16 logits came within 0.9% of their scale (on
+# the others they came 2.5% (Xception-41) to 33% (ReXNet) from it, and
+# the CPU's own bf16 model as far)
 CLS_CHAOTIC = {"pp_hgnet_small", "levit_256", "se_resnext50_32x4d",
                "res2net50_26w_4s", "regnetx_4gf", "regnety_4gf",
                "mobilenet_v2", "mobilenet_v3_large", "efficientnet_b0",
-               "ghostnet"}
+               "ghostnet", "googlenet", "densenet121", "shufflenet_v2_x1_0",
+               "esnet_x1_0", "mixnet_s", "rexnet_1_0", "peleenet",
+               "hardnet68", "dpn68", "dla34", "inception_v3", "xception41",
+               "xception65_deeplab", "cspdarknet53"}
 # BatchNorm statistics come from the model's own activations
 # (``data_bn_statistics``), except where a BatchNorm normalises one vector
 # an image (LeViT's head, ResNeSt's split attention): over a few images of
@@ -5566,12 +5638,13 @@ def draw_small_starts(model, gen):
                                                   generator=gen))
 
 
-def cls_model(name, gen):
+def cls_model(name, gen, size=224):
     """``create_model(name)`` on the CPU in a task, eval mode, with random
     weights from ``gen`` and its small starts drawn; BatchNorm statistics
-    from one train-mode forward of 4 other images (``data_bn_statistics``)
-    or, for ``CLS_RANDOM_BN``, drawn (``random_bn_statistics``); RedNet's
-    residual branches damped (``CLS_RESIDUAL_BN_SCALE``)."""
+    from one train-mode forward of 4 other images of side ``size``
+    (``data_bn_statistics``) or, for ``CLS_RANDOM_BN``, drawn
+    (``random_bn_statistics``); RedNet's residual branches damped
+    (``CLS_RESIDUAL_BN_SCALE``)."""
     from tlxcv_tpu_torch import create_model
     from tlxcv_tpu_torch.models.classification.rednet import BottleneckRed
     from tlxcv_tpu_torch.nn import BatchNorm
@@ -5588,25 +5661,26 @@ def cls_model(name, gen):
     if name in CLS_RANDOM_BN:
         random_bn_statistics(cpu, gen)
     elif any(isinstance(m, BatchNorm) for m in cpu.modules()):
-        data_bn_statistics(cpu, torch.randn(4, 224, 224, 3, generator=gen))
+        data_bn_statistics(cpu, torch.randn(4, size, size, 3, generator=gen))
     return cpu
 
 
-def cls_leg(name, batch, expect, gen, profile):
-    """One leg: f32 and bf16 logits at b2 224^2 against f32 on the CPU
-    (``float_logit_check``, the launches of one forward exactly
-    ``expect``), then ``predict`` served at ``batch`` in bf16.  Returns
-    the launch counts of the served run."""
-    cpu = cls_model(name, gen)
-    x2 = torch.randn(2, 224, 224, 3, generator=gen)
+def cls_leg(name, batch, expect, gen, profile, size=224):
+    """One leg: f32 and bf16 logits at b2 ``size``^2 against f32 on the
+    CPU (``float_logit_check``, the launches of one forward exactly
+    ``expect``; bf16 held as a chaotic net's for ``CLS_CHAOTIC``), then
+    ``predict`` served at ``batch`` in bf16.
+    Returns the launch counts of the served run."""
+    cpu = cls_model(name, gen, size)
+    x2 = torch.randn(2, size, size, 3, generator=gen)
     card = copy.deepcopy(cpu).cuda()
     params = sum(p.numel() for p in cpu.parameters())
     float_logit_check(name, cpu, card, x2, depth=f"{params / 1e6:.1f}M "
                       f"parameters", expect=expect,
                       chaotic=name in CLS_CHAOTIC)
     del cpu
-    x = torch.randn(batch, 224, 224, 3, generator=gen).to("cuda",
-                                                          torch.bfloat16)
+    x = torch.randn(batch, size, size, 3, generator=gen).to("cuda",
+                                                            torch.bfloat16)
     counts, step = serve(card, x, expect, name, "bfloat16")
     if profile:
         phase_profile(name, card, x, step_s=step)
@@ -5753,6 +5827,359 @@ def phase_classification(flash_record, int8_record, profile):
     if failed:
         raise AssertionError(f"classification legs failed: {list(failed)}")
 
+# ------------------------------------ the classification zoo, second half
+# (registry name, served batch, side): the classic CNNs, each at its
+# published ImageNet size (Inception-v3 and the Xceptions 299, CSPDarkNet
+# 256, the others 224), the light nets at b256 as the mobile nets of
+# ``CLS_LEGS``;
+# none launches a kernel of ours; the chaotic ones are in ``CLS_CHAOTIC``
+CLASSIC_LEGS = [
+    ("alexnet", 256, 224), ("vgg16", 64, 224), ("googlenet", 256, 224),
+    ("squeezenet1_1", 256, 224), ("densenet121", 64, 224),
+    ("shufflenet_v2_x1_0", 256, 224), ("esnet_x1_0", 256, 224),
+    ("pp_lcnet_v2", 256, 224), ("mixnet_s", 256, 224),
+    ("rexnet_1_0", 256, 224), ("peleenet", 256, 224),
+    ("hardnet68", 64, 224), ("dpn68", 64, 224), ("dla34", 64, 224),
+    ("inception_v3", 64, 299), ("xception41", 64, 299),
+    ("xception65_deeplab", 64, 299), ("cspdarknet53", 64, 256),
+]
+
+
+def phase_classic(profile):
+    """The classic CNNs (``CLASSIC_LEGS``), random weights from a seed and
+    BatchNorm statistics from data (``cls_model``), each checked at b2
+    against the CPU and served in bf16 (``cls_leg``), no launch of ours;
+    the phase's own seconds."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(1)
+    failed = {}
+    for name, batch, size in CLASSIC_LEGS:
+        try:  # every leg runs; a failure fails the phase at its end
+            cls_leg(name, batch, {}, gen, profile, size=size)
+        except AssertionError as err:
+            failed[name] = str(err)[:2000]
+            torch.cuda.empty_cache()
+    emit({"phase": "classic", "legs": len(CLASSIC_LEGS), "failed": failed,
+          "seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError(f"classic legs failed: {list(failed)}")
+
+
+# ---------------------------------------------------------- face models
+# RetinaFace-R50 served at the reference's default input size, b16; its
+# FPN's two nearest merges are the upsample-add kernel's launches, 2 a
+# forward ([16, 20^2, 256] -> 40^2 and [16, 40^2, 256] -> 80^2 at 640^2).
+# Checked at b1 600^2, where the C4 -> C3 merge is 38 -> 75, not 2x.
+RETINAFACE_SERVE = (16, 640)
+RETINAFACE_CHECK = 600
+RETINAFACE_LAUNCHES = {"upsample_add_fused": 2}
+FACE_SCORE_TH = 0.5   # ``detect_faces``' default
+# The host's NMS loops once a kept face, so the post-process costs what
+# the count of priors over ``FACE_SCORE_TH`` makes it cost, and a random
+# net's scores say nothing of that count.  The class convs are drawn
+# (``draw_face_scores``) for a trained net's count instead: WIDER FACE's
+# faces an image (393,703 labelled faces in 32,203 images; Yang et al.,
+# "WIDER FACE: A Face Detection Benchmark", CVPR 2016) times the priors
+# that the port's ``Encoder`` labels positive for one face
+# (``face_candidates``).  Their places stay random, so NMS keeps nearly
+# all of them, where a trained net's cluster on faces and NMS keeps about
+# one a face: the post-process is timed on random-net traffic.
+WIDER_FACES_PER_IMAGE = 393_703 / 32_203
+# ArcFace-R50 embeddings served at b256 128^2 (at the reference's default
+# 112 its dense layer does not fit ResNet-50's 4 x 4 map: ROADMAP queue 3)
+ARCFACE_SERVE = (256, 128)
+
+
+class _Predict:
+    """``serve`` and ``phase_profile`` call ``.predict``: a model's
+    forward, or ArcFace's ``embed``, under that name."""
+
+    def __init__(self, fn):
+        self.predict = fn
+
+
+def face_candidates(side, gen):
+    """Priors over ``FACE_SCORE_TH`` in one ``side``^2 image of a trained
+    RetinaFace, taken as ``WIDER_FACES_PER_IMAGE`` times the priors that
+    ``Encoder`` labels positive for one square face: the mean over 8
+    faces of each of ``prior_box``'s six anchor sizes, at places drawn
+    from ``gen``.  Returns that mean and the count."""
+    from tlxcv_tpu_torch.tasks.face_recognition import Encoder, prior_box
+
+    encode = Encoder(prior_box((side, side)))
+    positives = []
+    for size in (16, 32, 64, 128, 256, 512):
+        for _ in range(8):
+            lt = (side - size) * torch.rand(2, generator=gen)
+            label = torch.cat([torch.cat([lt, lt + size]) / side,
+                               torch.zeros(11)])
+            positives.append(int((encode(label[None].numpy())[:, 15] == 1)
+                                 .sum()))
+    per_face = statistics.mean(positives)
+    return per_face, WIDER_FACES_PER_IMAGE * per_face
+
+
+def draw_face_scores(model, x, share):
+    """RetinaFace's three class convs rescaled from their outputs on ``x``
+    (CPU, f32) so that, at each level, the face-minus-background logit of
+    a prior has std 1 and a share ``share`` of the priors clears
+    ``FACE_SCORE_TH`` (at init every score sits near 1/2 and NMS would
+    take every prior).  Channel ``2 a + 1`` is anchor a's face logit."""
+    outs = []
+    hooks = [h.register_forward_hook(lambda m, a, y: outs.append(y))
+             for h in model.classheads]
+    with torch.no_grad():
+        model(x)
+        for h in hooks:
+            h.remove()
+        for head, y in zip(model.classheads, outs):
+            diff = (y[..., 1] - y[..., 0]).double().flatten()
+            a = 1.0 / diff.std().item()
+            head.conv.weight.mul_(a)
+            head.conv.bias.mul_(a)
+            head.conv.bias[1::2] -= a * torch.quantile(diff,
+                                                       1 - share).item()
+
+
+def face_detections(bbox, cls, side, iou_th):
+    """One forward's outputs through the port's post-process
+    (``tasks.face_recognition.post_process``, as ``detect_faces`` runs it)
+    on the host, the priors made once: per image the kept pixel boxes
+    [K, 4] and scores."""
+    from tlxcv_tpu_torch.tasks.face_recognition import (post_process,
+                                                        prior_box)
+
+    priors = prior_box((side, side))
+    return [tuple(map(torch.from_numpy, post_process(
+        b, c, priors, side, FACE_SCORE_TH, iou_th)))
+        for b, c in zip(bbox.float().cpu().numpy(),
+                        cls.float().cpu().numpy())]
+
+
+def face_matched_share(want, got):
+    """Share of ``want``'s faces that a face of ``got``'s, in the same
+    image, overlaps with IoU >= 0.9."""
+    hits = total = 0
+    for (w, _), (g, _) in zip(want, got):
+        total += len(w)
+        if len(w) and len(g):
+            hits += int((_box_iou(w, g) >= 0.9).any(1).sum())
+    return hits / max(total, 1)
+
+
+def retinaface_check(cpu, card, x1):
+    """RetinaFace on the card against the CPU at b1 ``RETINAFACE_CHECK``
+    px: f32 boxes, landmarks and scores within 1e-3 of each one's scale,
+    bf16 held as a chaotic net's (to the CPU bf16 model's rms error); each
+    forward exactly 2 upsample-add launches, each merge bitwise its plain
+    version on the same inputs; the host's post-process of the card's f32
+    outputs reproducing the CPU's faces: at least 90% of either side's
+    faces overlap one of the other's with IoU >= 0.9.  ``card`` is left
+    with bf16 parameters."""
+    names = ("boxes", "landmarks", "scores")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu(x1)
+        cpu_s = time.perf_counter() - t0
+        want16 = params_to(copy.deepcopy(cpu), torch.bfloat16)(
+            x1.to(torch.bfloat16))
+    check = {"batch": 1, "side": x1.shape[1], "cpu_s": cpu_s}
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        if dtype == torch.bfloat16:
+            params_to(card, dtype)
+        with recorded_merges() as calls, torch.inference_mode():
+            reset_launches()
+            got = card(x1.to("cuda", dtype))
+            torch.cuda.synchronize()
+            per_forward = {k: v for k, v in launches().items() if v}
+        merges = [[list(a.shape[1:3]), list(b.shape[1:3]), same]
+                  for a, b, _, same in calls]
+        got = [g.float().cpu() for g in got]
+        row = {"launches_per_forward": per_forward, "merges": merges,
+               "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+        ok &= (per_forward == RETINAFACE_LAUNCHES and len(merges) == 2
+               and all(m[2] for m in merges) and row["finite"])
+        for name, g, w, w16 in zip(names, got, want, want16):
+            scale = w.abs().max().item()
+            if dtype == torch.float32:
+                err = (g - w).abs().max().item()
+                row[name] = {"scale": scale, "max_abs_err": err,
+                             "bound": 1e-3 * scale}
+                ok &= err <= 1e-3 * scale
+            else:
+                w16 = w16.float()
+                row[name] = {"scale": scale,
+                             "max_abs_err": (g - w).abs().max().item(),
+                             "rms_bf16_card_f32_cpu": _rms(g, w),
+                             "rms_bf16_cpu_f32_cpu": _rms(w16, w),
+                             "rms_bf16_card_bf16_cpu": _rms(g, w16)}
+                ok &= (_rms(g, w) <= YOLO_BF16_RMS[0] * _rms(w16, w)
+                       and _rms(g, w16) <= YOLO_BF16_RMS[1] * _rms(w16, w))
+        if dtype == torch.float32:
+            side = x1.shape[1]
+            cpu_faces = face_detections(want[0], want[2], side, cpu.iou_th)
+            card_faces = face_detections(got[0], got[2], side, cpu.iou_th)
+            row["faces_cpu"] = [len(f) for f, _ in cpu_faces]
+            row["faces_card"] = [len(f) for f, _ in card_faces]
+            row["cpu_faces_matched_share"] = face_matched_share(
+                cpu_faces, card_faces)
+            row["card_faces_matched_share"] = face_matched_share(
+                card_faces, cpu_faces)
+            ok &= (min(row["faces_cpu"]) > 0
+                   and row["cpu_faces_matched_share"] >= 0.9
+                   and row["card_faces_matched_share"] >= 0.9)
+        check[dname] = row
+    emit({"phase": "model_check", "model": "retinaface", **check})
+    if not ok:
+        raise AssertionError(f"RetinaFace disagrees with the CPU: {check}")
+
+
+def retinaface_merge_times(card, x, upsample_record):
+    """The two merges of one served forward, captured (each bitwise its
+    plain version) and timed alone (``merge_time_rows``), summed over the
+    forward into the upsample-add's record."""
+    with recorded_merges() as calls, torch.inference_mode():
+        card(x)
+        torch.cuda.synchronize()
+    rows = merge_time_rows(calls)
+    emit({"phase": "kernel_times", "upsample_add_fused_per_retinaface_"
+          "forward": rows})
+    if len(rows) != 2 or not all(r["bitwise"] for r in rows):
+        raise AssertionError(f"RetinaFace's merges: {rows}")
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        upsample_record[f"retinaface_{key}"] = sum(r[key] for r in rows)
+
+
+def leg_retinaface(upsample_record, gen, profile):
+    """RetinaFace-R50 (``create_model("retinaface")``, random weights from
+    ``gen``, BatchNorm statistics from 2 other images, the class convs
+    drawn by ``draw_face_scores`` for ``face_candidates``' count): checked
+    at b1 600^2 (``retinaface_check``), then its forward served at b16
+    640^2 in bf16 with exactly 2 upsample-add launches a forward, the
+    host's post-process of one served batch timed (the copy to the host,
+    the priors once, ``post_process`` an image), and the two merges timed
+    (``retinaface_merge_times``)."""
+    from tlxcv_tpu_torch import create_model
+
+    batch, served_side = RETINAFACE_SERVE
+    priors = 2 * sum(math.ceil(served_side / s) ** 2 for s in (8, 16, 32))
+    per_face, candidates = face_candidates(served_side, gen)
+    side = RETINAFACE_CHECK
+    cpu = create_model("retinaface", device="cpu", generator=gen).eval()
+    data_bn_statistics(cpu, torch.randn(2, side, side, 3, generator=gen))
+    x1 = torch.randn(1, side, side, 3, generator=gen)
+    draw_face_scores(cpu, torch.randn(1, side, side, 3, generator=gen),
+                     candidates / priors)
+    card = copy.deepcopy(cpu).cuda()
+    retinaface_check(cpu, card, x1)
+    iou_th = cpu.iou_th
+    del cpu
+    side = served_side
+    x = torch.randn(batch, side, side, 3, generator=gen).to("cuda",
+                                                           torch.bfloat16)
+
+    def outputs_check(out, n):
+        shapes = [tuple(t.shape) for t in out]
+        if shapes != [(n, priors, 4), (n, priors, 10), (n, priors, 2)] or \
+                not all(bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError(f"bad RetinaFace outputs {shapes}")
+
+    served = _Predict(card)
+    counts, step = serve(served, x, RETINAFACE_LAUNCHES, "retinaface",
+                         "bfloat16", check=outputs_check)
+    with torch.inference_mode():
+        bbox, _, cls = card(x)
+    t0 = time.perf_counter()
+    faces = face_detections(bbox, cls, side, iou_th)
+    host_s = time.perf_counter() - t0
+    emit({"phase": "host_post_process", "model": "retinaface",
+          "batch": batch, "decode_nms_ms": 1e3 * host_s,
+          "wider_faces_per_image": WIDER_FACES_PER_IMAGE,
+          "positives_per_face": per_face,
+          "candidates_per_image_drawn": candidates,
+          "candidates_per_image": (cls[..., 1] > FACE_SCORE_TH).sum(1)
+          .tolist(),
+          "faces_per_image": [len(f) for f, _ in faces]})
+    if min(len(f) for f, _ in faces) == 0:
+        raise AssertionError("RetinaFace served a batch with no face kept")
+    if profile:
+        phase_profile("retinaface", served, x, step_s=step)
+    upsample_record["retinaface_launches"] = counts["upsample_add_fused"]
+    retinaface_merge_times(card, x, upsample_record)
+    del card, x
+    torch.cuda.empty_cache()
+
+
+class _ArcLogits(torch.nn.Module):
+    """ArcFace's margin logits of fixed labels, as one module for
+    ``float_logit_check``."""
+
+    def __init__(self, model, labels):
+        super().__init__()
+        self.model = model
+        self.labels = labels
+
+    def forward(self, x):
+        return self.model(x, self.labels.to(x.device))
+
+
+def leg_arcface(gen, profile):
+    """ArcFace-R50 (``create_model("arcface", input_size=128)``: 512-wide
+    embeddings, 10,575 classes; random weights from ``gen``; BatchNorm
+    statistics from one train-mode forward of 32 images, so that ``bn2``,
+    which normalises one vector an image, sees 32 of them): the margin
+    logits of b2 against the CPU (``float_logit_check``, no launch of
+    ours), the loss in f32 within 1e-4 of the CPU's, then ``embed`` served
+    at b256 128^2 in bf16, unit-norm rows."""
+    from tlxcv_tpu_torch import create_model
+
+    batch, side = ARCFACE_SERVE
+    cpu = create_model("arcface", input_size=side, device="cpu",
+                       generator=gen).eval()
+    data_bn_statistics(cpu, torch.randn(32, side, side, 3, generator=gen))
+    card = copy.deepcopy(cpu).cuda()
+    x2 = torch.randn(2, side, side, 3, generator=gen)
+    labels = torch.tensor([3, 10_000])
+    with torch.inference_mode():
+        want = cpu.loss_fn(cpu.embed(x2), labels).item()
+        got = card.loss_fn(card.embed(x2.cuda()), labels.cuda()).item()
+    emit({"phase": "model_check", "model": "arcface_loss", "cpu": want,
+          "card_f32": got, "bound": 1e-4 * abs(want)})
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError(f"ArcFace loss {got} on the card, {want} on "
+                             f"the CPU")
+    float_logit_check("arcface_margin_logits", _ArcLogits(cpu, labels),
+                      _ArcLogits(card, labels), x2, depth="ResNet-50",
+                      expect={}, chaotic=True)
+    del cpu
+    x = torch.randn(batch, side, side, 3, generator=gen).to("cuda",
+                                                           torch.bfloat16)
+
+    def embed_check(e, n):
+        norms = e.float().norm(dim=1)
+        if e.shape != (n, 512) or not bool(
+                ((norms - 1).abs() <= 1e-2).all()):
+            raise AssertionError(f"bad ArcFace embeddings {e.shape}")
+
+    served = _Predict(card.embed)
+    _, step = serve(served, x, {}, "arcface", "bfloat16", check=embed_check)
+    if profile:
+        phase_profile("arcface", served, x, step_s=step)
+    del card, x
+    torch.cuda.empty_cache()
+
+
+def phase_faces(upsample_record, profile):
+    """RetinaFace-R50 through the upsample-add kernel (``leg_retinaface``)
+    and ArcFace-R50 (``leg_arcface``); the phase's own seconds."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(2)
+    leg_retinaface(upsample_record, gen, profile)
+    leg_arcface(gen, profile)
+    emit({"phase": "faces", "seconds": time.perf_counter() - t0})
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5841,6 +6268,17 @@ def main():
         emit({"kernels": [flash, int8]})
         print(card_line(), flush=True)
         return 0
+    classic, faces = ("--classic" in sys.argv[1:],
+                      "--faces" in sys.argv[1:])
+    if classic or faces:  # the classic CNNs and the face models, alone
+        upsample = {"name": "upsample_add_fused"}
+        if classic:
+            phase_classic(profile)
+        if faces:
+            phase_faces(upsample, profile)
+        emit({"kernels": [upsample]})
+        print(card_line(), flush=True)
+        return 0
     if "--zoo" in sys.argv[1:]:  # the detection zoo and FCOS training
         gather = {"name": "gather_rows"}
         upsample = {"name": "upsample_add_fused"}
@@ -5901,6 +6339,8 @@ def main():
     phase_segmentation(flash, profile)
     phase_remote_sensing(profile)
     phase_classification(flash, int8, profile)
+    phase_classic(profile)
+    phase_faces(upsample, profile)
     phase_train_check()
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)
@@ -5919,7 +6359,9 @@ def main():
              "se_resnext_int8_launches", "se_resnext_int8_ms",
              "se_resnext_int8_bound_ms", "se_resnext_int8_grouped_ms",
              "se_resnext_int8_grouped_bound_ms",
-             "se_resnext_int8_grouped_calls")
+             "se_resnext_int8_grouped_calls", "retinaface_launches",
+             "retinaface_ms", "retinaface_plain_ms", "retinaface_library_ms",
+             "retinaface_bound_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

@@ -1848,3 +1848,39 @@ def test_se_resnext_grouped_int8_convs_on_the_card_are_bitwise(cuda):
         torch.cuda.synchronize()
     assert int8_matmul.launches == before + 582
     assert torch.isfinite(logits).all()
+
+
+def test_retinaface_merges_take_the_upsample_add_kernel(cuda, monkeypatch):
+    """RetinaFace-R50 at b1 600^2 on the card in f32: its FPN's two nearest
+    merges (19 -> 38, and 38 -> 75, which is not 2x) each launch the
+    upsample-add kernel once, bitwise the plain version on the same
+    inputs, and the outputs match the CPU's."""
+    from tlxcv_tpu_torch.ops import image
+    from tlxcv_tpu_torch.ops.cuda.upsample import (upsample_add_fused,
+                                                   upsample_add_plain)
+
+    calls = []
+
+    def checked(x, skip, mode):
+        out = upsample_add_fused(x, skip, mode)
+        calls.append((tuple(x.shape[1:3]), tuple(skip.shape[1:3]), mode,
+                      torch.equal(out, upsample_add_plain(x, skip, mode))))
+        return out
+
+    monkeypatch.setattr(image, "upsample_add_fused", checked)
+    gen = torch.Generator().manual_seed(19)
+    cpu = create_model("retinaface", device="cpu", generator=gen).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(1, 600, 600, 3, generator=gen)
+    with torch.inference_mode():
+        want = cpu(x)
+        calls.clear()
+        before = upsample_add_fused.launches
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+    assert upsample_add_fused.launches == before + 2
+    assert calls == [((19, 19), (38, 38), "nearest", True),
+                     ((38, 38), (75, 75), "nearest", True)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-3 * w.abs().max())

@@ -69,7 +69,13 @@ def test_importing_every_port_module_pulls_in_no_jax():
                      "tnt", "pvt_v2", "gvt", "cswin", "levit", "convnext",
                      "van", "rednet", "se_resnext", "res2net", "regnet",
                      "mobilenetv2", "mobilenetv3", "efficientnet",
-                     "ghostnet"))):
+                     "ghostnet", "vgg", "alexnet", "squeezenet",
+                     "googlenet", "inceptionv3", "densenet", "xception",
+                     "xception_deeplab", "shufflenetv2", "esnet", "mixnet",
+                     "rexnet", "peleenet", "dpn_dla", "cspdarknet")),
+                 "models.face_recognition.retinaface",
+                 "models.face_recognition.arcface",
+                 "tasks.face_recognition"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

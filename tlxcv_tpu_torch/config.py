@@ -48,6 +48,7 @@ def _populate():
     _POPULATED = True
     from .models import classification as C
     from .models import detection as D
+    from .models import face_recognition as FR
     from .models import facial_landmark_detection as F
     from .models import human_pose_estimation as P
     from .models import rs as RS
@@ -56,7 +57,13 @@ def _populate():
     for mod in (C, S):
         for name in mod.MODELS:
             _MODEL_REGISTRY.setdefault(name, getattr(mod, name))
-    _MODEL_REGISTRY.setdefault("pp_hgnet", C.pp_hgnet_small)  # JAX's alias
+    # the JAX package's aliases
+    for alias, factory in (("pp_hgnet", C.pp_hgnet_small),
+                           ("darknet53", C.darknet53_cls),
+                           ("rexnet", C.rexnet_1_0)):
+        _MODEL_REGISTRY.setdefault(alias, factory)
+    _MODEL_REGISTRY.setdefault("retinaface", FR.RetinaFace)
+    _MODEL_REGISTRY.setdefault("arcface", FR.ArcFace)
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)
     _MODEL_REGISTRY.setdefault("ssd", D.SSD)
