@@ -68,6 +68,13 @@
                                       # upsample-add kernel) and ArcFace-R50,
                                       # checked and served; with
                                       # --classic, both; no contract line
+    python3 chip_smoke.py --sequence  # only flash at the grids of TrOCR
+                                      # and DeiT-B (forward and backward),
+                                      # I3D, TrOCR (greedy, beam, teacher
+                                      # forcing), DeiT-B distilled from
+                                      # RegNetY-4GF, RetinaFace-R50 and
+                                      # ArcFace-R50 trained; no contract
+                                      # line
     python3 chip_smoke.py --zoo       # only the detection zoo (RetinaNet,
                                       # GFL, TOOD, Faster and Cascade
                                       # R-CNN, YOLOX-s, CenterNet, TTFNet,
@@ -192,8 +199,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and every parameter with a CPU gradient given one on the card.
 10. train: ``Trainer.train`` with bf16 compute and f32 masters.  Mask R-CNN
     b8 640^2 on ``ShapesDetection`` (20 steps on one batch, the loss must
-    fall; then 3 warm-up and 10 timed steps, exactly 3 upsample-add, 3
-    transposed-resize and 2 gather launches per step) and ResNet-50 b256
+    fall; then 3 warm-up and ``TRAIN_STEPS`` timed steps, exactly 3
+    upsample-add, 3 transposed-resize and 2 gather launches per step) and
+    ResNet-50 b256
     (the bench's training leg, the same counts, no kernel of ours); train
     img/s, step ms and peak memory; the transposed resize timed on the
     gradients one step hands it.
@@ -327,6 +335,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``F.interpolate`` + add and the bound; ArcFace-R50's margin logits and
     loss at b2 128^2 against the CPU and its embeddings served at b256
     128^2 (``phase_faces``).
+
+19. (run after phase 18) sequence: flash attention at the grids of this
+    slice (``SEQUENCE_GRIDS``, bf16: TrOCR's encoder at b64, its teacher
+    forcing at b32 under a shared causal bias and over the 577 memory
+    tokens, its decode steps at b64, one query row over the 32-slot KV
+    cache under a [1, 1, 32] bias and over the memory, DeiT-B's student
+    at b64) against the plain version and timed beside SDPA; the backward
+    at the training grids (``SEQUENCE_BACKWARD``, in the dtypes the
+    Trainer's bf16 policy hands them).  I3D (157 classes): logits at b1
+    16 x 112^2 against the CPU, served at b16 32 x 224^2, gradients at b1
+    16 x 112^2, trained at b8 32 x 224^2 on the demo's loss.  TrOCR (the
+    demo's: vocabulary 64,044, 384^2, 32 tokens): greedy (b4) and 4-beam
+    (b2) tokens and the decode steps' logits along the CPU's tokens
+    against the CPU (``trocr_check``), greedy served at b64 and beam at
+    b16 (390 flash launches a generation), gradients at b2, trained by
+    teacher forcing at b32 (18 + 18 launches a step).  DeiT-B distilled
+    from RegNetY-4GF through ``teacher_labels`` at b64 (12 + 12).
+    RetinaFace-R50 trained at b8 640^2 (2 upsample-add and 2 transposed
+    resize launches a step, each timed alone) and ArcFace-R50 at b128
+    128^2 with a margin warm-up; each training leg's gradients against
+    the CPU first (``phase_sequence``).
 
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
@@ -713,12 +742,14 @@ def backward_inputs(b, h, sq, sk, d, layout, dtype, seed):
 
 
 def backward_bias(kind, n, sq, sk, gen):
-    """None; a bias shared by the heads [1, Sq, Sk]; one per head [n, Sq,
-    Sk]; or one per head whose query row 0 is masked at every key (the
-    forward averages v there) and whose other rows are masked at every
-    third key from the second."""
+    """None; a bias shared by the heads [1, Sq, Sk] (random, or causal);
+    one per head [n, Sq, Sk]; or one per head whose query row 0 is masked
+    at every key (the forward averages v there) and whose other rows are
+    masked at every third key from the second."""
     if kind is None:
         return None
+    if kind == "causal":  # TrOCR's teacher forcing, one shared by all
+        return torch.triu(torch.full((1, sq, sk), -1e9, device="cuda"), 1)
     bias = torch.randn(1 if kind == "shared" else n, sq, sk, generator=gen,
                        device="cuda")
     if kind == "row_masked":
@@ -782,33 +813,36 @@ def check_backward(case, dtype, seed):
     return record
 
 
-def sdpa_backward_call(q, k, v, dout):
-    """SDPA's backward as its dispatcher picks it for q, k, v: the name of
-    SDPA's autograd node and a call of the aten backward op that node
-    runs, fed by that op's own forward's outputs (None for a backend
-    without one here, the math path)."""
+def sdpa_backward_call(q, k, v, dout, is_causal=False):
+    """SDPA's backward as its dispatcher picks it for q, k, v (causal with
+    ``is_causal``): the name of SDPA's autograd node and a call of the
+    aten backward op that node runs, fed by that op's own forward's
+    outputs, returning dq, dk and dv first (None for a backend without
+    one here, the math path)."""
     aten = torch.ops.aten
     ref = [t.detach().requires_grad_() for t in (q, k, v)]
     node = torch.nn.functional.scaled_dot_product_attention(
-        *ref).grad_fn.name()
+        *ref, is_causal=is_causal).grad_fn.name()
     if "Flash" in node:
         out, lse, cq, ck, mq, mk, seed, offset, _ = \
-            aten._scaled_dot_product_flash_attention(q, k, v)
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, is_causal)
         return node, lambda: aten._scaled_dot_product_flash_attention_backward(
-            dout, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset)
+            dout, q, k, v, out, lse, cq, ck, mq, mk, 0.0, is_causal, seed,
+            offset)
     if "Efficient" in node:
         out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
-            q, k, v, None, True)
+            q, k, v, None, True, 0.0, is_causal)
         return node, lambda: (
             aten._scaled_dot_product_efficient_attention_backward(
                 dout, q, k, v, None, out, lse, seed, offset, 0.0,
-                [True, True, True, False]))
+                [True, True, True, False], is_causal))
     if "Cudnn" in node:
         out, lse, cq, ck, mq, mk, seed, offset, _ = \
-            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True)
+            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True,
+                                                     0.0, is_causal)
         return node, lambda: aten._scaled_dot_product_cudnn_attention_backward(
             dout, q, k, v, out, lse, seed, offset, None, cq, ck, mq, mk, 0.0,
-            False)
+            is_causal)
     return node, None
 
 
@@ -1438,7 +1472,13 @@ def check_labels(pred, batch):
         raise AssertionError(f"bad predictions {pred.shape}")
 
 
-def serve(model, x, expect, name, dtype, warmup=3, rounds=10,
+# timed rounds of each served leg and timed steps of each training leg,
+# after 3 untimed ones (10 each until the default run grew past 800 s)
+SERVE_ROUNDS = 6
+TRAIN_STEPS = 6
+
+
+def serve(model, x, expect, name, dtype, warmup=3, rounds=SERVE_ROUNDS,
           check=check_labels):
     """Time ``predict`` (host clock around each call and a synchronise),
     with the launch counts set to 0 just before and checked just after
@@ -2778,22 +2818,34 @@ def _cpu_bf16_loss(model, x, y, loss_fn):
         return loss_fn(model, _cast_floats(out, torch.float32), y).item()
 
 
+def _without_dropout(model):
+    """``model`` with every dropout's and drop path's rate set to 0."""
+    from tlxcv_tpu_torch.nn import Dropout, DropPath
+
+    for mod in model.modules():
+        if isinstance(mod, (Dropout, DropPath, torch.nn.Dropout)):
+            mod.p = 0.0
+    return model
+
+
 def train_check(name, build, x, y, loss_fn, probes, bf16_cpu_loss=False):
     """The card's loss and gradients in f32 and bf16 against the CPU's in
     f32 and float64, from one initial state (``build()`` makes the model on
-    the CPU from a seed).  With ``bf16_cpu_loss`` the bf16 loss bound is
-    the larger of ``TRAIN_BOUND``'s and twice the CPU's own bf16 model's
-    distance from its f32 loss."""
+    the CPU from a seed), dropout off on every side (the card and the CPU
+    draw their masks from generators of their own).  With
+    ``bf16_cpu_loss`` the bf16 loss bound is the larger of
+    ``TRAIN_BOUND``'s and twice the CPU's own bf16 model's distance from
+    its f32 loss."""
     init = build().state_dict()
     t0 = time.perf_counter()
     ref = {}
     for dtype in (torch.float32, torch.float64):
-        model = build()
+        model = _without_dropout(build())
         model.load_state_dict(init)
         ref[dtype] = _cpu_grads(model, x, y, dtype, loss_fn)
     cpu_bf16_err = None
     if bf16_cpu_loss:
-        model = build()
+        model = _without_dropout(build())
         model.load_state_dict(init)
         cpu_bf16_err = abs(_cpu_bf16_loss(model, x, y, loss_fn)
                            - ref[torch.float32][0]) / abs(
@@ -2802,7 +2854,7 @@ def train_check(name, build, x, y, loss_fn, probes, bf16_cpu_loss=False):
     (loss32, g32), (_, g64) = ref[torch.float32], ref[torch.float64]
     cpu_err = {k: _rel_err(g32[k], g64[k]) for k in probes}
     for dtype in (torch.float32, torch.bfloat16):
-        card = build()
+        card = _without_dropout(build())
         card.load_state_dict(init)
         loss, got = _card_grads(card.cuda(), x, y, dtype, loss_fn)
         dname = str(dtype)[6:]
@@ -2897,7 +2949,8 @@ def phase_train_check():
                 ["backbone." + k for k in RESNET_PROBES])
 
 
-def timed_train(trainer, batches, expect, name, batch, warmup=3, steps=10):
+def timed_train(trainer, batches, expect, name, batch, warmup=3,
+                steps=TRAIN_STEPS):
     """``Trainer.train`` over device-resident batches (made in set-up, as
     the bench's training leg keeps its inputs on the device): ``warmup``
     steps, then ``steps`` timed ones (host clock, synchronised), with every
@@ -4247,7 +4300,8 @@ def leg_fcos_train(profile, dev="cuda", train_batch=8, hw=(800, 1344),
     gradients at b2 256^2 against the CPU
     (``train_check``), the loss falling on one batch, then
     ``Trainer.train`` at b8 800x1344 on ``ShapesDetection`` padded to the
-    frame, bf16 over f32 masters, Adam: 10 timed steps after 3, no kernel
+    frame, bf16 over f32 masters, Adam: ``TRAIN_STEPS`` timed steps after
+    3, no kernel
     of ours."""
     from tlxcv_tpu_torch import create_model
     from tlxcv_tpu_torch.tasks import ObjectDetection
@@ -4547,7 +4601,8 @@ def seg_leg(name, model, classes, batch, served, checked, channels, gen,
     the checked frame against the CPU (``seg_logit_check``, ``expect``
     launches a forward); then the task's ``predict`` served in bf16 (float
     parameters bf16, statistics f32) at ``batch`` on the served frame,
-    median of 10 rounds after 3, peak memory, and with ``profile`` the
+    median of ``SERVE_ROUNDS`` rounds after 3, peak memory, and with
+    ``profile`` the
     idle share.  With ``pair`` the model is a change detector, called as
     ``model(t1, t2)`` on two images of ``channels`` each (``PairPredict``);
     ``batch`` counts pairs."""
@@ -4768,7 +4823,8 @@ def leg_pose(profile, dev="cuda", serve_batch=64, train_batch=32,
     decode where it is decided, no kernel of ours; served at b64 bf16.
     Then training: gradients at b2 against the CPU (``train_check``), the
     loss falling over 20 steps on one batch, and ``Trainer.train`` at b32
-    (bf16 over f32 masters, Adam, 10 steps after 3) with targets from
+    (bf16 over f32 masters, Adam, ``TRAIN_STEPS`` steps after 3) with
+    targets from
     ``GenerateTarget``.  Returns the trainer and a batch for the
     checkpoint leg."""
     from tlxcv_tpu_torch import create_model
@@ -5039,7 +5095,8 @@ def leg_resnet50_qat(int8_record, profile, dev="cuda", train_batch=64,
     weights from a seed, BatchNorm statistics from seeded images;
     ``enable_qat`` (54 layers), ``calibrate_activations`` on 2 seeded
     batches (54), a QAT fine-tune at b64 (bf16 over f32 masters, Adam,
-    10 steps after 3, no kernel of ours: the fake quant is float), then
+    ``TRAIN_STEPS`` steps after 3, no kernel of ours: the fake quant is
+    float), then
     ``qat_serving_convert`` (54) and the full int8 model served at b256
     with exactly 54 ``int8_matmul`` launches a forward (one a layer).
 
@@ -5342,7 +5399,8 @@ def leg_detr_train(record, profile, dev="cuda", check_hw=(256, 384)):
                                    {"flash_attention": 18,
                                     "flash_attention_backward": 18},
                                    n, profile)
-    steps = 20 + 13  # falling_loss, then timed_train's warm-up and steps
+    # falling_loss, then timed_train's warm-up and timed steps
+    steps = 20 + 3 + TRAIN_STEPS
     emit({"phase": "train", "model": name + "_hungarian",
           "host_ms_per_step": 1e3 * (hungarian_callback.host_seconds
                                      - host0) / steps,
@@ -5505,7 +5563,9 @@ def phase_profile(name, model, x, forwards=3, step_s=None):
 
 def emit_profile(prof, name, calls, step_s):
     """Device time per call and its top kernels; with the timed step's
-    wall time, the share of it the card spends idle."""
+    wall time, the share of it the card spends idle; and the host ops
+    that take the most host time of their own (``host_top``), which say
+    what a host-bound step waits on."""
     # a user annotation (``Optimizer.step#...``) on the device timeline
     # spans the kernels inside it: leave it out of the kernels' sum
     annotations = {e.name for e in prof.events()
@@ -5524,7 +5584,14 @@ def emit_profile(prof, name, calls, step_s):
           "top": [[e.key[:120], e.count // calls,
                    e.self_device_time_total / calls / 1e3,
                    e.self_device_time_total / total if total else None]
-                  for e in top]})
+                  for e in top],
+          "host_top": [[e.key[:80], e.count // calls,
+                        e.self_cpu_time_total / calls / 1e3]
+                       for e in sorted(
+                           (e for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CPU
+                            and e.key not in annotations),
+                           key=lambda e: -e.self_cpu_time_total)[:8]]})
 
 
 def vit_int8_and_grouped(int8, profile):
@@ -5604,12 +5671,13 @@ CLS_RANDOM_BN = {"levit_256", "resnest50"}
 # scale starts at 0.1, as a zero-gamma start keeps residual branches
 # small (then f32 and f64 agree to 1e-6 of the logits on the CPU)
 CLS_RESIDUAL_BN_SCALE = {"rednet50": 0.1}
-# TNT-S's attention at b64 224^2 as its blocks hand it over: (name, BH,
-# heads, S, D); the inner attention over each patch's 16 pixel tokens (24
+# TNT-S's attention at b64 224^2 as its blocks hand it over, views of the
+# packed qkv projection (``flash_grid``'s form: name, B, H, Sq, Sk, D,
+# layout, bias); the inner attention over each patch's 16 pixel tokens (24
 # channels, 4 heads: D = 6, which the wrapper pads to 32), the outer over
 # the 197 patch tokens
-TNT_GRIDS = [("tnt_inner", 64 * 196 * 4, 4, 16, 6),
-             ("tnt_outer", 64 * 6, 6, 197, 64)]
+TNT_GRIDS = [("tnt_inner", 64 * 196, 4, 16, 16, 6, "packed", None),
+             ("tnt_outer", 64, 6, 197, 197, 64, "packed", None)]
 SE_RESNEXT_INT8_LAUNCHES = 582  # 37 convs, 16 x 32 groups, 33 linears
 
 
@@ -5687,33 +5755,6 @@ def cls_leg(name, batch, expect, gen, profile, size=224):
     del card, x
     torch.cuda.empty_cache()
     return counts
-
-
-def tnt_flash_grids():
-    """Flash attention at TNT-S's two b64 grids (``TNT_GRIDS``) as its
-    blocks hand them over, [B, H, S, D] views of the packed qkv
-    projection: checked in bf16 against the plain version in f32 on the
-    same inputs (within 2e-2 of the largest magnitude, the kernel's bf16
-    bound), one launch a call; then timed (``padded_flash_times``)."""
-    from tlxcv_tpu_torch.ops.cuda import attention as A
-
-    grids = {}
-    for i, (name, bh, heads, s, d) in enumerate(TNT_GRIDS):
-        q, k, v = qkv(bh, s, d, torch.bfloat16, seed=40 + i, heads=heads)
-        before = A.flash_attention.launches
-        out = A.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        launched = A.flash_attention.launches - before
-        err = _rel_card(out, A.flash_attention_plain(q.float(), k.float(),
-                                                     v.float()))
-        grids[name] = {"max_rel_err": err, "bound_rel_err": 2e-2,
-                       "launches": launched, **padded_flash_times(q, k, v)}
-        del q, k, v, out
-        if launched != 1 or not err <= 2e-2:
-            emit({"phase": "kernel_times", "failed": grids[name]})
-            raise AssertionError(f"flash at {name}: {grids[name]}")
-    emit({"phase": "kernel_times", "flash_attention_tnt": grids})
-    return grids
 
 
 def int8_layer_check(name, cpu8, cpu32, x, expect):
@@ -5806,11 +5847,13 @@ def leg_se_resnext_int8(int8_record, gen, profile):
 def phase_classification(flash_record, int8_record, profile):
     """The first half of the classification zoo (``CLS_LEGS``), each
     checked at b2 and served (``cls_leg``), flash attention at TNT-S's two
-    grids (``tnt_flash_grids``) and SE-ResNeXt-50 in full int8
+    grids (``flash_grid``) and SE-ResNeXt-50 in full int8
     (``leg_se_resnext_int8``); the phase's own seconds."""
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
-    flash_record["tnt_grids"] = tnt_flash_grids()
+    grids = {g[0]: flash_grid(g, 40 + i) for i, g in enumerate(TNT_GRIDS)}
+    emit({"phase": "kernel_times", "flash_attention_tnt": grids})
+    flash_record["tnt_grids"] = grids
     failed = {}
     for name, batch, expect in CLS_LEGS:
         try:  # every leg runs; a failure fails the phase at its end
@@ -6181,6 +6224,706 @@ def phase_faces(upsample_record, profile):
     emit({"phase": "faces", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------- video, OCR, distillation, face training
+# Flash attention at the grids this slice's models hand it (name, B, H, Sq,
+# Sk, D, layout, bias), served in bf16: TrOCR's encoder at b64 (ViT
+# blocks: views of the packed qkv projection), its teacher-forced
+# self-attention (a shared causal [1, 32, 32] bias) and cross-attention
+# over the 577 memory tokens at b32 (views of separate projections), its
+# decode steps at b64 (one query row over the 32-slot KV cache under a
+# [1, 1, 32] bias of the filled slots, and over the memory), and the DeiT-B
+# student at b64 (S = 198: the class, distillation and 196 patch tokens)
+SEQUENCE_GRIDS = [
+    ("trocr_encoder", 64, 6, 577, 577, 64, "packed", None),
+    ("trocr_self_train", 32, 8, 32, 32, 32, "detr", "causal"),
+    ("trocr_cross_train", 32, 8, 32, 577, 32, "detr", None),
+    ("trocr_self_step", 64, 8, 1, 32, 32, "cache", "cache"),
+    ("trocr_cross_step", 64, 8, 1, 577, 32, "detr", None),
+    ("deit_b_student", 64, 12, 198, 198, 64, "packed", None),
+]
+# The backward at the training grids, in the dtype each trains in: TrOCR's
+# at b32 in f32 (the Trainer's bf16 policy hands ``loss_fn`` the images
+# cast back to f32, and the loss encodes them: the encoder runs in f32 on
+# bf16-rounded weights, and so does the decoder from its first
+# cross-attention on, whose f32 memory promotes it; only the first layer's
+# self-attention is bf16, checked in bf16 as well), the DeiT-B student's at
+# b64 in bf16
+SEQUENCE_BACKWARD = [
+    ("trocr_encoder_train", 32, 6, 577, 577, 64, "packed", None,
+     torch.float32),
+    ("trocr_self_train", 32, 8, 32, 32, 32, "detr", "causal",
+     torch.float32),
+    ("trocr_self_train_layer0", 32, 8, 32, 32, 32, "detr", "causal",
+     torch.bfloat16),
+    ("trocr_cross_train", 32, 8, 32, 577, 32, "detr", None, torch.float32),
+    ("deit_b_student", 64, 12, 198, 198, 64, "packed", None, torch.bfloat16),
+]
+# TrOCR as the demo builds it (demo/ocr/train.py:27,33): vocabulary 64,044,
+# 384^2 in 16 px patches (577 tokens), encoder 384 wide, 6 layers, 6
+# heads, decoder 256 wide, 6 layers, 8 heads, FFN 1,024, ``max_length`` 32
+TROCR_KW = dict(max_length=32)
+TROCR_GREEDY, TROCR_BEAM, TROCR_BEAMS, TROCR_TRAIN = 64, 16, 4, 32
+TROCR_CHECK = (4, 2)  # greedy and beam batches held against the CPU
+# flash launches: a generation (the encoder, then each step's self- and
+# cross-attention in each of 6 layers), a teacher-forced forward
+TROCR_GENERATE = {"flash_attention": 6 + 12 * 32}
+TROCR_FORWARD = {"flash_attention": 18}
+# the share of sequences whose tokens equal the CPU's, in f32
+TROCR_F32_SHARE = 0.9
+# I3D on Charades (demo/video_classification/train.py:16-19): 157
+# classes, 32 frames, I3D's published 224 crop; served at b16, trained at
+# b8; checked against the CPU at b1 on 16 frames of 112^2
+I3D_CLASSES, I3D_FRAMES, I3D_SIDE = 157, 32, 224
+I3D_SERVE, I3D_TRAIN = 16, 8
+# DeiT-B distilled from RegNetY-4GF (DeiT's teacher is RegNetY-16GF, which
+# the repo lacks), hard distillation, b64 224^2; 12 flash launches forward
+# and 12 backward a step
+DISTILL_BATCH = 64
+# RetinaFace-R50 trained at b8 640^2 (its FPN's two merges: upsample-add
+# forward, transposed resize backward), gradients checked at b2 320^2;
+# ArcFace-R50 at b128 128^2, 10,575 classes, its margin warmed up from 0 to
+# 0.5 over ``ARCFACE_WARMUP`` steps, gradients checked at b8
+RETINAFACE_TRAIN, RETINAFACE_TRAIN_CHECK = (8, 640), (2, 320)
+RETINAFACE_TRAIN_LAUNCHES = {"upsample_add_fused": 2, "sep_resize": 2}
+ARCFACE_TRAIN, ARCFACE_CHECK, ARCFACE_WARMUP = (128, 128), 8, 10
+
+
+def sequence_qkv(b, h, sq, sk, d, layout, dtype, seed):
+    """q, k, v as ``SEQUENCE_GRIDS``' layouts hand them over: ``cache``,
+    a decode step's [B, H, 1, D] view of its q projection over a
+    contiguous [B, H, T, D] cache; else ``backward_inputs``' layouts."""
+    if layout == "cache":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q = detr_qkv(sq, sq, dtype, seed, batch=b, heads=h, d=d)[0]
+        return [q] + [torch.randn(b, h, sk, d, generator=g, device="cuda")
+                      .to(dtype) for _ in range(2)]
+    return backward_inputs(b, h, sq, sk, d, layout, dtype, seed)
+
+
+def sequence_bias(kind, sq, sk):
+    """The grid's [1, Sq, Sk] bias: causal, or a decode step's at slot
+    ``sk // 2`` (the filled slots 0, the empty ones -1e9)."""
+    if kind == "cache":
+        slots = torch.arange(sk, device="cuda")
+        return torch.where(slots <= sk // 2, 0.0, -1e9).expand(
+            1, sq, sk).contiguous()
+    return backward_bias(kind, None, sq, sk, None)
+
+
+def flash_grid(grid, seed):
+    """One forward grid in bf16 (``SEQUENCE_GRIDS``' form): checked against
+    the plain version in f32 on the same inputs (2e-2 of the largest
+    magnitude, the kernel's bf16 bound), one launch a call; timed by graph
+    replays (``ms``) and events around each call (``event_ms``, which
+    count the wrapper's host time), beside the plain version, SDPA on the
+    same views with the same mask (``is_causal`` for the causal one) and
+    the bound, which counts the bytes of the unpadded q, k, v and output.
+    At a head dim that the wrapper zero-pads (``padded_head_dim``), also
+    the kernel alone on inputs padded beforehand (``kernel_ms``)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    name, b, h, sq, sk, d, layout, kind = grid
+    q, k, v = sequence_qkv(b, h, sq, sk, d, layout, torch.bfloat16, seed)
+    bias = None if kind is None else sequence_bias(kind, sq, sk)
+    before = A.flash_attention.launches
+    out = A.flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    launched = A.flash_attention.launches - before
+    err = _rel_card(out, A.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), bias))
+    mask = (None if kind in (None, "causal")
+            else bias.view(1, 1, sq, sk).to(q.dtype))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=kind == "causal")
+
+    def kernel():
+        return A.flash_attention(q, k, v, bias=bias)
+
+    bound, bound_by = attention_bound_ms(b * h, sq, sk, d, q.dtype)
+    row = {"shape": [b * h, sq, sk, d], "bias": kind, "dtype": "bfloat16",
+           "max_rel_err": err, "bound_rel_err": 2e-2, "launches": launched,
+           "ms": graph_ms(kernel), "event_ms": time_ms(kernel),
+           "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v,
+                                                               bias)),
+           "library_ms": graph_ms(sdpa), "library_event_ms": time_ms(sdpa),
+           "sdpa_rel_err": _rel_card(sdpa(), out.float()),
+           "bound_ms": bound, "bound_us": 1e3 * bound, "bound_by": bound_by}
+    dp = A.padded_head_dim(d)
+    if dp != d:
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d))
+                      for t in (q, k, v))
+        row.update(padded_to=dp, kernel_ms=graph_ms(
+            lambda: A._launch_kernel(qp, kp, vp, bias, d ** -0.5)))
+    if launched != 1 or not err <= 2e-2:
+        emit({"phase": "kernel_times", "failed": {name: row}})
+        raise AssertionError(f"flash at {name}: {row}")
+    return row
+
+
+def sequence_backward_times(case, dtype):
+    """The backward kernel alone at one ``SEQUENCE_BACKWARD`` grid (graph
+    replays; events), its plain version, SDPA's backward with
+    ``is_causal`` for the causal grids (its aten op on its own forward's
+    outputs, graph replays, its dq, dk and dv held to ``autograd.grad``
+    through SDPA within 2e-2 of each one's largest magnitude, the bf16
+    bound, where the op without its causal mask is O(1) off; one
+    ``autograd.grad`` through SDPA, events) and the bound."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    name, b, h, sq, sk, d, layout, kind = case
+    q, k, v = backward_inputs(b, h, sq, sk, d, layout, dtype, seed=11)
+    bias = backward_bias(kind, b * h, sq, sk, None)
+    scale = d ** -0.5
+    out, lse = A._launch_kernel(q, k, v, bias, scale, with_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    out_v, dout_v = out.transpose(1, 2), dout.transpose(1, 2)
+
+    def kernel():
+        return A.flash_attention_backward(q, k, v, bias, scale, out, lse,
+                                          dout)
+
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    causal = kind == "causal"
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *ref, is_causal=causal)
+    library_op, library = sdpa_backward_call(q, k, v, dout_v, causal)
+    library_err = None
+    if library is not None:
+        want = torch.autograd.grad(sdpa, ref, dout_v, retain_graph=True)
+        library_err = [_rel_card(a, w)
+                       for a, w in zip(library()[:3], want)]
+        if not max(library_err) <= 2e-2:
+            emit({"phase": "kernel_times", "failed": {
+                name: {"library_op": library_op,
+                       "library_rel_err": library_err}}})
+            raise AssertionError(f"SDPA's backward op at {name} is not "
+                                 f"SDPA's gradient: {library_err}")
+    bound, bound_by = attention_backward_bound_ms(b * h, sq, sk, d, dtype)
+    return {"shape": [b * h, sq, sk, d], "bias": kind,
+            "dtype": str(dtype)[6:], "ms": graph_ms(kernel),
+            "event_ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: A.flash_attention_backward_plain(
+                q, k, v, bias, None, out_v, lse, dout_v), reps=5),
+            "library_ms": None if library is None else graph_ms(library),
+            "library_op": library_op, "library_rel_err": library_err,
+            "library_event_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa, ref, dout_v, retain_graph=True)),
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_sequence_flash(flash_record, bwd_record):
+    """Flash attention forward at ``SEQUENCE_GRIDS`` and backward at
+    ``SEQUENCE_BACKWARD`` (``check_backward``: against the plain version,
+    f32 also against SDPA's gradients, bitwise over two runs), checked
+    and timed; the rows go into both kernels' records."""
+    grids = {g[0]: flash_grid(g, 60 + i)
+             for i, g in enumerate(SEQUENCE_GRIDS)}
+    emit({"phase": "kernel_times", "flash_attention_sequence": grids})
+    checks, times = [], {}
+    for i, (*case, dtype) in enumerate(SEQUENCE_BACKWARD):
+        checks.append(check_backward(tuple(case), dtype, 700 + i))
+        times[case[0]] = sequence_backward_times(tuple(case), dtype)
+    emit({"phase": "flash_backward", "sequence_checks": checks})
+    emit({"phase": "kernel_times", "flash_attention_backward_sequence":
+          times})
+    flash_record["sequence_grids"] = grids
+    bwd_record["sequence_grids"] = times
+
+
+def sequence_leg_seconds(name, t0):
+    emit({"phase": "sequence_leg", "leg": name,
+          "seconds": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------- I3D
+def i3d_clip_check(pred, batch):
+    if pred.shape != (batch, I3D_FRAMES // 8) or not bool(
+            ((pred >= 0) & (pred < I3D_CLASSES)).all()):
+        raise AssertionError(f"bad I3D predictions {tuple(pred.shape)}")
+
+
+def i3d_targets(batch, gen, frames=I3D_FRAMES):
+    """Charades-style per-frame multi-labels [B, frames, 157]: each clip
+    carries 1-3 actions over random spans of its frames."""
+    y = torch.zeros(batch, frames, I3D_CLASSES)
+    for i in range(batch):
+        for _ in range(int(torch.randint(1, 4, (1,), generator=gen))):
+            cls = int(torch.randint(0, I3D_CLASSES, (1,), generator=gen))
+            a, b = sorted(torch.randint(0, frames, (2,), generator=gen)
+                          .tolist())
+            y[i, a:b + 1, cls] = 1.0
+    return y
+
+
+def i3d_loss(task, out, target):
+    """The demo's loss (demo/video_classification/train.py:22-28): the
+    per-frame labels taken at ``linspace``-spaced frames, one for each of
+    the logits' T/8 steps, then BCE with logits."""
+    target = torch.as_tensor(target, device=out.device)
+    t = out.shape[1]
+    idx = torch.linspace(0, target.shape[1] - 1, t).to(torch.long)
+    return task.loss_fn(out, target[:, idx.to(out.device)])
+
+
+def leg_i3d(profile, dev="cuda"):
+    """I3D (``create_model("i3d", num_classes=157)``, random weights from a
+    seed, BatchNorm statistics from one train-mode forward of 2 clips):
+    logits at b1 16 x 112^2 against the CPU (``float_logit_check``, bf16
+    as a chaotic net's, no launch of ours), then ``predict`` (per-frame argmax [B, 4]) served at
+    b16 32 x 224^2 in bf16; gradients at b1 16 x 112^2 against the CPU
+    (``train_check``), the loss falling on one batch and ``Trainer.train``
+    at b8 32 x 224^2, bf16 over f32 masters, Adam, the demo's loss."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import VideoClassification
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(81)
+    side = I3D_SIDE
+    cpu = VideoClassification(create_model(
+        "i3d", device="cpu", num_classes=I3D_CLASSES, generator=gen)).eval()
+    data_bn_statistics(cpu, torch.randn(2, 16, side, side, 3, generator=gen))
+    card = copy.deepcopy(cpu).to(dev)
+    # a random I3D is chaotic in bf16 (14% of the logits' scale on the
+    # card at b1 16 x 224^2): held to the CPU bf16 model's own error, on
+    # a 16 x 112^2 clip, which the CPU's bf16 Conv3d takes in seconds
+    float_logit_check("i3d", cpu, card, torch.randn(
+        1, 16, 112, 112, 3, generator=gen), depth="57 Conv3d", expect={},
+        chaotic=True)
+    del cpu
+    x = torch.randn(I3D_SERVE, I3D_FRAMES, side, side, 3,
+                    generator=gen).to(dev, torch.bfloat16)
+    _, step = serve(card, x, {}, "i3d", "bfloat16", check=i3d_clip_check)
+    if profile:
+        phase_profile("i3d", card, x, step_s=step)
+    del card, x
+    empty_cache(dev)
+
+    def build(seed=82):
+        g = torch.Generator().manual_seed(seed)
+        model = VideoClassification(create_model(
+            "i3d", device="cpu", num_classes=I3D_CLASSES, generator=g))
+        data_bn_statistics(model, torch.randn(1, 16, 112, 112, 3,
+                                              generator=g))
+        return model
+
+    xg = torch.randn(1, 16, 112, 112, 3, generator=gen).numpy()
+    yg = i3d_targets(1, gen, frames=16).numpy()
+    train_check("i3d", build, xg, yg, i3d_loss,
+                ["backbone.conv1.conv.weight",
+                 "backbone.mixed_3b.b1b.conv.weight",
+                 "backbone.mixed_5c.b0.conv.weight",
+                 "backbone.logits.conv.weight"])
+    task = build(83).to(dev)
+    trainer = Trainer(task, loss_fn=functools.partial(i3d_loss, task),
+                      optimizer=optimizers.Adam(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [(torch.randn(I3D_TRAIN, I3D_FRAMES, side, side, 3,
+                            generator=gen).to(dev),
+                i3d_targets(I3D_TRAIN, gen).to(dev)) for _ in range(2)]
+    attention_train("i3d", trainer, batches, {}, I3D_TRAIN, profile)
+    del trainer, task, batches
+    empty_cache(dev)
+    sequence_leg_seconds("i3d", t0)
+
+
+# -------------------------------------------------------------- TrOCR
+def trocr_forced_logits(model, x, tokens):
+    """The decode steps run along ``tokens`` [B, T] (BOS, then each token
+    as the next step's input): each step's logits [B, T, V] in f32, on
+    the device of ``model``, whatever its own argmax would have taken."""
+    from tlxcv_tpu_torch.models.ocr.trocr import cache_masks
+
+    with torch.inference_mode():
+        memory = model.encode(x)
+        b, t = tokens.shape
+        dev = memory.device
+        cache = model.decoder.init_cache(b, t, memory.dtype, dev)
+        kvs = model.decoder.memory_kv(memory)
+        masks = cache_masks(t, dev)
+        bos = torch.full((b, 1), model.bos_token_id, dtype=torch.long,
+                         device=dev)
+        inputs = torch.cat([bos, tokens.to(dev).long()[:, :-1]], 1)
+        steps = []
+        for pos in range(t):
+            logits, cache = model.decoder.decode_step(
+                inputs[:, pos], pos, memory, cache, kvs, masks[pos])
+            steps.append(logits.float())
+        return torch.stack(steps, 1)
+
+
+def _token_share(got, want):
+    return (got.cpu() == want.cpu()).all(1).float().mean().item()
+
+
+def trocr_check(cpu, card, x):
+    """TrOCR on the card against the CPU's f32 model at b4 (greedy) and b2
+    (4 beams), full width, ``max_length`` 32: the share of greedy and of
+    beam sequences whose tokens equal the CPU's (at least
+    ``TROCR_F32_SHARE`` in f32; bf16 reported); the decode steps' logits
+    along the CPU's own greedy tokens (so that no argmax flip cascades)
+    within 1e-3 (f32) and 3e-2 (bf16) of their largest magnitude; the
+    teacher-forced logits likewise; exactly ``TROCR_GENERATE`` launches a
+    generation and ``TROCR_FORWARD`` a teacher-forced forward.  ``card``
+    is left with bf16 parameters."""
+    nb = TROCR_CHECK[1]
+    t0 = time.perf_counter()
+    greedy = cpu.generate(x)
+    beam = cpu.generate_beam(x[:nb], num_beams=TROCR_BEAMS)
+    forced = trocr_forced_logits(cpu, x, greedy)
+    with torch.inference_mode():
+        teacher = cpu(x, greedy.long())
+    cpu_s = time.perf_counter() - t0
+    check = {"batch": list(TROCR_CHECK), "cpu_s": cpu_s,
+             "cpu_eos_share": (greedy == cpu.eos_token_id).any(1).float()
+             .mean().item()}
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        if dtype == torch.bfloat16:
+            params_to(card, dtype)
+        xc = x.to("cuda", dtype)
+        reset_launches()
+        got = card.generate(xc)
+        torch.cuda.synchronize()
+        per_generate = {k: v for k, v in launches().items() if v}
+        got_beam = card.generate_beam(xc[:nb], num_beams=TROCR_BEAMS)
+        got_forced = trocr_forced_logits(card, xc, greedy).cpu()
+        reset_launches()
+        with torch.inference_mode():
+            got_teacher = card(xc, greedy.cuda().long()).float().cpu()
+        per_forward = {k: v for k, v in launches().items() if v}
+        tol = 1e-3 if dtype == torch.float32 else 3e-2
+        scale = forced.abs().max().item()
+        row = {"greedy_share": _token_share(got, greedy),
+               "beam_share": _token_share(got_beam, beam),
+               "step_logit_scale": scale,
+               "step_max_abs_err": (got_forced - forced).abs().max().item(),
+               "teacher_max_abs_err": (got_teacher - teacher).abs().max()
+               .item(), "bound": tol * scale,
+               "launches_per_generate": per_generate,
+               "launches_per_forward": per_forward}
+        ok &= (per_generate == TROCR_GENERATE and per_forward == TROCR_FORWARD
+               and row["step_max_abs_err"] <= tol * scale
+               and row["teacher_max_abs_err"] <= tol * scale
+               and bool(torch.isfinite(got_forced).all()))
+        if dtype == torch.float32:
+            ok &= (row["greedy_share"] >= TROCR_F32_SHARE
+                   and row["beam_share"] >= TROCR_F32_SHARE)
+        check[dname] = row
+    emit({"phase": "model_check", "model": "trocr", **check})
+    if not ok:
+        raise AssertionError(f"TrOCR disagrees with the CPU: {check}")
+
+
+def trocr_labels(batch, gen, vocab=64044, length=32):
+    """Token ids of random words: 4-24 ids (fewer than ``length``) from
+    the vocabulary, past the specials, EOS, then PAD, [B, length] int32."""
+    y = torch.ones(batch, length, dtype=torch.int32)
+    for i in range(batch):
+        n = int(torch.randint(4, min(25, length), (1,), generator=gen))
+        y[i, :n] = torch.randint(3, vocab, (n,), generator=gen)
+        y[i, n] = 2
+    return y
+
+
+def leg_trocr(profile, dev="cuda"):
+    """TrOCR (``create_model("trocr", max_length=32)``: the demo's model,
+    random weights from a seed) served on token ids: checked at b4 and b2
+    against the CPU (``trocr_check``), then greedy decoding served at b64
+    and 4-beam decoding at b16, both bf16 at 384^2 (390 flash launches a
+    generation); trained by teacher forcing through the OCR task:
+    gradients at b2 against the CPU (``train_check``), the loss falling on
+    one batch and ``Trainer.train`` at b32, bf16 policy over f32 masters,
+    AdamW(5e-5) as the demo: 18 flash forward and 18 backward launches a
+    step."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import OpticalCharacterRecognition
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(91)
+    cpu = create_model("trocr", device="cpu", generator=gen,
+                       **TROCR_KW).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    trocr_check(cpu, card, torch.randn(TROCR_CHECK[0], 384, 384, 3,
+                                       generator=gen))
+    del cpu
+
+    def tokens_check(pred, batch):
+        if pred.shape != (batch, 32) or pred.dtype != torch.int32 or not \
+                bool(((pred >= 0) & (pred < 64044)).all()):
+            raise AssertionError(f"bad TrOCR tokens {tuple(pred.shape)}")
+
+    for name, batch, fn in (
+            ("trocr_greedy", TROCR_GREEDY, card.generate),
+            ("trocr_beam4", TROCR_BEAM, functools.partial(
+                card.generate_beam, num_beams=TROCR_BEAMS))):
+        x = torch.randn(batch, 384, 384, 3, generator=gen).to(
+            dev, torch.bfloat16)
+        _, step = serve(_Predict(fn), x, TROCR_GENERATE, name, "bfloat16",
+                        check=tokens_check)
+        if profile:
+            phase_profile(name, _Predict(fn), x, step_s=step)
+        del x
+    del card
+    empty_cache(dev)
+
+    def build(seed=92):
+        return OpticalCharacterRecognition(create_model(
+            "trocr", device="cpu", generator=torch.Generator().manual_seed(
+                seed), **TROCR_KW))
+
+    def loss(task, o, t):
+        return task.loss_fn(o, torch.as_tensor(t, device=o.device))
+
+    xg = torch.randn(2, 384, 384, 3, generator=gen).numpy()
+    yg = trocr_labels(2, gen).numpy()
+    train_check("trocr", build, xg, yg, loss,
+                ["backbone.encoder.patch_embed.proj.weight",
+                 "backbone.encoder.blocks.0.attn.qkv.weight",
+                 "backbone.decoder.layers.0.self_attn.q.weight",
+                 "backbone.decoder.layers.5.cross_attn.k.weight",
+                 "backbone.decoder.output_projection.weight"])
+    task = build(93).to(dev)
+    trainer = Trainer(task, loss_fn=lambda o, t: task.loss_fn(o, t),
+                      optimizer=optimizers.AdamW(5e-5),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [(torch.randn(TROCR_TRAIN, 384, 384, 3, generator=gen).to(dev),
+                trocr_labels(TROCR_TRAIN, gen).to(dev)) for _ in range(2)]
+    attention_train("trocr", trainer, batches,
+                    {"flash_attention": 18, "flash_attention_backward": 18},
+                    TROCR_TRAIN, profile)
+    del trainer, task, batches
+    empty_cache(dev)
+    sequence_leg_seconds("trocr", t0)
+
+
+# ------------------------------------------------------- distillation
+def leg_distillation(profile, dev="cuda"):
+    """DeiT-B (``create_model("deit_base")``, random weights from a seed)
+    distilled from RegNetY-4GF (``cls_model``: BatchNorm statistics from
+    data, on the card in bf16, eval) by DeiT's hard objective
+    (``DistilledClassification``): targets made by ``teacher_labels``
+    (its time a batch recorded), gradients at b2 against the CPU
+    (``train_check``, the CPU teacher's logits), the loss falling on one
+    batch and ``Trainer.train`` at b64 224^2, bf16 over f32 masters,
+    AdamW: 12 flash forward and 12 backward launches a step, none in the
+    teacher."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import DistilledClassification, teacher_labels
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(101)
+    teacher = cls_model("regnety_4gf", gen)
+    xg = torch.randn(2, 224, 224, 3, generator=gen)
+    yg = torch.randint(0, 1000, (2,), generator=gen)
+    with torch.inference_mode():
+        tg = teacher(xg)
+    target = {"label": yg.numpy(), "teacher": tg.numpy()}
+
+    def build(seed=102):
+        return DistilledClassification(create_model(
+            "deit_base", device="cpu",
+            generator=torch.Generator().manual_seed(seed)))
+
+    def loss(task, o, t):
+        return task.loss_fn(o, _to(o.device, t))
+
+    train_check("deit_base_distilled", build, xg.numpy(), target, loss,
+                ["backbone.patch_embed.proj.weight",
+                 "backbone.blocks.0.attn.qkv.weight",
+                 "backbone.dist_token", "backbone.head_dist.weight",
+                 "backbone.head.weight"])
+    teacher = params_to(teacher.to(dev), torch.bfloat16)
+    host = [(torch.randn(DISTILL_BATCH, 224, 224, 3, generator=gen)
+             .to(dev, torch.bfloat16),
+             torch.randint(0, 1000, (DISTILL_BATCH,), generator=gen).to(dev))
+            for _ in range(2)]
+    list(teacher_labels(teacher, host[:1]))  # cuDNN's first-call choices
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    batches = list(teacher_labels(teacher, host))
+    torch.cuda.synchronize()
+    teacher_ms = 1e3 * (time.perf_counter() - t1) / len(host)
+    counts = launches()
+    agree = [(y["teacher"].argmax(-1) == y["label"]).float().mean().item()
+             for _, y in batches]
+    emit({"phase": "teacher_labels", "teacher": "regnety_4gf",
+          "batch": DISTILL_BATCH, "ms_per_batch": teacher_ms,
+          "launches": {k: v for k, v in counts.items() if v},
+          "teacher_dtype": str(batches[0][1]["teacher"].dtype)[6:],
+          "teacher_label_agreement": agree})
+    if any(counts.values()):
+        raise AssertionError(f"the teacher launched kernels of ours: "
+                             f"{counts}")
+    del teacher
+    trainer = Trainer(build(103).to(dev), optimizer=optimizers.AdamW(1e-4),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [(x.float(), y) for x, y in batches]
+    attention_train("deit_base_distilled", trainer, batches,
+                    {"flash_attention": 12, "flash_attention_backward": 12},
+                    DISTILL_BATCH, profile)
+    del trainer, batches, host
+    empty_cache(dev)
+    sequence_leg_seconds("distillation", t0)
+
+
+# ------------------------------------------------------ face training
+def face_labels(gen, faces):
+    """``faces`` face labels of one image: normalised xyxy boxes (side 3%
+    to 30% of the frame), 5 landmarks inside each, landmarks valid for
+    two in three, [faces, 15]."""
+    lt = 0.02 + 0.6 * torch.rand(faces, 2, generator=gen)
+    wh = 0.03 + 0.27 * torch.rand(faces, 1, generator=gen).expand(faces, 2)
+    pts = lt[:, None] + torch.rand(faces, 5, 2, generator=gen) * wh[:, None]
+    valid = (torch.rand(faces, 1, generator=gen) < 2 / 3).float()
+    return torch.cat([lt, lt + wh, pts.reshape(faces, 10), valid], 1)
+
+
+def retinaface_targets(batch, side, gen):
+    """Images and ``Encoder`` targets [B, priors, 16] of WIDER FACE's
+    density (``WIDER_FACES_PER_IMAGE``, rounded, faces an image)."""
+    import numpy as np
+
+    from tlxcv_tpu_torch.tasks.face_recognition import Encoder, prior_box
+
+    encode = Encoder(prior_box((side, side)))
+    faces = round(WIDER_FACES_PER_IMAGE)
+    y = np.stack([encode(face_labels(gen, faces).numpy())
+                  for _ in range(batch)]).astype(np.float32)
+    return torch.randn(batch, side, side, 3, generator=gen).numpy(), y
+
+
+def leg_retinaface_train(upsample_record, sep_record, profile, dev="cuda"):
+    """RetinaFace-R50 trained by ``multi_box_loss`` on ``Encoder`` targets
+    (random weights from a seed, BatchNorm in train mode): gradients at b2
+    320^2 against the CPU (``train_check``), the loss falling on one batch
+    and ``Trainer.train`` at b8 640^2, bf16 over f32 masters, SGD with
+    momentum: exactly 2 upsample-add and 2 transposed-resize launches a
+    step; both merges and both transposed resizes of a step timed alone
+    (``merge_time_rows``, ``mrcnn_sep_times``)."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(111)
+    n, side = RETINAFACE_TRAIN_CHECK
+
+    def build(seed=112, size=side):
+        return create_model("retinaface", device="cpu", input_size=size,
+                            generator=torch.Generator().manual_seed(seed))
+
+    xg, yg = retinaface_targets(n, side, gen)
+    train_check("retinaface", build, xg, yg,
+                lambda m, o, t: m.loss_fn(o, torch.as_tensor(t,
+                                                             device=o[0].device)),
+                ["backbone.conv1.weight", "fpn.outputs.0.conv.weight",
+                 "ssh.0.conv_3x3.conv.weight", "classheads.0.conv.weight",
+                 "bboxheads.1.conv.weight", "landheads.2.conv.weight"])
+    batch, side = RETINAFACE_TRAIN
+    model = build(113, side).to(dev)
+    trainer = Trainer(model, optimizer=optimizers.SGD(1e-3, momentum=0.9),
+                      compute_dtype=torch.bfloat16, device=dev)
+    batches = [trainer._put_batch(retinaface_targets(batch, side, gen))
+               for _ in range(2)]
+    counts, _ = attention_train("retinaface", trainer, batches,
+                                RETINAFACE_TRAIN_LAUNCHES, batch, profile)
+    upsample_record["retinaface_train_launches"] = counts[
+        "upsample_add_fused"]
+    sep_record["retinaface_train_launches"] = counts["sep_resize"]
+    with recorded_merges() as calls, torch.no_grad():
+        model.eval()
+        model(batches[0][0].to(torch.bfloat16))
+        torch.cuda.synchronize()
+    rows = merge_time_rows(calls)
+    emit({"phase": "kernel_times",
+          "upsample_add_fused_per_retinaface_train_step": rows})
+    if len(rows) != 2 or not all(r["bitwise"] for r in rows):
+        raise AssertionError(f"RetinaFace's training merges: {rows}")
+    times = {}
+    mrcnn_sep_times(trainer, batches[0], times)
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        upsample_record[f"retinaface_train_{key}"] = sum(r[key] for r in rows)
+        sep_record[f"retinaface_train_{key}"] = times[key]
+    del trainer, batches, model
+    empty_cache(dev)
+    sequence_leg_seconds("retinaface_train", t0)
+
+
+def leg_arcface_train(profile, dev="cuda"):
+    """ArcFace-R50 (``create_model("arcface", input_size=128)``, 10,575
+    classes, random weights from a seed, BatchNorm and dropout in train
+    mode) trained by its margin head: gradients at b8 against the CPU at
+    the warm-up's mid margin (``train_check``, dropout off), the loss
+    falling on one batch at the full margin,
+    then ``Trainer.train`` at b128 128^2, bf16 over f32 masters, SGD with
+    momentum, the margin rising from 0 to 0.5 over the first
+    ``ARCFACE_WARMUP`` steps (read from the Trainer's step count); no
+    kernel of ours."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(121)
+    batch, side = ARCFACE_TRAIN
+
+    def build(seed=122):
+        return create_model("arcface", device="cpu", input_size=side,
+                            generator=torch.Generator().manual_seed(seed))
+
+    xg = torch.randn(ARCFACE_CHECK, side, side, 3, generator=gen).numpy()
+    yg = torch.randint(0, 10575, (ARCFACE_CHECK,), generator=gen).numpy()
+    train_check("arcface", build, xg, yg,
+                lambda m, e, t: m.loss_fn(e, torch.as_tensor(
+                    t, device=e.device), margin=0.25),
+                ["backbone.conv1.weight",
+                 "backbone.layer4.layers.2.conv3.weight", "dense.weight",
+                 "head.weight"])
+    model = build(123).to(dev)
+
+    def warmed_up(e, t):
+        margin = 0.5 * min(1.0, trainer.step / ARCFACE_WARMUP)
+        return model.loss_fn(e, t, margin=margin)
+
+    trainer = Trainer(model, loss_fn=warmed_up,
+                      optimizer=optimizers.SGD(0.1, momentum=0.9),
+                      compute_dtype=torch.bfloat16, device=dev)
+    trainer.step = ARCFACE_WARMUP  # the full margin on the fixed batch
+    batches = [(torch.randn(batch, side, side, 3, generator=gen).to(dev),
+                torch.randint(0, 10575, (batch,), generator=gen).to(dev))
+               for _ in range(2)]
+    falling_loss(trainer, batches[0], "arcface")
+    trainer.step = 0
+    _, step = timed_train(trainer, batches, {}, "arcface_train", batch)
+    if trainer.step != 3 + TRAIN_STEPS:
+        raise AssertionError(f"ArcFace trained {trainer.step} steps")
+    if profile:
+        phase_train_profile("arcface", trainer, batches[0], step)
+    del trainer, batches, model
+    empty_cache(dev)
+    sequence_leg_seconds("arcface_train", t0)
+
+
+def phase_sequence(flash, bwd, upsample, sep, profile):
+    """This slice's legs: flash at their grids (``phase_sequence_flash``),
+    I3D, TrOCR, DeiT-B distilled from RegNetY-4GF, RetinaFace-R50 and
+    ArcFace-R50 trained; the phase's own seconds."""
+    t0 = time.perf_counter()
+    phase_sequence_flash(flash, bwd)
+    leg_i3d(profile)
+    leg_trocr(profile)
+    leg_distillation(profile)
+    leg_retinaface_train(upsample, sep, profile)
+    leg_arcface_train(profile)
+    emit({"phase": "sequence", "seconds": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6268,6 +7011,15 @@ def main():
         emit({"kernels": [flash, int8]})
         print(card_line(), flush=True)
         return 0
+    if "--sequence" in sys.argv[1:]:  # video, OCR, distillation, faces
+        flash = {"name": "flash_attention"}
+        bwd = {"name": "flash_attention_backward"}
+        upsample = {"name": "upsample_add_fused"}
+        sep = {"name": "sep_resize"}
+        phase_sequence(flash, bwd, upsample, sep, profile)
+        emit({"kernels": [flash, bwd, upsample, sep]})
+        print(card_line(), flush=True)
+        return 0
     classic, faces = ("--classic" in sys.argv[1:],
                       "--faces" in sys.argv[1:])
     if classic or faces:  # the classic CNNs and the face models, alone
@@ -6341,6 +7093,7 @@ def main():
     phase_classification(flash, int8, profile)
     phase_classic(profile)
     phase_faces(upsample, profile)
+    phase_sequence(flash, bwd, upsample, sep, profile)
     phase_train_check()
     phase_train(sep, profile)
     attention_training_legs(bwd, profile)
@@ -6361,7 +7114,10 @@ def main():
              "se_resnext_int8_grouped_bound_ms",
              "se_resnext_int8_grouped_calls", "retinaface_launches",
              "retinaface_ms", "retinaface_plain_ms", "retinaface_library_ms",
-             "retinaface_bound_ms")
+             "retinaface_bound_ms", "sequence_grids",
+             "retinaface_train_launches", "retinaface_train_ms",
+             "retinaface_train_plain_ms", "retinaface_train_library_ms",
+             "retinaface_train_bound_ms")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

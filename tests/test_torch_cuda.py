@@ -1884,3 +1884,220 @@ def test_retinaface_merges_take_the_upsample_add_kernel(cuda, monkeypatch):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0,
                                    atol=1e-3 * w.abs().max())
+
+
+# TrOCR's grids: a decode step's one query row over the KV cache (32
+# slots, a [1, 1, T] bias masking the empty ones) and over the encoder's
+# 577 tokens; teacher forcing's shared causal [1, S, S] bias
+def _cache_bias(sq, sk, filled, cuda):
+    slots = torch.arange(sk, device=cuda)
+    return torch.where(slots <= filled, 0.0, -1e9).expand(1, sq, sk) \
+        .contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk,filled", [(32, 0), (32, 13), (32, 31),
+                                       (577, None), (1, None), (65, 40)])
+def test_kernel_at_one_query_row(cuda, dtype, sk, filled):
+    g = torch.Generator(device=cuda).manual_seed(sk)
+    q = torch.randn(64 * 8, 1, 32, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(64 * 8, sk, 32, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    bias = None if filled is None else _cache_bias(1, sk, filled, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), bias)
+    torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
+    if filled is not None and filled < sk - 1:  # the empty slots add nothing
+        cut = flash_attention(q, k[:, :filled + 1].contiguous(),
+                              v[:, :filled + 1].contiguous())
+        torch.testing.assert_close(out.float(), cut.float(),
+                                   atol=_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(32, 32), (8, 32), (197, 64), (577, 64)])
+def test_kernel_at_a_shared_causal_bias(cuda, dtype, s, d):
+    from tlxcv_tpu_torch.models.ocr.trocr import causal_mask
+
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(16, s, d, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    bias = causal_mask(s, torch.float32, cuda)[None]
+    out = flash_attention(q, k, v, bias=bias)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), bias)
+    torch.testing.assert_close(out.float(), ref, atol=_TOL[dtype], rtol=0)
+    # row 0 sees only key 0
+    torch.testing.assert_close(out[:, 0].float(), v[:, 0].float(),
+                               atol=_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (2, 8, 32, 32, 32, True),       # the decoder's self-attention
+    (2, 8, 32, 577, 32, False),     # its cross-attention over the memory
+    (2, 6, 577, 577, 64, False),    # the encoder
+])
+def test_flash_gradients_at_trocr_training_grids(cuda, dtype, b, h, sq, sk,
+                                                 d, causal):
+    """q, k and v through the forward and backward kernels at TrOCR's
+    teacher-forcing grids ([B, H, S, D] views), against autograd through
+    the plain version on the CPU in f32 on the same inputs: f32 within
+    1e-4 of each gradient's largest magnitude, bf16 within 2e-2."""
+    from tlxcv_tpu_torch.models.ocr.trocr import causal_mask
+
+    g = torch.Generator().manual_seed(sq + sk)
+    q = torch.randn(b, h, sq, d, generator=g).to(dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=g).to(dtype)
+            for _ in range(2))
+    gy = torch.randn(b, h, sq, d, generator=g).to(dtype)
+    bias = causal_mask(sq, torch.float32, "cpu")[None] if causal else None
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [t.detach().to(dev, torch.float32 if dev == "cpu" else dtype)
+              .requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*xs, bias=None if bias is None
+                              else bias.to(dev))
+        assert out.grad_fn is not None
+        out.backward(gy.to(dev, xs[0].dtype))
+        grads.append([t.grad.float().cpu() for t in xs])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(c, a, rtol=0,
+                                   atol=_TOL[dtype] * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("shape,kernel,stride,padding", [
+    ((2, 16, 64, 64, 3), 7, 2, "SAME"),        # I3D's stem: pads (2, 3)
+    ((2, 8, 28, 28, 64), 3, 1, "SAME"),
+    ((1, 5, 9, 11, 8), (3, 1, 2), (1, 2, 1), ((1, 2), (0, 1), (2, 0))),
+])
+def test_conv3d_on_the_card_matches_the_cpu(cuda, shape, kernel, stride,
+                                            padding):
+    """``nn.Conv3d`` (lax's "SAME", uneven pads through ``F.pad``) and the
+    3-D pools on the card against the CPU: f32 (TF32 off) within 1e-4 of
+    the output's largest magnitude, bf16 within 3e-2."""
+    from tlxcv_tpu_torch.nn import AvgPool3d, Conv3d, MaxPool3d
+
+    gen = torch.Generator().manual_seed(3)
+    cpu = Conv3d(shape[-1], 16, kernel, stride, padding, device="cpu",
+                 generator=gen)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(*shape, generator=gen)
+    with torch.no_grad():
+        want = cpu(x)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            got = card.to(dtype)(x.to(cuda, dtype))
+            assert got.shape == want.shape
+            torch.testing.assert_close(got.float().cpu(), want, rtol=0,
+                                       atol=tol * float(want.abs().max()))
+        for pool in (MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)),
+                     AvgPool3d(3, 2, 1)):
+            torch.testing.assert_close(pool(want.to(cuda)).cpu(), pool(want),
+                                       rtol=0, atol=1e-6)
+
+
+def test_trocr_decoding_on_the_card(cuda):
+    """A micro TrOCR (encoder 1 layer, decoder 2 layers, max_length 8) in
+    f32 on the card: greedy and 3-beam tokens equal the CPU's, the
+    teacher-forced logits within 1e-4 of their scale, and exactly 1 + 2 x
+    2 x 8 = 33 flash launches a generation (the encoder, then a self- and
+    a cross-attention a layer a step) and 1 + 2 x 2 a teacher-forced
+    forward."""
+    from tlxcv_tpu_torch.models.ocr import TrOCR
+
+    gen = torch.Generator().manual_seed(23)
+    cpu = TrOCR(vocab_size=40, encoder_dim=32, encoder_depth=1,
+                encoder_heads=2, decoder_dim=64, decoder_depth=2,
+                decoder_heads=2, img_size=32, patch_size=8, max_length=8,
+                device="cpu", generator=gen).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(4, 32, 32, 3, generator=gen)
+    ids = torch.randint(3, 40, (4, 8), generator=gen)
+    before = flash_attention.launches
+    greedy = card.generate(x.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 33
+    assert torch.equal(greedy.cpu(), cpu.generate(x))
+    assert torch.equal(card.generate_beam(x.to(cuda), num_beams=3).cpu(),
+                       cpu.generate_beam(x, num_beams=3))
+    with torch.no_grad():
+        before = flash_attention.launches
+        got = card(x.to(cuda), ids.to(cuda))
+        assert flash_attention.launches == before + 5
+        want = cpu(x, ids)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_distillation_step_on_the_card(cuda):
+    """A DeiT student (micro: 32 px, 8 px patches, width 64, 1 block) takes
+    ``teacher_labels`` targets through the Trainer on the card: the dict
+    targets reach the card, one flash forward and one backward launch a
+    step, a finite loss."""
+    from tlxcv_tpu_torch.models.classification.deit import \
+        DistilledVisionTransformer
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention_backward
+    from tlxcv_tpu_torch.tasks import DistilledClassification, teacher_labels
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    gen = torch.Generator().manual_seed(29)
+
+    def deit():
+        return DistilledVisionTransformer(
+            img_size=32, patch_size=8, embed_dim=64, depth=1, num_heads=2,
+            num_classes=10, device=cuda, generator=gen)
+
+    teacher = deit()
+    batches = [(torch.randn(8, 32, 32, 3, generator=gen),
+                torch.randint(0, 10, (8,), generator=gen))]
+    targets = list(teacher_labels(teacher, batches))
+    assert targets[0][1]["teacher"].device.type == "cuda"
+    trainer = Trainer(DistilledClassification(deit()), device=cuda,
+                      optimizer=optimizers.AdamW(1e-4),
+                      compute_dtype=torch.bfloat16)
+    x, y = trainer._put_batch(targets[0])
+    assert x.is_cuda and y["label"].is_cuda and y["teacher"].is_cuda
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    loss, _ = trainer._train_step(x, y)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_backward.launches == bwd + 1
+    assert torch.isfinite(loss)
+
+
+def test_trocr_trains_under_the_bf16_policy_on_the_card(cuda):
+    """A micro TrOCR's teacher-forced Trainer step in bf16 over f32 masters
+    on the card: the loss gets the images cast back to f32, so the decoder
+    hands the kernel bf16 queries over an f32 memory, which
+    ``scaled_dot_product_attention`` promotes (the kernel takes one dtype);
+    one flash forward and one backward launch per attention (1 + 2 x 2),
+    the loss within 1e-2 of the same step's on the CPU."""
+    from tlxcv_tpu_torch.models.ocr import TrOCR
+    from tlxcv_tpu_torch.ops.cuda.attention import flash_attention_backward
+    from tlxcv_tpu_torch.tasks import OpticalCharacterRecognition
+    from tlxcv_tpu_torch.train import Trainer, optimizers
+
+    gen = torch.Generator().manual_seed(31)
+    cpu = OpticalCharacterRecognition(TrOCR(
+        vocab_size=40, encoder_dim=32, encoder_depth=1, encoder_heads=2,
+        decoder_dim=64, decoder_depth=2, decoder_heads=2, img_size=32,
+        patch_size=8, max_length=8, device="cpu", generator=gen))
+    card = copy.deepcopy(cpu)
+    x = torch.randn(4, 32, 32, 3, generator=gen)
+    y = torch.randint(3, 40, (4, 8), generator=gen)
+    losses = []
+    for task, dev in ((cpu, "cpu"), (card, cuda)):
+        trainer = Trainer(task, loss_fn=lambda o, t, m=task: m.loss_fn(o, t),
+                          optimizer=optimizers.AdamW(5e-5),
+                          compute_dtype=torch.bfloat16, device=dev)
+        fwd, bwd = (flash_attention.launches,
+                    flash_attention_backward.launches)
+        loss, _ = trainer._train_step(*trainer._put_batch((x, y)))
+        losses.append(float(loss))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert flash_attention.launches == fwd + 5
+            assert flash_attention_backward.launches == bwd + 5
+    assert abs(losses[1] - losses[0]) <= 1e-2 * abs(losses[0])

@@ -42,6 +42,7 @@ from tlxcv_tpu_torch.models.classification import resnet18
 from tlxcv_tpu_torch.models.face_recognition import (ArcFace, RetinaFace,
                                                      hard_negatives,
                                                      multi_box_loss)
+from tlxcv_tpu_torch.models.ocr import resize_linear
 from tlxcv_tpu_torch.ops.image import upsample_add
 from tlxcv_tpu_torch.tasks import face_recognition as TT
 from tlxcv_tpu_torch.utils import load_jax_params
@@ -235,7 +236,7 @@ def test_post_process_is_the_references(rng, score_th):
 def test_resize_is_cv2_inter_linear(rng, hw, out):
     cv2 = pytest.importorskip("cv2")
     img = rng.uniform(0, 255, size=(*hw, 3)).astype(np.float32)
-    got = TT.resize_linear_hwc(img, out)
+    got = resize_linear(img, out)
     want = cv2.resize(img, (out[1], out[0]))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * 255)
 

@@ -75,7 +75,11 @@ def test_importing_every_port_module_pulls_in_no_jax():
                      "rexnet", "peleenet", "dpn_dla", "cspdarknet")),
                  "models.face_recognition.retinaface",
                  "models.face_recognition.arcface",
-                 "tasks.face_recognition"):
+                 "tasks.face_recognition",
+                 "models.video_classification.i3d",
+                 "tasks.video_classification", "models.ocr.transform",
+                 "models.ocr.trocr", "tasks.ocr", "tasks.distillation",
+                 "data.charades", "data.synth90k"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -51,8 +51,10 @@ def _populate():
     from .models import face_recognition as FR
     from .models import facial_landmark_detection as F
     from .models import human_pose_estimation as P
+    from .models import ocr as O
     from .models import rs as RS
     from .models import segmentation as S
+    from .models import video_classification as V
 
     for mod in (C, S):
         for name in mod.MODELS:
@@ -64,6 +66,8 @@ def _populate():
         _MODEL_REGISTRY.setdefault(alias, factory)
     _MODEL_REGISTRY.setdefault("retinaface", FR.RetinaFace)
     _MODEL_REGISTRY.setdefault("arcface", FR.ArcFace)
+    _MODEL_REGISTRY.setdefault("trocr", O.TrOCR)
+    _MODEL_REGISTRY.setdefault("i3d", V.InceptionI3d)
     _MODEL_REGISTRY.setdefault("mask_rcnn", D.MaskRCNN)
     _MODEL_REGISTRY.setdefault("yolov3", D.YOLOv3)
     _MODEL_REGISTRY.setdefault("ssd", D.SSD)

@@ -47,7 +47,12 @@ class ArcHead(tnn.Module):
         """Scaled cosine logits, the labelled class's angle widened by the
         margin: the constructor's (``margin=None``), or ``margin`` (a
         float or a tensor), as a margin warm-up schedule passes it."""
-        cos_t = _unit_rows(embeds, 1) @ _unit_rows(self.weight, 0)
+        e, w = _unit_rows(embeds, 1), _unit_rows(self.weight, 0)
+        # each normalised in its own dtype, then the product in the
+        # promoted one, as the reference's ``e @ w`` promotes f32
+        # embeddings and bf16 weights (the Trainer's bf16 policy)
+        dtype = torch.promote_types(e.dtype, w.dtype)
+        cos_t = e.to(dtype) @ w.to(dtype)
         if margin is None:
             cos_m, sin_m, th, mm = self.cos_m, self.sin_m, self.th, self.mm
         else:
@@ -86,7 +91,7 @@ class ArcFace(tnn.Module):
         fh = input_size // 32
         self.bn = nn.BatchNorm(feat_ch, momentum=0.99, eps=1.001e-5,
                                device=device)
-        self.drop = nn.Dropout(0.5, generator=generator)
+        self.drop = nn.Dropout(0.5)
         self.dense = nn.Linear(feat_ch * fh * fh, embed_size, **kw)
         self.bn2 = nn.BatchNorm(embed_size, momentum=0.99, eps=1.001e-5,
                                 device=device)

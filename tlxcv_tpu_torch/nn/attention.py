@@ -135,6 +135,14 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
     scale = d ** -0.5 if scale is None else scale
     if _INT8_DEFAULT if use_int8 is None else use_int8:
         return _int8_sdpa(q, k, v, mask, scale)
+    out_dtype = v.dtype
+    if not q.dtype == k.dtype == v.dtype:
+        # the reference's einsums promote mixed inputs (TrOCR's bf16
+        # queries over an f32 memory under the Trainer's bf16 policy): the
+        # kernel takes them in the promoted dtype
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     bh = math.prod(lead)
     if q.ndim == 4:  # [B, H, S, D] views go to the kernel as they are
         qf, kf, vf = q, k, v
@@ -151,7 +159,7 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
             bias = torch.broadcast_to(mask, (*lead, s, kv)).reshape(bh, s, kv)
         bias = bias.float().contiguous()
     out = flash_attention(qf, kf, vf, bias=bias, scale=scale)
-    return out.reshape(*lead, s, d).to(v.dtype)
+    return out.reshape(*lead, s, d).to(out_dtype)
 
 
 class MultiHeadAttention(nn.Module):

@@ -37,8 +37,10 @@ from ..core import init as I
 from ..device import resolve_device
 from ..ops.cuda.matmul import int8_matmul_requant, pad_k, padded_k
 
-__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "BatchNorm", "BatchNorm2d",
-           "LayerNorm", "GroupNorm", "PReLU", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "GlobalAvgPool2d",
+__all__ = ["Conv2d", "Conv3d", "ConvTranspose2d", "Linear", "Embedding",
+           "BatchNorm", "BatchNorm2d", "LayerNorm", "GroupNorm", "PReLU",
+           "MaxPool2d", "AvgPool2d", "MaxPool3d", "AvgPool3d",
+           "AdaptiveAvgPool2d", "GlobalAvgPool2d",
            "Dropout", "DropPath", "Identity", "Sequential", "Activation",
            "leaky_relu", "relu", "get_activation", "set_quant_attr"]
 
@@ -130,17 +132,21 @@ class Sequential(nn.Module):
         return len(self.layers)
 
 
+def _ntuple(v, n):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
 def _pair(v):
-    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+    return _ntuple(v, 2)
 
 
-def _conv_padding(padding):
+def _conv_padding(padding, nd=2):
     """Normalise a padding spec: 'SAME'/'VALID', an int, per-dim ints, or
     explicit ((lo, hi), ...).  Integers pad both sides, as in torch."""
     if isinstance(padding, str):
         return padding.upper()
     if isinstance(padding, int):
-        return ((padding, padding),) * 2
+        return ((padding, padding),) * nd
     padding = list(padding)
     if all(isinstance(p, int) for p in padding):
         return tuple((p, p) for p in padding)
@@ -148,8 +154,9 @@ def _conv_padding(padding):
 
 
 def _explicit_pads(padding, in_hw, kernel, stride, dilation):
+    """Per spatial dim (lo, hi) pads, for any number of dims."""
     if padding == "VALID":
-        return ((0, 0), (0, 0))
+        return ((0, 0),) * len(in_hw)
     if padding == "SAME":  # lax's rule: the odd pixel goes after
         pads = []
         for n, k, s, d in zip(in_hw, kernel, stride, dilation):
@@ -161,6 +168,12 @@ def _explicit_pads(padding, in_hw, kernel, stride, dilation):
 
 def _out_size(n, pads, k, s, d):
     return (n + pads[0] + pads[1] - d * (k - 1) - 1) // s + 1
+
+
+def _torch_pads(pads):
+    """(lo, hi) per spatial dim, first dim first, as ``F.pad``'s flat
+    list, last dim first."""
+    return [p for lo_hi in reversed(pads) for p in lo_hi]
 
 
 # ------------------------------------------------------------------ int8
@@ -442,6 +455,45 @@ class ConvTranspose2d(nn.Module):
         return y
 
 
+class Conv3d(nn.Module):
+    """3D convolution, NDHWC in and out, weight stored OIDHW (the JAX
+    package's DHWIO, ``utils.bridge``), as I3D's video nets take it.
+    "SAME" follows lax's rule, the odd pixel after (a 7x7x7 stem at
+    stride 2 pads (2, 3) on an even side), which ``F.conv3d``'s symmetric
+    padding cannot express: uneven pads go through ``F.pad`` first."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding="SAME", bias=True, w_init=None, device=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.kernel_size = _ntuple(kernel_size, 3)
+        self.stride = _ntuple(stride, 3)
+        self.padding = _conv_padding(padding, nd=3)
+        shape = (out_channels, in_channels, *self.kernel_size)
+        w_init = w_init or (lambda s, **kw: I.kaiming_normal(
+            s, mode="fan_out", **kw))
+        self.weight = nn.Parameter(
+            w_init(shape, generator=generator, device=device))
+        self.bias = (nn.Parameter(I.zeros((out_channels,), device=device))
+                     if bias else None)
+
+    def forward(self, x):
+        x = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC bytes
+        pads = _explicit_pads(self.padding, x.shape[2:], self.kernel_size,
+                              self.stride, (1, 1, 1))
+        if all(lo == hi for lo, hi in pads):
+            pad = tuple(lo for lo, _ in pads)
+        else:
+            x = F.pad(x, _torch_pads(pads))
+            pad = 0
+        y = F.conv3d(x, self.weight.to(x.dtype), None, self.stride,
+                     pad).permute(0, 2, 3, 4, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
 class Linear(nn.Module):
     """Dense layer, weight ``(out, in)`` (packed ``[out, Kp]`` int8 once
     quantized).  The bias is added after the product, in the input's
@@ -498,6 +550,22 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y.to(out_dtype)
+
+
+class Embedding(nn.Module):
+    """A lookup table ``[num_embeddings, features]`` (initial std 0.02, as
+    the JAX layer); rows come out in the table's dtype."""
+
+    def __init__(self, num_embeddings, features, w_init=None, device=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        w_init = w_init or (lambda s, **kw: I.normal(s, std=0.02, **kw))
+        self.weight = nn.Parameter(w_init((num_embeddings, features),
+                                          generator=generator, device=device))
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
 
 
 class BatchNorm(nn.Module):
@@ -617,31 +685,38 @@ class GroupNorm(nn.Module):
 
 
 # --------------------------------------------------------------- pooling
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_SUM_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
 def _pool_geometry(x, window, stride, padding):
-    window = _pair(window)
-    stride = window if stride is None else _pair(stride)
+    """Window, stride and (lo, hi) pads over the spatial dims of a
+    channels-last ``x`` (2 for NHWC, 3 for NDHWC)."""
+    nd = x.ndim - 2
+    window = _ntuple(window, nd)
+    stride = window if stride is None else _ntuple(stride, nd)
     if isinstance(padding, str):
-        pads = _explicit_pads(padding.upper(), x.shape[1:3], window, stride,
-                              (1, 1))
+        pads = _explicit_pads(padding.upper(), x.shape[1:-1], window, stride,
+                              (1,) * nd)
     else:
-        pads = tuple((p, p) for p in _pair(padding))
+        pads = tuple((p, p) for p in _ntuple(padding, nd))
     return window, stride, pads
 
 
 def _max_pool(x, window, stride, padding):
     """Window max; padding never wins (-inf, or the integer type's least
-    value for int8 codes)."""
-    (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = _pool_geometry(
-        x, window, stride, padding)
+    value for int8 codes, NHWC only)."""
+    window, stride, pads = _pool_geometry(x, window, stride, padding)
     if x.is_floating_point():
-        xc = x.permute(0, 3, 1, 2)
-        if h0 == h1 and w0 == w1 and h0 <= kh // 2 and w0 <= kw // 2:
-            pad = (h0, w0)
+        xc = x.movedim(-1, 1)
+        if all(lo == hi <= k // 2 for (lo, hi), k in zip(pads, window)):
+            pad = tuple(lo for lo, _ in pads)
         else:
-            xc = F.pad(xc, (w0, w1, h0, h1), value=float("-inf"))
+            xc = F.pad(xc, _torch_pads(pads), value=float("-inf"))
             pad = 0
-        return F.max_pool2d(xc, (kh, kw), (sh, sw), pad).permute(0, 2, 3, 1)
+        return _MAX_POOL[len(window)](xc, window, stride, pad).movedim(1, -1)
     # integer codes: shifted slices (no int8 pooling kernel is assumed)
+    (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = window, stride, pads
     n, h, w, c = x.shape
     ho = _out_size(h, (h0, h1), kh, sh, 1)
     wo = _out_size(w, (w0, w1), kw, sw, 1)
@@ -663,15 +738,15 @@ def _acc_dtype(x):
 def _avg_pool(x, window, stride, padding):
     """Window mean in f32 that leaves padding out of the count (torch's
     count_include_pad=False), back in the input's dtype."""
-    (kh, kw), (sh, sw), ((h0, h1), (w0, w1)) = _pool_geometry(
-        x, window, stride, padding)
+    window, stride, pads = _pool_geometry(x, window, stride, padding)
     acc = _acc_dtype(x)
-    xf = F.pad(x.to(acc).permute(0, 3, 1, 2), (w0, w1, h0, h1))
-    ones = F.pad(x.new_ones((1, 1, *x.shape[1:3]), dtype=acc),
-                 (w0, w1, h0, h1))
-    summed = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)
-    counts = F.avg_pool2d(ones, (kh, kw), (sh, sw), divisor_override=1)
-    return (summed / counts).permute(0, 2, 3, 1).to(x.dtype)
+    flat = _torch_pads(pads)
+    xf = F.pad(x.to(acc).movedim(-1, 1), flat)
+    ones = F.pad(x.new_ones((1, 1, *x.shape[1:-1]), dtype=acc), flat)
+    pool = _SUM_POOL[len(window)]
+    summed = pool(xf, window, stride, divisor_override=1)
+    counts = pool(ones, window, stride, divisor_override=1)
+    return (summed / counts).movedim(1, -1).to(x.dtype)
 
 
 class MaxPool2d(nn.Module):
@@ -690,6 +765,15 @@ class AvgPool2d(nn.Module):
 
     def forward(self, x):
         return _avg_pool(x, self.k, self.s, self.p)
+
+
+class MaxPool3d(MaxPool2d):
+    """Window max over (D, H, W) of NDHWC input, -inf padding."""
+
+
+class AvgPool3d(AvgPool2d):
+    """Window mean over (D, H, W) of NDHWC input, padding out of the
+    count."""
 
 
 def _avg_matrix(inp, out):

@@ -4,9 +4,8 @@ ground-truth-to-prior ``Encoder`` that feeds the input pipeline and its
 inverse ``Decoder``, a numpy NMS, and ``detect_faces`` for one image.
 
 Everything but the model's forward is numpy on the host.  ``detect_faces``
-resizes with ``F.interpolate`` (bilinear, half-pixel centres, no
-antialiasing) on the host tensor, which is what ``cv2.resize``'s
-``INTER_LINEAR`` computes on a float image, so no OpenCV is needed.
+resizes as ``cv2.resize``'s ``INTER_LINEAR`` does, without OpenCV
+(``models.ocr.transform.resize_linear``).
 """
 from __future__ import annotations
 
@@ -15,10 +14,11 @@ from itertools import product
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from ..models.ocr.transform import resize_linear
 
 __all__ = ["nms_np", "prior_box", "Encoder", "Decoder", "Decocder",
-           "post_process", "detect_faces", "resize_linear_hwc"]
+           "post_process", "detect_faces"]
 
 
 def nms_np(boxes, scores, threshold=0.4):
@@ -177,16 +177,6 @@ def post_process(bbox, cls, priors, side, score_th=0.5, iou_th=0.4):
     return boxes[keep] * side, scores[keep]
 
 
-def resize_linear_hwc(image, out_hw):
-    """An HWC float32 image resized to ``out_hw`` (rows, columns) as
-    ``cv2.resize(..., INTER_LINEAR)`` resizes a float image: bilinear,
-    half-pixel centres, edges clamped, no antialiasing."""
-    x = torch.from_numpy(np.ascontiguousarray(image, np.float32))
-    y = F.interpolate(x.permute(2, 0, 1)[None], size=tuple(out_hw),
-                      mode="bilinear", align_corners=False, antialias=False)
-    return y[0].permute(1, 2, 0).numpy()
-
-
 def detect_faces(image, model, trainer=None, score_th=0.5, iou_th=0.4,
                  input_size=640):
     """RetinaFace on one HWC image: the image scaled so that its longer
@@ -196,7 +186,7 @@ def detect_faces(image, model, trainer=None, score_th=0.5, iou_th=0.4,
     h, w = image.shape[:2]
     img = np.asarray(image, np.float32)
     scale = input_size / max(h, w)
-    resized = resize_linear_hwc(img, (int(h * scale), int(w * scale)))
+    resized = resize_linear(img, (int(h * scale), int(w * scale)))
     canvas = np.zeros((input_size, input_size, 3), np.float32)
     canvas[:resized.shape[0], :resized.shape[1]] = resized
     canvas = (canvas - 127.5) / 128.0

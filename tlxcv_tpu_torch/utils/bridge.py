@@ -4,10 +4,11 @@ The JAX package flattens a model with ``split()`` into ``{path: array}``:
 attribute names joined by "/", a list index as one segment
 (``blocks/3/attn/qkv/weight``).  The port mirrors the attribute names, so
 the torch key is the same path joined by "." and no name table is needed.
-Layouts differ only for weights: conv HWIO -> OIHW, transposed conv HWIO
-``(kh, kw, in/g, out)`` -> torch's ``(in, out/g, kh, kw)`` with no flip,
-dense (in, out) -> (out, in).  Everything else (``pos_embed``, ``cls_token``, LayerNorm,
-biases, BatchNorm running statistics) copies as it is.
+Layouts differ only for weights: conv HWIO -> OIHW, 3D conv DHWIO ->
+OIDHW, transposed conv HWIO ``(kh, kw, in/g, out)`` -> torch's ``(in,
+out/g, kh, kw)`` with no flip, dense (in, out) -> (out, in).  Everything
+else (embedding tables, ``pos_embed``, ``cls_token``, LayerNorm, biases,
+BatchNorm running statistics) copies as it is.
 
 A model quantized by the JAX package's ``ops.quant`` carries int8 weights
 and the tensors quantization added (``w_scale``, ``a_scale``,
@@ -21,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..nn.layers import Conv2d, ConvTranspose2d, Linear, set_quant_attr
+from ..nn.layers import (Conv2d, Conv3d, ConvTranspose2d, Linear,
+                         set_quant_attr)
 
 __all__ = ["load_jax_params"]
 
@@ -31,6 +33,8 @@ _ADDED_BY_QUANTIZATION = ("a_scale", "out_scale", "bias")
 def _to_port_layout(owner, leaf, arr):
     if leaf == "weight" and isinstance(owner, Conv2d):
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if leaf == "weight" and isinstance(owner, Conv3d):
+        return arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     if leaf == "weight" and isinstance(owner, ConvTranspose2d):
         # (kh, kw, in/g, out): output channel j*out/g + o belongs to group
         # j, whose inputs are j*in/g + i -> (in, out/g, kh, kw)
