@@ -380,6 +380,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
                   torch.float32: 67e12,    # f32 outside the tensor cores
                   torch.int8: 1979e12}     # dense tensor-core int8
+# f32 attention runs its products on the tensor cores as split TF32
+# (csrc/flash_attention.cuh): three TF32 products for each f32-accurate
+# one, so its least time is three products at the dense TF32 rate, 495
+# TFLOP/s.  Read only by the attention bounds; the FMA rate above stays
+# the f32 rate of everything else and is recorded beside them
+# (``fma_bound_ms``).
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
 
 
 _STARTED = time.perf_counter()
@@ -446,14 +453,22 @@ def graph_ms(fn, reps=20, calls=10):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def attention_bound_ms(bh, sq, sk, d, dtype):
+def attention_ops_per_s(dtype, fma=False):
+    """The operations rate of the attention bounds: f32 at the split-TF32
+    rate (with ``fma``, at the FMA units' rate), else the dtype's peak."""
+    if dtype == torch.float32 and not fma:
+        return SPLIT_TF32_OPS_PER_S
+    return PEAK_OPS_PER_S[dtype]
+
+
+def attention_bound_ms(bh, sq, sk, d, dtype, fma=False):
     """Least time for one call without bias: q and o over Sq rows, k and v
     over Sk rows, each read or written once, against the card's memory
-    rate; 4*Sq*Sk*D*BH operations against its peak rate for the dtype.
+    rate; 4*Sq*Sk*D*BH operations against ``attention_ops_per_s``.
     Returns (ms, what bounds it)."""
     elt = torch.finfo(dtype).bits // 8
     by_bytes = 2 * bh * (sq + sk) * d * elt / HBM_BYTES_PER_S
-    by_ops = 4 * sq * sk * d * bh / PEAK_OPS_PER_S[dtype]
+    by_ops = 4 * sq * sk * d * bh / attention_ops_per_s(dtype, fma)
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -496,7 +511,7 @@ def phase_environment():
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "entry function" in ln or "registers" in ln
-                    or "spill" in ln or "arning" in ln]
+                    or "spill" in ln or "arning" in ln or "C7515" in ln]
              for name, log in _build.build_logs.items()}
     emit({"phase": "environment", "card": card,
           "device": torch.cuda.get_device_name(0),
@@ -695,16 +710,16 @@ def backward_edge_cases():
     return cases
 
 
-def attention_backward_bound_ms(bh, sq, sk, d, dtype):
+def attention_backward_bound_ms(bh, sq, sk, d, dtype, fma=False):
     """Least time of one backward without bias: q, o and dO read and dq
     written over Sq rows, k and v read and dk and dv written over Sk rows
     (eight tensors), the rows' log-sum-exp read, each once, against the
     card's memory rate; the five products (S, dP, dV, dK and dQ:
-    10*Sq*Sk*D*BH operations) against its peak rate for the dtype.
+    10*Sq*Sk*D*BH operations) against ``attention_ops_per_s``.
     Returns (ms, what bounds it)."""
     elt = torch.finfo(dtype).bits // 8
     by_bytes = (4 * bh * (sq + sk) * d * elt + 4 * bh * sq) / HBM_BYTES_PER_S
-    by_ops = 10 * sq * sk * d * bh / PEAK_OPS_PER_S[dtype]
+    by_ops = 10 * sq * sk * d * bh / attention_ops_per_s(dtype, fma)
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -775,6 +790,19 @@ def check_backward(case, dtype, seed):
     got = torch.autograd.grad(out, leaves, dout)
     again = torch.autograd.grad(A.flash_attention(*leaves, bias=bias),
                                 leaves, dout)
+    flag_bitwise = None
+    if dtype == torch.float32:
+        # the f32 kernels never read the matmul TF32 flag: with it on, the
+        # output and the gradients keep their bits
+        flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = not flag
+        try:
+            out_flag = A.flash_attention(*leaves, bias=bias)
+            with_flag = torch.autograd.grad(out_flag, leaves, dout)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flag
+        flag_bitwise = torch.equal(out_flag, out) and all(
+            torch.equal(a, c) for a, c in zip(got, with_flag))
     torch.cuda.synchronize()
     launched = A.flash_attention_backward.launches - before
     _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
@@ -804,9 +832,12 @@ def check_backward(case, dtype, seed):
               "rel_err_dq_dk_dv": errs, "max_abs_err": abs_err,
               "bound": tol, "sdpa_rel_err_dq_dk_dv": witness,
               "lse_max_abs_err": lse_err, "bitwise_repeat": bitwise,
-              "finite": finite, "launches": launched}
-    if (not finite or not bitwise or launched != 2 or max(errs) > tol
-            or lse_err > 1e-4 or witness is not None and max(witness) > 1e-4):
+              "tf32_flag_bitwise": flag_bitwise, "finite": finite,
+              "launches": launched}
+    calls = 3 if dtype == torch.float32 else 2  # backward calls made here
+    if (not finite or not bitwise or flag_bitwise is False
+            or launched != calls or max(errs) > tol or lse_err > 1e-4
+            or witness is not None and max(witness) > 1e-4):
         emit({"phase": "flash_backward", "failed": record})
         raise AssertionError(f"flash backward {name} {dtype} {bias_kind}: "
                              f"{record}")
@@ -846,7 +877,7 @@ def sdpa_backward_call(q, k, v, dout, is_causal=False):
     return node, None
 
 
-def phase_flash_backward():
+def phase_flash_backward(flash_record=None):
     """The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
     on the card, in bf16 and f32: at ViT-B/16's b64 grid and DETR-R50's
     three training b4 grids, each without a bias, with a per-head bias and
@@ -875,11 +906,15 @@ def phase_flash_backward():
       forward outputs, graph replays as ``ms``; ``library_event_ms``: one
       ``autograd.grad`` through SDPA's graph, events), and the bound; the
       forward timed with and without writing the log-sum-exp
-      (``train_forward_ms``, ``serve_forward_ms``).  Each kernel's own
-      device time comes from ``phase_backward_profile``, at the end of a
-      run.
+      (``train_forward_ms``, ``serve_forward_ms``); in f32 the forward
+      also checked and timed beside SDPA's (``f32_forward_times``) and the
+      bounds at the FMA units' rate beside (``fma_bound_ms``).  Each
+      kernel's own device time comes from ``phase_backward_profile``, at
+      the end of a run.
 
-    Returns the kernel's record (the ViT grid in bf16 as its main case)."""
+    Returns the kernel's record (the ViT grid in bf16 as its main case);
+    the f32 rows go into its ``f32_grids`` and the forward's into
+    ``flash_record``'s."""
     from tlxcv_tpu_torch.ops.cuda import attention as A
 
     results = []
@@ -929,7 +964,11 @@ def phase_flash_backward():
                 "serve_forward_ms": graph_ms(lambda: A._launch_kernel(
                     q, k, v, None, scale)),
                 "train_forward_ms": graph_ms(lambda: A._launch_kernel(
-                    q, k, v, None, scale, with_lse=True))}
+                    q, k, v, None, scale, with_lse=True)),
+                **({"fma_bound_ms": attention_backward_bound_ms(
+                    b * h, sq, sk, d, dtype, fma=True)[0],
+                    "forward": f32_forward_times(q, k, v, None, None)}
+                   if dtype == torch.float32 else {})}
 
     timings = {dt: {grid[0]: times(grid, dtype) for grid in BACKWARD_GRIDS}
                for dt, dtype in (("bfloat16", torch.bfloat16),
@@ -940,7 +979,7 @@ def phase_flash_backward():
     vit = timings["bfloat16"]["vit_b16_b64_packed"]
     keys = ("ms", "event_ms", "plain_ms", "library_ms", "library_op",
             "library_event_ms", "bound_ms", "bound_by")
-    return {"name": "flash_attention_backward", "route": "cuda",
+    record = {"name": "flash_attention_backward", "route": "cuda",
             "source": "tlxcv_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "tlxcv_tpu/ops/pallas/attention.py:39",
             "max_abs_err": main["max_abs_err"],
@@ -949,6 +988,9 @@ def phase_flash_backward():
                 name: {key: t[key] for key in ("shape",) + keys}
                 for name, t in timings["bfloat16"].items()
                 if name.startswith("detr")}}
+    f32_records({} if flash_record is None else flash_record, record,
+                timings["float32"])
+    return record
 
 
 def phase_backward_profile():
@@ -6402,7 +6444,7 @@ def sequence_backward_times(case, dtype):
             raise AssertionError(f"SDPA's backward op at {name} is not "
                                  f"SDPA's gradient: {library_err}")
     bound, bound_by = attention_backward_bound_ms(b * h, sq, sk, d, dtype)
-    return {"shape": [b * h, sq, sk, d], "bias": kind,
+    row = {"shape": [b * h, sq, sk, d], "bias": kind,
             "dtype": str(dtype)[6:], "ms": graph_ms(kernel),
             "event_ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: A.flash_attention_backward_plain(
@@ -6412,6 +6454,61 @@ def sequence_backward_times(case, dtype):
             "library_event_ms": time_ms(lambda: torch.autograd.grad(
                 sdpa, ref, dout_v, retain_graph=True)),
             "bound_ms": bound, "bound_by": bound_by}
+    if dtype == torch.float32:
+        row["fma_bound_ms"] = attention_backward_bound_ms(
+            b * h, sq, sk, d, dtype, fma=True)[0]
+        row["forward"] = f32_forward_times(q, k, v, bias, kind)
+    return row
+
+
+def f32_forward_times(q, k, v, bias, kind):
+    """The f32 forward as a training step runs it (writing the rows'
+    log-sum-exp) on [B, H, S, D] views: checked against the plain version
+    (1e-4 of the largest magnitude, lse within 1e-4 on rows not masked
+    entirely), timed by graph replays (``ms``) and events (``event_ms``)
+    beside the plain version, SDPA's f32 forward on the same views
+    (``library_ms``, graph replays, and events; ``library_op`` the autograd
+    node its dispatcher picks for f32, the memory-efficient one; causal
+    through ``is_causal``) and the bounds at the split-TF32 rate
+    (``bound_ms``) and at the FMA units' (``fma_bound_ms``)."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    b, h, sq, d = q.shape
+    sk = k.shape[-2]
+    scale = d ** -0.5
+
+    def kernel():
+        return A._launch_kernel(q, k, v, bias, scale, with_lse=True)
+
+    out, lse = kernel()
+    want, want_lse = A.flash_attention_plain(q, k, v, bias, return_lse=True)
+    rows = want_lse > A.NEG
+    err = _rel_card(out.transpose(1, 2), want)
+    lse_err = ((lse - want_lse)[rows].abs().max().item() if rows.any()
+               else 0.0)
+    causal = kind == "causal"
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    library_op = torch.nn.functional.scaled_dot_product_attention(
+        *ref, is_causal=causal).grad_fn.name()
+    bound, bound_by = attention_bound_ms(b * h, sq, sk, d, q.dtype)
+    row = {"shape": [b * h, sq, sk, d], "bias": kind, "max_rel_err": err,
+           "lse_max_abs_err": lse_err, "ms": graph_ms(kernel),
+           "event_ms": time_ms(kernel),
+           "plain_ms": time_ms(lambda: A.flash_attention_plain(
+               q, k, v, bias), reps=5),
+           "library_ms": graph_ms(sdpa), "library_event_ms": time_ms(sdpa),
+           "library_op": library_op, "bound_ms": bound, "bound_by": bound_by,
+           "fma_bound_ms": attention_bound_ms(b * h, sq, sk, d, q.dtype,
+                                              fma=True)[0]}
+    if not err <= 1e-4 or not lse_err <= 1e-4:
+        emit({"phase": "kernel_times", "failed": {"f32_forward": row}})
+        raise AssertionError(f"f32 flash forward at {row['shape']}: {row}")
+    return row
 
 
 def phase_sequence_flash(flash_record, bwd_record):
@@ -6431,6 +6528,63 @@ def phase_sequence_flash(flash_record, bwd_record):
           times})
     flash_record["sequence_grids"] = grids
     bwd_record["sequence_grids"] = times
+    f32_records(flash_record, bwd_record, times)
+
+
+def f32_records(flash_record, bwd_record, times):
+    """The f32 rows of ``times`` (``sequence_backward_times``' records by
+    grid) into both kernels' records: the forward's and the backward's
+    ``f32_grids``."""
+    for name, row in times.items():
+        if "forward" in row:
+            flash_record.setdefault("f32_grids", {})[name] = row["forward"]
+            bwd_record.setdefault("f32_grids", {})[name] = {
+                key: val for key, val in row.items() if key != "forward"}
+
+
+# Flash attention's f32 training grids: ViT-B/16's and DETR-R50's (their
+# f32 leg of ``phase_flash_backward``) and TrOCR's three f32 ones
+F32_TRAINING_GRIDS = [(*grid, None) for grid in BACKWARD_GRIDS] + [
+    tuple(case) for *case, dtype in SEQUENCE_BACKWARD
+    if dtype == torch.float32]
+
+
+def phase_f32_attention(flash_record, bwd_record):
+    """Flash attention in f32 alone at ``F32_TRAINING_GRIDS``:
+    ``check_backward`` at each (the plain version, SDPA's gradient, lse,
+    bitwise over two runs and with the TF32 flag flipped), the forward and
+    the backward timed (``sequence_backward_times``), then one forward and
+    one backward call of each profiled (each kernel's device time).  The
+    rows go into both kernels' records (``f32_grids``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    checks, times = [], {}
+    for i, case in enumerate(F32_TRAINING_GRIDS):
+        checks.append(check_backward(case, torch.float32, 800 + i))
+        times[case[0]] = sequence_backward_times(case, torch.float32)
+    emit({"phase": "flash_backward", "f32_checks": checks})
+    emit({"phase": "kernel_times", "flash_attention_f32": times})
+    f32_records(flash_record, bwd_record, times)
+    for name, b, h, sq, sk, d, layout, kind in F32_TRAINING_GRIDS:
+        q, k, v = backward_inputs(b, h, sq, sk, d, layout, torch.float32,
+                                  seed=11)
+        bias = backward_bias(kind, b * h, sq, sk, None)
+        out, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
+        dout = torch.randn_like(out)
+        calls = {"forward": lambda: A._launch_kernel(
+                     q, k, v, bias, d ** -0.5, with_lse=True),
+                 "backward": lambda: A.flash_attention_backward(
+                     q, k, v, bias, d ** -0.5, out, lse, dout)}
+        for part, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            emit_profile(prof, f"flash_f32_{part}_{name}", 1, None)
 
 
 def sequence_leg_seconds(name, t0):
@@ -6635,14 +6789,8 @@ def leg_trocr(profile, dev="cuda"):
     random weights from a seed) served on token ids: checked at b4 and b2
     against the CPU (``trocr_check``), then greedy decoding served at b64
     and 4-beam decoding at b16, both bf16 at 384^2 (390 flash launches a
-    generation); trained by teacher forcing through the OCR task:
-    gradients at b2 against the CPU (``train_check``), the loss falling on
-    one batch and ``Trainer.train`` at b32, bf16 policy over f32 masters,
-    AdamW(5e-5) as the demo: 18 flash forward and 18 backward launches a
-    step."""
+    generation); then trained (``trocr_training``)."""
     from tlxcv_tpu_torch import create_model
-    from tlxcv_tpu_torch.tasks import OpticalCharacterRecognition
-    from tlxcv_tpu_torch.train import Trainer, optimizers
 
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(91)
@@ -6671,6 +6819,20 @@ def leg_trocr(profile, dev="cuda"):
         del x
     del card
     empty_cache(dev)
+    trocr_training(profile, gen, dev)
+    sequence_leg_seconds("trocr", t0)
+
+
+def trocr_training(profile, gen, dev="cuda"):
+    """TrOCR trained by teacher forcing through the OCR task: gradients at
+    b2 against the CPU (``train_check``), the loss falling on one batch and
+    ``Trainer.train`` at b32, bf16 policy over f32 masters (its encoder and
+    most of its decoder run in f32), AdamW(5e-5) as the demo: 18 flash
+    forward and 18 backward launches a step; the step profiled with
+    ``profile``."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.tasks import OpticalCharacterRecognition
+    from tlxcv_tpu_torch.train import Trainer, optimizers
 
     def build(seed=92):
         return OpticalCharacterRecognition(create_model(
@@ -6699,7 +6861,6 @@ def leg_trocr(profile, dev="cuda"):
                     TROCR_TRAIN, profile)
     del trainer, task, batches
     empty_cache(dev)
-    sequence_leg_seconds("trocr", t0)
 
 
 # ------------------------------------------------------- distillation
@@ -7039,8 +7200,16 @@ def main():
         emit({"kernels": [gather, upsample]})
         print(card_line(), flush=True)
         return 0
+    if "--f32-attention" in sys.argv[1:]:  # f32 flash, TrOCR trained
+        flash = {"name": "flash_attention"}
+        bwd = {"name": "flash_attention_backward"}
+        phase_f32_attention(flash, bwd)
+        trocr_training(profile, torch.Generator().manual_seed(91))
+        emit({"kernels": [flash, bwd]})
+        print(card_line(), flush=True)
+        return 0
     flash = phase_kernels()
-    bwd = phase_flash_backward()
+    bwd = phase_flash_backward(flash)
     if "--detectors" in sys.argv[1:]:  # the detector legs alone
         gather = {"name": "gather_rows"}
         upsample = {"name": "upsample_add_fused"}
@@ -7117,7 +7286,7 @@ def main():
              "retinaface_bound_ms", "sequence_grids",
              "retinaface_train_launches", "retinaface_train_ms",
              "retinaface_train_plain_ms", "retinaface_train_library_ms",
-             "retinaface_train_bound_ms")
+             "retinaface_train_bound_ms", "f32_grids")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

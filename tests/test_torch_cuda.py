@@ -267,6 +267,77 @@ def test_backward_kernel_matches_plain(cuda, dtype, bh, sq, sk, d,
             torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * scale)
 
 
+# The f32 kernels (split TF32 on the tensor cores) stream the other side in
+# stages of 32 rows (16 above D = 64) against resident tiles of 64 rows:
+# Sq and Sk about both edges, each against a neighbour three along, the
+# biases in turn, then ViT's and TrOCR's packed qkv views
+_F32_SIZES = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 129)
+_F32_BIASES = (None, "shared", "per_bh", "row_masked", "causal")
+_F32_CASES = [
+    ((2, 3), sq, _F32_SIZES[(i + 3) % len(_F32_SIZES)], d,
+     _F32_BIASES[(i + d // 32) % 5])
+    for d in (32, 64, 96, 128) for i, sq in enumerate(_F32_SIZES)]
+_F32_CASES += [("packed", s, s, d, _F32_BIASES[(s + d // 32) % 5])
+               for d in (32, 64, 96, 128) for s in (17, 64, 577)]
+
+
+@pytest.mark.parametrize("lead,sq,sk,d,bias_kind", _F32_CASES)
+def test_f32_kernels_on_split_tf32(cuda, lead, sq, sk, d, bias_kind):
+    """The f32 forward and backward kernels: the output within 1e-4 of the
+    plain version's, the rows' log-sum-exp within 1e-4, dq, dk and dv
+    within 1e-4 of each one's largest magnitude (``_bwd_scales``); two runs
+    bitwise equal, and bitwise the same with
+    ``torch.backends.cuda.matmul.allow_tf32`` on (the kernels never read
+    it); one backward call a gradient."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(7 * sq + sk + d)
+    q, k, v = _bwd_inputs(lead, sq, sk, d, torch.float32, gen, cuda)
+    n = q.shape[:-2].numel()
+    bias = None
+    if bias_kind == "causal":
+        bias = torch.triu(torch.full((1, sq, sk), -1e9, device=cuda), 1)
+    elif bias_kind is not None:
+        bias = torch.randn(n if bias_kind != "shared" else 1, sq, sk,
+                           generator=gen, device=cuda)
+        if bias_kind == "row_masked":
+            bias[:, 0] = float("-inf")
+            bias[:, 1:, 1::3] = float("-inf")
+    dout = torch.randn(*q.shape[:-2], sq, d, generator=gen, device=cuda)
+
+    def run():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = A.flash_attention(*leaves, bias=bias)
+        return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+    before = A.flash_attention_backward.launches
+    first, second = run(), run()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        flagged = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert A.flash_attention_backward.launches - before == 3
+    for a, b, c in zip(first, second, flagged):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    out, grads = first[0], first[1:]
+    want_out, want_lse = A.flash_attention_plain(q, k, v, bias,
+                                                 return_lse=True)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=1e-4)
+    _, lse = A._launch_kernel(q, k, v, bias, d ** -0.5, with_lse=True)
+    rows = want_lse > A.NEG
+    torch.testing.assert_close(lse[rows], want_lse[rows], rtol=0, atol=1e-4)
+    want = A.flash_attention_backward_plain(q, k, v, bias, None, out, lse,
+                                            dout)
+    # a causal mask over one query row leaves it one key: as at Sk = 1,
+    # dq and dk are 0 in exact arithmetic (``_bwd_scales``)
+    seen = 1 if bias_kind == "causal" and sq == 1 else sk
+    for a, w, scale in zip(grads, want, _bwd_scales(want, seen)):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_run_on_autograds_thread(cuda, dtype):
     """The forward recomputed under ``torch.utils.checkpoint`` and the

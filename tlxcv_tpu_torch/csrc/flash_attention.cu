@@ -51,10 +51,28 @@
 // - up to four blocks share an SM at D = 64 (41 KB of shared memory, 160
 //   threads of 92 registers each), so one block's loads and epilogue
 //   overlap the others' products.
-// f32 design: the tensor cores would round to TF32, so this path runs on
-// the f32 FMA units: 256 threads, four per query row, one block per (bh,
-// 64-row tile), scores and P in shared memory.
-//
+// f32 design (flash_attention.cuh's split TF32 on the same tensor cores):
+// - what bounds it: the products run as three TF32 products each, at a
+//   third of the card's 495 TFLOP/s TF32 rate, so at TrOCR's encoder grid
+//   (BH = 192, S = 577, D = 64) the operations take 0.099 ms against
+//   0.034 ms for the f32 bytes of q, k, v and o (S / 4 operations a byte);
+//   below S of about 200 (49 operations a byte) the bytes bound it.  The design keeps the tensor cores on the
+//   products and moves the f32 split off their path;
+// - one block per (bh, tile of 64 query rows) and 256 threads: a consumer
+//   warpgroup (wgmma's M = 64 rows) and a producer warpgroup.  The
+//   producer's thread loads q once and 32-key k and v tiles into a
+//   2-stage ring by TMA (f32 boxes of 32 columns, 128-byte swizzle); its
+//   128 threads then split each tile in shared memory: q and k in place
+//   into big parts, small parts beside them; v, which O = P V reads along
+//   its rows, into a T tile (its transpose, big and small) in the place
+//   TMA loaded it, all threads reading before any writes;
+// - S = Q K^T by m64n32k8 wgmmas from shared memory, three a k8 step
+//   (small terms first); the online softmax on the accumulator as the
+//   bf16 path; P split in registers (cvt.rna.tf32) into wgmma's A
+//   fragments in the T tiles' permuted column order; O += P V by m64nDk8
+//   wgmmas from registers and V's T tile;
+// - up to D = 64 two blocks share an SM (97 KB of shared memory each), so
+//   one block's softmax overlaps the other's products.
 // Both paths: online softmax per row, rescaled per k/v tile and normalised
 // once at the end (equal in exact arithmetic to the TPU kernel's per-step
 // rescale); columns past Sk get probability exactly 0, so a row whose every
@@ -74,9 +92,6 @@ namespace {
 
 using namespace tlx;
 
-constexpr int kBlockQ = 64;  // f32 path
-constexpr int kBlockK = 64;
-
 // Element strides of (batch, head, row) for q, k, v and o; the head dim is
 // contiguous.  q, k and v can be strided views into the packed qkv
 // projection, and o can be written token-major, with no copies around the
@@ -86,136 +101,265 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------- f32 path
-constexpr int kThreadsF32 = 256;  // four threads per query row
-
+// Per block: the 64 query rows' Q split once (big, small), and a 2-stage
+// ring of 32-key stages, each K split (big, small) and V's T tile (big,
+// small).
 template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-              int H, Strides st, long long bias_bh_stride, float scale) {
-  constexpr int LD = D + 1;         // padded rows: column reads hit 32 banks
-  constexpr int PLD = kBlockK + 1;
-  constexpr int NJ = kBlockK / 4;   // keys per thread in a tile
-  constexpr int ND = D / 4;         // output dims per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);  // [kBlockQ][LD]
-  float* sk = sq + kBlockQ * LD;               // [kBlockK][LD]
-  float* sv = sk + kBlockK * LD;               // [kBlockK][LD]
-  float* sp = sv + kBlockK * LD;               // [kBlockQ][PLD]
+struct F32Layout {
+  static constexpr int kKeys = 32;
+  static constexpr int kStages = 2;
+  static constexpr int kQPart = kF32Rows * D * 4;
+  static constexpr int kPart = kKeys * D * 4;  // one part of K or of V^T
+  static constexpr int kRing = 2 * kQPart;
+  static constexpr int kStage = 4 * kPart;      // K big, small, V^T big, small
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 + 3 * kStages);
+  static_assert(kSmem <= 232448, "shared memory of a block");
+};
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;    // query row in the tile
-  const int sub = tid & 3;   // which of the row's four threads
+// Up to D = 64 two blocks share an SM (97 KB each at D = 64), capping a
+// thread at 128 registers.
+template <int D, bool kBias>
+__global__ void __launch_bounds__(kF32Threads, D <= 64 ? 2 : 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const float* __restrict__ bias, float* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Sk, int H, long long o_b,
+              long long o_h, long long o_row, long long bias_bh_stride,
+              float scale, int swaps) {
+  using L = F32Layout<D>;
+  constexpr int NS = L::kKeys, S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (sq - smem_u32(smem_raw));
+  const uint32_t ring = sq + L::kRing;
+  const F32Bars bars(sq + L::kBars, S, S);  // q as the resident tile
+
+  const int n_qt = (Sq + kF32Rows - 1) / kF32Rows;
+  const int bh = blockIdx.x / n_qt;  // a head's query tiles are adjacent
+  const int q0 = (blockIdx.x % n_qt) * kF32Rows;
   const int b = bh / H, h = bh % H;
-  const long long qo = b * st.q[0] + h * st.q[1];
-  const long long ko = b * st.k[0] + h * st.k[1];
-  const long long vo = b * st.v[0] + h * st.v[1];
-  const long long oo = b * st.o[0] + h * st.o[1];
-  const int qrow = q0 + r;
-  const float* brow =
-      bias ? bias + bh * bias_bh_stride + (size_t)min(qrow, Sq - 1) * Sk
-           : nullptr;
+  const int n_kv = (Sk + NS - 1) / NS;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreadsF32) {
-    const int row = i / D, col = i % D, g = q0 + row;
-    sq[row * LD + col] = g < Sq ? q[qo + g * st.q[2] + col] : 0.f;
-  }
+  if (threadIdx.x == 0) bars.init(S, S);
+  __syncthreads();
 
-  float acc[ND];
+  if (threadIdx.x >= 128) {
+    // ------------------------------- producer warpgroup: TMA, then split
+    const int pt = threadIdx.x - 128;
+    if (pt == 0) {
+      mbar_expect_tx(bars.res_load, L::kQPart);
 #pragma unroll
-  for (int dd = 0; dd < ND; ++dd) acc[dd] = 0.f;
-  float m = -INFINITY, l = 0.f;  // running max; this thread's part of the sum
-
-  for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kBlockK * D; i += kThreadsF32) {
-      const int row = i / D, col = i % D, g = k0 + row;
-      const bool ok = g < Sk;
-      sk[row * LD + col] = ok ? k[ko + g * st.k[2] + col] : 0.f;
-      sv[row * LD + col] = ok ? v[vo + g * st.v[2] + col] : 0.f;
+      for (int c = 0; c < D / kChunk; ++c)
+        load_rows(sq + c * (kF32Rows * 128), &map_q, bars.res_load,
+                  swaps & 1, c * kChunk, q0, h, b);
     }
-    __syncthreads();
-
-    float s[NJ];
+    mbar_wait(bars.res_load, 0);
+    split_tile<kF32Rows, D, false>(base, base, L::kQPart, nullptr, 0,
+                                   pt);
+    fence_proxy_async();
+    mbar_arrive(bars.res_ready);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % S;
+      const uint32_t sk = ring + s * L::kStage;
+      const uint32_t sv = sk + 2 * L::kPart;  // V lands in its T tile's place
+      if (pt == 0) {
+        mbar_wait(bars.empty + 8 * s, ((j / S) & 1) ^ 1);
+        mbar_expect_tx(bars.raw + 8 * s, 2 * L::kPart);
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) s[jj] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = sq[r * LD + d];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) s[jj] += qd * sk[(sub + 4 * jj) * LD + d];
-    }
-    float mt = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = k0 + sub + 4 * jj;
-      float x = s[jj] * scale;
-      if (brow) {
-        if (col < Sk) x += brow[col];
-        x = fmaxf(x, kNeg);
+        for (int c = 0; c < D / kChunk; ++c) {
+          load_rows(sk + c * (NS * 128), &map_k, bars.raw + 8 * s,
+                    swaps & 2, c * kChunk, j * NS, h, b);
+          load_rows(sv + c * (NS * 128), &map_v, bars.raw + 8 * s,
+                    swaps & 4, c * kChunk, j * NS, h, b);
+        }
       }
-      if (col >= Sk) x = -INFINITY;
-      s[jj] = x;
-      mt = fmaxf(mt, x);
+      mbar_wait(bars.raw + 8 * s, (j / S) & 1);
+      unsigned char* st = base + (sk - sq);
+      split_tile<NS, D, false>(st, st, L::kPart, nullptr, 0, pt);
+      split_transpose_in_place<NS, D>(st + 2 * L::kPart, L::kPart, pt, 1);
+      fence_proxy_async();
+      mbar_arrive(bars.full + 8 * s);
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    float ps = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const float p = expf(s[jj] - m_new);
-      ps += p;
-      sp[r * PLD + sub + 4 * jj] = p;
-    }
-    l = l * alpha + ps;
-#pragma unroll
-    for (int dd = 0; dd < ND; ++dd) acc[dd] *= alpha;
-    __syncwarp();  // a row's four threads share one warp
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = sp[r * PLD + j];
-#pragma unroll
-      for (int dd = 0; dd < ND; ++dd) acc[dd] += p * sv[j * LD + sub + 4 * dd];
-    }
+    return;
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  if (qrow < Sq) {
-    const float inv = 1.f / l;
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int row0 = q0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const float* br0 = nullptr;
+  const float* br1 = nullptr;
+  if (kBias) {
+    const float* bb = bias + bh * bias_bh_stride;
+    br0 = bb + static_cast<long long>(min(row0, Sq - 1)) * Sk;
+    br1 = bb + static_cast<long long>(min(row1, Sq - 1)) * Sk;
+  }
+  // as the bf16 path: log2 units without bias, natural units with one
+  const float sc = kBias ? scale : scale * kLog2e;
+
+  float sacc[NS / 2];  // S: rows (row0, row1) x 32 keys
+  float oacc[D / 2];   // O: rows (row0, row1) x D
 #pragma unroll
-    for (int dd = 0; dd < ND; ++dd)
-      o[oo + qrow * st.o[2] + sub + 4 * dd] = acc[dd] * inv;
-    if (lse != nullptr && sub == 0)
-      lse[static_cast<long long>(bh) * Sq + qrow] = m + logf(l);
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows row0, row1
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+  uint32_t pb[NS / 8][4], ps[NS / 8][4];  // P's split A fragments
+
+  mbar_wait(bars.res_ready, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % S;
+    const uint32_t sk = ring + s * L::kStage;
+    const uint32_t svt = sk + 2 * L::kPart;
+    const int k0 = j * NS;
+
+    // S = Q K^T: per k8 step along the head dim, three TF32 products
+    mbar_wait(bars.full + 8 * s, (j / S) & 1);
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      mma3_ss<NS>(sacc, desc_dir<kF32Rows>(sq, ks),
+                  desc_dir<kF32Rows>(sq + L::kQPart, ks),
+                  desc_dir<NS>(sk, ks), desc_dir<NS>(sk + L::kPart, ks),
+                  ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // online softmax on the accumulator: sacc[4 jj + e] is row row0 (e < 2)
+    // or row1, key k0 + 8 jj + 2 t + (e & 1)
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+    const bool ragged = k0 + NS > Sk;
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      float x;
+      if (kBias) {
+        const float* br = (i & 2) ? br1 : br0;
+        x = fmaxf(fmaf(sacc[i], sc, col < Sk ? br[col] : 0.f), kNeg);
+      } else {
+        x = sacc[i] * sc;
+      }
+      if (ragged && col >= Sk) x = -INFINITY;
+      sacc[i] = x;
+      if (i & 2)
+        mt1 = fmaxf(mt1, x);
+      else
+        mt0 = fmaxf(mt0, x);
+    }
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    const float u = kBias ? kLog2e : 1.f;
+    const float a0 = exp2_ftz((m0 - mn0) * u);
+    const float a1 = exp2_ftz((m1 - mn1) * u);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const float p = exp2_ftz((sacc[i] - ((i & 2) ? m1 : m0)) * u);
+      if (i & 2)
+        l1 += p;
+      else
+        l0 += p;
+      sacc[i] = p;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk) split_frag(sacc + 4 * kk, pb[kk], ps[kk]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+
+    // O += P V: per k8 step along the keys, three TF32 products, B from
+    // V's T tile
+    fence_regs(oacc);
+    fence_regs(pb);
+    fence_regs(ps);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk)
+      mma3_rs<D>(oacc, pb[kk], ps[kk], desc_tr<NS>(svt, kk),
+                 desc_tr<NS>(svt + L::kPart, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    if (lane == 0) mbar_arrive(bars.empty + 8 * s);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    const float mu = kBias ? 1.f : kLn2;
+    float* lr = lse + static_cast<long long>(bh) * Sq;
+    if (row0 < Sq) lr[row0] = m0 * mu + log2f(l0) * kLn2;
+    if (row1 < Sq) lr[row1] = m1 * mu + log2f(l1) * kLn2;
+  }
+  float* ob = o + b * o_b + h * o_h;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(ob + row0 * o_row + col) =
+          make_float2(oacc[4 * jj] * inv0, oacc[4 * jj + 1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(ob + row1 * o_row + col) =
+          make_float2(oacc[4 * jj + 2] * inv1, oacc[4 * jj + 3] * inv1);
   }
 }
 
-template <int D>
-constexpr size_t smem_f32() {
-  return (3 * kBlockQ * (D + 1) + kBlockQ * (kBlockK + 1)) * sizeof(float);
+template <int D, bool kBias>
+cudaError_t launch_f32_kind(const CUtensorMap* maps, const float* bias,
+                            void* o, float* lse, int bh, int sq, int sk,
+                            int heads, const Strides& st,
+                            long long bias_bh_stride, float scale, int swaps,
+                            cudaStream_t stream) {
+  constexpr size_t smem = F32Layout<D>::kSmem;
+  static cudaError_t err = cudaFuncSetAttribute(  // once per process
+      flash_fwd_f32<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>(bh) * ((sq + kF32Rows - 1) / kF32Rows);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  flash_fwd_f32<D, kBias><<<static_cast<unsigned>(blocks), kF32Threads, smem,
+                            stream>>>(
+      maps[0], maps[1], maps[2], bias, static_cast<float*>(o), lse, sq, sk,
+      heads, st.o[0], st.o[1], st.o[2], bias_bh_stride, scale, swaps);
+  return cudaGetLastError();
 }
-
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* bias, void* o, float* lse, int bh, int sq,
-                       int sk, int heads, const Strides& st,
+                       const float* bias, void* o, float* lse, int batch,
+                       int heads, int sq, int sk, const Strides& st,
                        long long bias_bh_stride, float scale,
                        cudaStream_t stream) {
-  constexpr size_t smem = smem_f32<D>();
-  static cudaError_t err = cudaFuncSetAttribute(  // once per process
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (sq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_f32<D><<<grid, kThreadsF32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), lse, sq,
-      sk, heads, st, bias_bh_stride, scale);
-  return cudaGetLastError();
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const long long* strides[3] = {st.q, st.k, st.v};
+  int swaps = 0;
+  for (int i = 0; i < 3; ++i) {
+    bool swap;
+    if (!make_view_map(&maps[i], bases[i], strides[i], batch, heads,
+                       i == 0 ? sq : sk, D,
+                       i == 0 ? kF32Rows : F32Layout<D>::kKeys, &swap, true))
+      return cudaErrorInvalidValue;
+    swaps |= swap << i;
+  }
+  const int bh = batch * heads;
+  if (bias != nullptr)
+    return launch_f32_kind<D, true>(maps, bias, o, lse, bh, sq, sk, heads, st,
+                                    bias_bh_stride, scale, swaps, stream);
+  return launch_f32_kind<D, false>(maps, bias, o, lse, bh, sq, sk, heads, st,
+                                   bias_bh_stride, scale, swaps, stream);
 }
 
 
@@ -524,7 +668,6 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
   float* ls = static_cast<float*>(lse);
   const float* b = static_cast<const float*>(bias);
   const long long bs = bias_per_bh ? (long long)sq * sk : 0;
-  const int bh = batch * heads;
   Strides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -546,8 +689,8 @@ extern "C" int tlx_flash_attention_fwd(const void* q, const void* k,
 #undef TLX_LAUNCH
   } else {
 #define TLX_LAUNCH(D) \
-  return launch_f32<D>(q, k, v, b, o, ls, bh, sq, sk, heads, st, bs, scale, \
-                       cs)
+  return launch_f32<D>(q, k, v, b, o, ls, batch, heads, sq, sk, st, bs, \
+                       scale, cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);

@@ -29,8 +29,9 @@
 //   took the score (its gradient is 0 there); dK = scale dS^T Q and dQ =
 //   scale dS K, with dS rounded to bf16 as their A operand in bf16 (the
 //   plain version keeps dS in f32; the difference stays within the bf16
-//   bound).  Every sum is f32, each output written once by one thread: no
-//   atomics, so two runs are bitwise equal.
+//   bound); in f32 every product is split TF32 (flash_attention.cuh),
+//   within about 2^-20 of an f32 product.  Every sum is f32, each output
+//   written once by one thread: no atomics, so two runs are bitwise equal.
 //
 // What bounds it: at ViT-B/16 b64 (BH = 768, S = 197, D = 64) the bytes
 // of q, k, v, o, dO, dq, dk and dv (155 MB, 0.046 ms at 3.35 TB/s); at
@@ -75,9 +76,38 @@
 //   scores are issued: a stage is released to the producer once the wait
 //   for the next tile's S shows them done (in-order wgmma groups).  Each
 //   consumer warp releases a stage for itself (4 arrivals).
-// f32 runs the products on the FMA units (the tensor cores would round
-// to TF32): a delta kernel, then one block per 64-key tile for dK and dV
-// and one per 64-query tile for dQ, tiles in padded shared memory.
+// f32 design: the same two kernels and tiling on split TF32
+// (flash_attention.cuh: each product three TF32 products, small terms
+// first, f32 sums).  What bounds it: the products at a third of the TF32
+// rate: at TrOCR's encoder grid (BH = 192, S = 577, D = 64) 0.248 ms,
+// against 0.068 ms for the f32 bytes (about 0.31 S operations a byte: the
+// bytes bound it below S of about 160).  What differs from bf16:
+// - tf32 wgmma has no transpose bit, so the operands the bf16 kernels read
+//   MN-major (K for dQ, Q for dK, dO for dV) get K-major T tiles; and the
+//   split doubles every operand tile, so a block is 256 threads: one
+//   consumer warpgroup of 64 resident rows and a producer warpgroup whose
+//   thread 0 keeps TMA loads (f32 boxes of 32 columns, 128-byte swizzle)
+//   in flight and whose 128 threads split each loaded tile in shared
+//   memory (big in place, small beside it, the T tile's big and small in
+//   the same pass) while the consumers run the previous stage's products;
+// - the other side is streamed in stages of 32 rows up to D = 64, 16
+//   above (dq: K, K^T, V; dk/dv: Q, Q^T, dO, dO^T, with the rows' lse and
+//   delta), through a 2-stage ring of split operands (one stage at D =
+//   128); TMA loads the raw tiles into a ring of their own two stages
+//   ahead (one for dk/dv at D = 32, which keeps two blocks an SM), so the
+//   split of the next stage and the loads of the ones after overlap the
+//   consumer's products.  At D = 64 dq takes 193 KB of shared memory and
+//   dk/dv 226 KB: one block an SM;
+// - S, dP (S^T, dP^T) by m64nNk8 wgmmas from shared memory; P and dS (P^T,
+//   dS^T) split in registers into wgmma's A fragments in the T tiles'
+//   permuted column order (flash_attention.cuh) for dQ += dS K (dV +=
+//   P^T dO, dK += dS^T Q) from registers and the T tiles;
+// - S and dP are issued together and P formed while dP runs (dk/dv: dS^T
+//   formed while dV runs); a stage's products are waited for before the
+//   next stage's and the stage released then.  Left running into the
+//   next stage's scores, as the bf16 kernels leave theirs, they make
+//   ptxas serialise every wgmma of the kernel (its warning C7515), and
+//   the kernels were slower than SDPA's f32 backward on the H100.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,293 +120,533 @@ namespace {
 
 using namespace tlx;
 
-constexpr int kTile = 64;      // f32: query rows or keys a tile
-constexpr int kThreads = 256;  // f32: 16 x 16 threads of 4 x 4 scores each
-
 // Element strides of (batch, head, row) of q, k, v, o and dO.
 struct Strides {
   long long q[3], k[3], v[3], o[3], g[3];
 };
 
-// ---------------------------------------------------------------- delta
-// f32: one warp a row: delta[bh, r] = sum_d dO[bh, r, d] * O[bh, r, d].
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ g,
-                float* __restrict__ delta, long long rows, int Sq, int H,
-                int D, Strides st) {
-  const long long row = blockIdx.x * (long long)(kThreads / 32) +
-                        threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const long long bh = row / Sq;
-  const int r = static_cast<int>(row % Sq);
-  const long long b = bh / H, h = bh % H;
-  const float* orow = o + b * st.o[0] + h * st.o[1] + r * st.o[2];
-  const float* grow = g + b * st.g[0] + h * st.g[1] + r * st.g[2];
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += orow[d] * grow[d];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
+// ---------------------------------------------- f32: split TF32 (Hopper)
+// Streamed rows a stage: 32 up to D = 64, 16 above (shared memory).
+template <int D>
+constexpr int f32_stream_rows() {
+  return D <= 64 ? 32 : 16;
 }
 
-// ------------------------------------------------- f32: the FMA units
+// dq: Q and dO resident (big, small each); an operand stage holds 32 (16)
+// keys: K (big, small) for S = Q K^T, K's T tile (big, small) for dQ =
+// dS K, and V (big, small) for dP = dO V^T.  TMA loads K and V into a ring
+// of raw stages of their own, two tiles ahead of the split.  At D = 128 one
+// operand stage fits.
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 1;       // padded rows: conflict-free columns
-  static constexpr int PLD = kTile + 1;
-  static constexpr int kFloats = 4 * kTile * LD + kTile * PLD + 2 * kTile;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+struct DqF32Layout {
+  static constexpr int kRows = f32_stream_rows<D>();
+  static constexpr int kStages = D == 128 ? 1 : 2;
+  static constexpr int kRaw = 2;
+  static constexpr int kRes = kF32Rows * D * 4;  // one part of Q or dO
+  static constexpr int kPart = kRows * D * 4;    // one part of a stage
+  static constexpr int kRing = 4 * kRes;
+  static constexpr int kStage = 6 * kPart;
+  static constexpr int kRawAt = kRing + kStages * kStage;
+  static constexpr int kRawStage = 2 * kPart;    // K, V as loaded
+  static constexpr int kBars = kRawAt + kRaw * kRawStage;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 + kRaw + 2 * kStages);
+  static_assert(kSmem <= 232448, "shared memory of a block");
 };
 
-// A tile of `kTile` rows from row `r0` of a (batch, head)'s rows into
-// rows of LD floats; rows at or past `n` are zero.
+// dk/dv: K and V resident (big, small each); an operand stage holds 32
+// (16) query rows: Q and dO (big, small) for S^T = K Q^T and dP^T = V
+// dO^T, their T tiles (big, small) for dK = dS^T Q and dV = P^T dO, and
+// the rows' lse and delta; raw stages of Q and dO as dq's.  At D = 128 one
+// operand stage fits; at D = 32 one raw stage keeps two blocks an SM.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* base,
-                                          long long row_stride, int r0,
-                                          int n) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int row = i / D, col = i % D, r = r0 + row;
-    dst[row * LD + col] = r < n ? base[r * row_stride + col] : 0.f;
+struct DkdvF32Layout {
+  static constexpr int kRows = f32_stream_rows<D>();
+  static constexpr int kStages = D == 128 ? 1 : 2;
+  static constexpr int kRaw = D == 32 ? 1 : 2;
+  static constexpr int kRes = kF32Rows * D * 4;
+  static constexpr int kPart = kRows * D * 4;
+  static constexpr int kRing = 4 * kRes;
+  static constexpr int kStage = 8 * kPart;
+  static constexpr int kRawAt = kRing + kStages * kStage;
+  static constexpr int kRawStage = 2 * kPart;    // Q, dO as loaded
+  static constexpr int kStats = kRawAt + kRaw * kRawStage;
+  static constexpr int kBars = kStats + kStages * 2 * kRows * 4;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 + kRaw + 2 * kStages);
+  static_assert(kSmem <= 232448, "shared memory of a block");
+};
+
+// This thread's quarter of a row's dO . O in f32: columns [t D/4,
+// (t + 1) D/4), 16-byte loads.
+template <int D>
+__device__ __forceinline__ float row_dot_f32(const float* o, const float* g,
+                                             int t) {
+  const float4* po = reinterpret_cast<const float4*>(o + t * (D / 4));
+  const float4* pg = reinterpret_cast<const float4*>(g + t * (D / 4));
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const float4 a = po[i], c = pg[i];
+    s = fmaf(a.x, c.x, s);
+    s = fmaf(a.y, c.y, s);
+    s = fmaf(a.z, c.z, s);
+    s = fmaf(a.w, c.w, s);
+  }
+  return s;
+}
+
+// Streamed tile j (NS rows of two views) loaded by TMA into raw stage
+// j % kRaw at `raw` (the two tiles `part` bytes apart).
+template <int D, int NS, int kRaw>
+__device__ __forceinline__ void load_stream(uint32_t raw, int part,
+                                            const CUtensorMap* ma, bool sa,
+                                            const CUtensorMap* mc, bool sc,
+                                            const F32Bars& bars, int j, int h,
+                                            int b) {
+  const int r = j % kRaw;
+  const uint32_t dst = raw + r * 2 * part, bar = bars.raw + 8 * r;
+  mbar_expect_tx(bar, 2 * part);
+#pragma unroll
+  for (int c = 0; c < D / kChunk; ++c) {
+    load_rows(dst + c * (NS * 128), ma, bar, sa, c * kChunk, j * NS, h, b);
+    load_rows(dst + part + c * (NS * 128), mc, bar, sc, c * kChunk, j * NS,
+              h, b);
   }
 }
 
-// The 4 x 4 scores and dP of this thread: query rows 4 ty + a of sq/sdo,
-// keys tx + 16 c of sk/sv.
+// The 64 resident rows from `row` of two views, loaded by TMA into the
+// direct tiles at `a` and `c` (each D / 32 boxes of 64 rows).
 template <int D>
-__device__ __forceinline__ void products(const float* sq, const float* sdo,
-                                         const float* sk, const float* sv,
-                                         float (&s)[4][4], float (&dp)[4][4]) {
-  constexpr int LD = D + 1;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+__device__ __forceinline__ void load_resident(uint32_t a, const CUtensorMap* ma,
+                                              bool sa, uint32_t c,
+                                              const CUtensorMap* mc, bool sc,
+                                              uint32_t bar, int row, int h,
+                                              int b) {
+  mbar_expect_tx(bar, 2 * kF32Rows * D * 4);
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], ga[4], kc[4], vc[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = sq[(4 * ty + a) * LD + d];
-      ga[a] = sdo[(4 * ty + a) * LD + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kc[c] = sk[(tx + 16 * c) * LD + d];
-      vc[c] = sv[(tx + 16 * c) * LD + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-        dp[a][c] = fmaf(ga[a], vc[c], dp[a][c]);
-      }
+  for (int i = 0; i < D / kChunk; ++i) {
+    load_rows(a + i * (kF32Rows * 128), ma, bar, sa, i * kChunk, row, h, b);
+    load_rows(c + i * (kF32Rows * 128), mc, bar, sc, i * kChunk, row, h, b);
   }
 }
 
-// P and dS of one score: query row gq, key gk (both in range).
-template <bool kBias>
-__device__ __forceinline__ void p_and_ds(float s, float dp, float lse,
-                                         float delta, const float* brow,
-                                         int gk, float scale, float inv_sk,
-                                         float* p, float* ds) {
+// dQ, and delta for the dk/dv kernel.  Accumulators: sacc and dpacc[4 jj
+// + e] are query row0 (e < 2) or row1 = row0 + 8, key k0 + 8 jj + 2 t +
+// (e & 1).
+template <int D, bool kBias>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_f32(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_g,
+                 const float* __restrict__ o, const float* __restrict__ g,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ dq, int Sq, int Sk, int H, Strides st,
+                 long long bias_bh_stride, float scale, int swaps) {
+  using L = DqF32Layout<D>;
+  constexpr int NS = L::kRows, S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (sq - smem_u32(smem_raw));
+  const uint32_t sg = sq + 2 * L::kRes;
+  const uint32_t ring = sq + L::kRing;
+  const uint32_t raw = sq + L::kRawAt;
+  const F32Bars bars(sq + L::kBars, L::kRaw, S);
+
+  const int n_qt = (Sq + kF32Rows - 1) / kF32Rows;
+  const int bh = blockIdx.x / n_qt;  // a head's query tiles are adjacent
+  const int q0 = (blockIdx.x % n_qt) * kF32Rows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (Sk + NS - 1) / NS;
+
+  if (threadIdx.x == 0) bars.init(L::kRaw, S);
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ------------------------------- producer warpgroup: TMA, then split
+    const int pt = threadIdx.x - 128;
+    if (pt == 0) {
+      load_resident<D>(sq, &map_q, swaps & 1, sg, &map_g, swaps & 8,
+                       bars.res_load, q0, h, b);
+      for (int j = 0; j < L::kRaw && j < n_kt; ++j)
+        load_stream<D, NS, L::kRaw>(raw, L::kPart, &map_k, swaps & 2, &map_v,
+                                    swaps & 4, bars, j, h, b);
+    }
+    mbar_wait(bars.res_load, 0);
+    split_tile<kF32Rows, D, false>(base, base, L::kRes, nullptr, 0, pt);
+    split_tile<kF32Rows, D, false>(base + 2 * L::kRes, base + 2 * L::kRes,
+                                   L::kRes, nullptr, 0, pt);
+    fence_proxy_async();
+    mbar_arrive(bars.res_ready);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % S, r = j % L::kRaw;
+      // K, K^T, V of the operand stage: big, small each
+      unsigned char* t = base + L::kRing + s * L::kStage;
+      unsigned char* src = base + L::kRawAt + r * L::kRawStage;
+      mbar_wait(bars.raw + 8 * r, (j / L::kRaw) & 1);
+      mbar_wait(bars.empty + 8 * s, ((j / S) & 1) ^ 1);
+      split_tile<NS, D, true>(src, t, L::kPart, t + 2 * L::kPart, L::kPart,
+                              pt);
+      split_tile<NS, D, false>(src + L::kPart, t + 4 * L::kPart, L::kPart,
+                               nullptr, 0, pt);
+      fence_proxy_async();
+      mbar_arrive(bars.full + 8 * s);
+      named_barrier(1, 128);  // the raw stage read by every thread
+      if (pt == 0 && j + L::kRaw < n_kt)
+        load_stream<D, NS, L::kRaw>(raw, L::kPart, &map_k, swaps & 2, &map_v,
+                                    swaps & 4, bars, j + L::kRaw, h, b);
+    }
+    return;
+  }
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int row0 = q0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+
+  // delta of rows row0 and row1: the row's four threads each take a
+  // quarter of the head dim, summed in a fixed order
+  float dl0 = 0.f, dl1 = 0.f;
+  {
+    const float* ob = o + b * st.o[0] + h * st.o[1];
+    const float* gb = g + b * st.g[0] + h * st.g[1];
+    if (row0 < Sq)
+      dl0 = row_dot_f32<D>(ob + row0 * st.o[2], gb + row0 * st.g[2], t);
+    if (row1 < Sq)
+      dl1 = row_dot_f32<D>(ob + row1 * st.o[2], gb + row1 * st.g[2], t);
+  }
+  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
+  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
+  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
+  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
+  const long long stat0 = static_cast<long long>(bh) * Sq;
+  if (t == 0) {
+    if (row0 < Sq) delta[stat0 + row0] = dl0;
+    if (row1 < Sq) delta[stat0 + row1] = dl1;
+  }
+  const float ls0 = row0 < Sq ? lse[stat0 + row0] : 0.f;
+  const float ls1 = row1 < Sq ? lse[stat0 + row1] : 0.f;
+  const float* br0 = nullptr;
+  const float* br1 = nullptr;
   if (kBias) {
-    const float xr = fmaf(s, scale, brow[gk]);
-    const float x = fmaxf(xr, kNeg);
-    *p = lse == kNeg ? inv_sk : exp2f((x - lse) * kLog2e);
-    *ds = xr >= kNeg ? *p * (dp - delta) : 0.f;
-  } else {
-    *p = exp2f((s * scale - lse) * kLog2e);
-    *ds = *p * (dp - delta);
+    const float* bb = bias + bh * bias_bh_stride;
+    br0 = bb + static_cast<long long>(min(row0, Sq - 1)) * Sk;
+    br1 = bb + static_cast<long long>(min(row1, Sq - 1)) * Sk;
+  }
+  // without bias, P = 2^(s scale log2e - lse log2e)
+  const float sc2 = scale * kLog2e;
+  const float nl0 = -ls0 * kLog2e, nl1 = -ls1 * kLog2e;
+  const float inv_sk = 1.f / Sk;
+
+  float sacc[NS / 2], dpacc[NS / 2], dqacc[D / 2], pv[NS / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  uint32_t db[NS / 8][4], ds[NS / 8][4];  // dS's split A fragments
+
+  mbar_wait(bars.res_ready, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % S;
+    const uint32_t sk = ring + s * L::kStage;
+    const uint32_t sv = sk + 4 * L::kPart;
+    const int k0 = j * NS;
+    mbar_wait(bars.full + 8 * s, (j / S) & 1);
+
+    // S = Q K^T and dP = dO V^T: per k8 step along the head dim, three
+    // TF32 products each
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      mma3_ss<NS>(sacc, desc_dir<kF32Rows>(sq, ks),
+                  desc_dir<kF32Rows>(sq + L::kRes, ks), desc_dir<NS>(sk, ks),
+                  desc_dir<NS>(sk + L::kPart, ks), ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      mma3_ss<NS>(dpacc, desc_dir<kF32Rows>(sg, ks),
+                  desc_dir<kF32Rows>(sg + L::kRes, ks), desc_dir<NS>(sv, ks),
+                  desc_dir<NS>(sv + L::kPart, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S
+    fence_regs(sacc);
+
+    // P while dP runs
+    const bool ragged = k0 + NS > Sk;
+    uint32_t clamped = 0;  // bias: the scores the clamp took (dS = 0)
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      float p;
+      if (kBias) {
+        const float ls = (i & 2) ? ls1 : ls0;
+        const float xr = fmaf(sacc[i], scale,
+                              col < Sk ? ((i & 2) ? br1 : br0)[col] : 0.f);
+        p = ls == kNeg ? inv_sk : exp2_ftz((fmaxf(xr, kNeg) - ls) * kLog2e);
+        if (xr < kNeg) clamped |= 1u << i;
+      } else {
+        p = exp2_ftz(fmaf(sacc[i], sc2, (i & 2) ? nl1 : nl0));
+      }
+      if (ragged && col >= Sk) p = 0.f;
+      pv[i] = p;
+    }
+
+    // dS = P (dP - delta), split into the A fragments of dQ += dS K
+    wgmma_wait<0>();  // dP
+    fence_regs(dpacc);
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk) {
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * kk + e;
+        d[e] = pv[i] * (dpacc[i] - ((e & 2) ? dl1 : dl0));
+        if (kBias && (clamped >> i & 1)) d[e] = 0.f;
+      }
+      split_frag(d, db[kk], ds[kk]);
+    }
+    fence_regs(db);
+    fence_regs(ds);
+    fence_regs(dqacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk)
+      mma3_rs<D>(dqacc, db[kk], ds[kk],
+                 desc_tr<NS>(sk + 2 * L::kPart, kk),
+                 desc_tr<NS>(sk + 3 * L::kPart, kk));
+    wgmma_commit();
+    // the stage's products done before the next stage's: products left
+    // running into the next stage's scores make ptxas serialise every
+    // wgmma of the kernel (C7515; see the file's head)
+    wgmma_wait<0>();
+    fence_regs(dqacc);
+    if (lane == 0) mbar_arrive(bars.empty + 8 * s);
+  }
+
+  float* out = dq + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(out + row0 * D + col) =
+          make_float2(dqacc[4 * jj] * scale, dqacc[4 * jj + 1] * scale);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(out + row1 * D + col) =
+          make_float2(dqacc[4 * jj + 2] * scale, dqacc[4 * jj + 3] * scale);
   }
 }
 
-// -------------------------------------------------------------- dK, dV
+// dK and dV.  Accumulators: sacc and dpacc[4 jj + e] are key key0 (e < 2)
+// or key1 = key0 + 8, query q0 + 8 jj + 2 t + (e & 1) of the stage.
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ g,
-               const float* __restrict__ bias, const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk,
-               float* __restrict__ dv, int Sq, int Sk, int H, Strides st,
-               long long bias_bh_stride, float scale) {
-  using S = Smem<D>;
-  constexpr int LD = S::LD, PLD = S::PLD, ND = D / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sk = smem;               // [kTile][LD]
-  float* sv = sk + kTile * LD;    // [kTile][LD]
-  float* sq = sv + kTile * LD;    // [kTile][LD]
-  float* sdo = sq + kTile * LD;   // [kTile][LD]
-  // [kTile query rows][PLD]: P, then dS (kept in registers meanwhile);
-  // dV is accumulated before dS overwrites P
-  float* sp = sdo + kTile * LD;
-  float* slse = sp + kTile * PLD;
-  float* sdelta = slse + kTile;
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dkdv_f32(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_g,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Sq, int Sk, int H,
+                   long long bias_bh_stride, float scale, int swaps) {
+  using L = DkdvF32Layout<D>;
+  constexpr int NS = L::kRows, S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base = smem_raw + (sk - smem_u32(smem_raw));
+  const uint32_t sv = sk + 2 * L::kRes;
+  const uint32_t ring = sk + L::kRing;
+  float* stats = reinterpret_cast<float*>(base + L::kStats);  // + 2 NS s
+  const uint32_t raw = sk + L::kRawAt;
+  const F32Bars bars(sk + L::kBars, L::kRaw, S);
 
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x % n_kt) * kTile;
+  const int n_kt = (Sk + kF32Rows - 1) / kF32Rows;
+  const int bh = blockIdx.x / n_kt;  // a head's key tiles are adjacent
+  const int k0 = (blockIdx.x % n_kt) * kF32Rows;
   const int b = bh / H, h = bh % H;
-  const float* qb = q + b * st.q[0] + h * st.q[1];
-  const float* gb = g + b * st.g[0] + h * st.g[1];
-  const float* lb = lse + static_cast<long long>(bh) * Sq;
-  const float* db = delta + static_cast<long long>(bh) * Sq;
-  const float* bb = kBias ? bias + bh * bias_bh_stride : nullptr;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int jk = tid / 4, sub = tid % 4;  // accumulated key and dims
-  const float inv_sk = 1.f / Sk;
+  const int n_qt = (Sq + NS - 1) / NS;
 
-  load_tile<D>(sk, k + b * st.k[0] + h * st.k[1], st.k[2], k0, Sk);
-  load_tile<D>(sv, v + b * st.v[0] + h * st.v[1], st.v[2], k0, Sk);
-  float dk_acc[ND], dv_acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if (threadIdx.x == 0) bars.init(L::kRaw, S);
+  __syncthreads();
 
-  for (int q0 = 0; q0 < Sq; q0 += kTile) {
-    __syncthreads();  // the previous query tile is no longer read
-    load_tile<D>(sq, qb, st.q[2], q0, Sq);
-    load_tile<D>(sdo, gb, st.g[2], q0, Sq);
-    if (tid < kTile) {
-      const int r = q0 + tid;
-      slse[tid] = r < Sq ? lb[r] : 0.f;
-      sdelta[tid] = r < Sq ? db[r] : 0.f;
+  if (threadIdx.x >= 128) {
+    // --------------------- producer warpgroup: TMA, the stats, then split
+    const int pt = threadIdx.x - 128;
+    if (pt == 0) {
+      load_resident<D>(sk, &map_k, swaps & 2, sv, &map_v, swaps & 4,
+                       bars.res_load, k0, h, b);
+      for (int j = 0; j < L::kRaw && j < n_qt; ++j)
+        load_stream<D, NS, L::kRaw>(raw, L::kPart, &map_q, swaps & 1, &map_g,
+                                    swaps & 8, bars, j, h, b);
     }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    products<D>(sq, sdo, sk, sv, s, dp);
-    float ds[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = 4 * ty + a, gq = q0 + i;
-      const float* brow =
-          kBias ? bb + static_cast<long long>(min(gq, Sq - 1)) * Sk : nullptr;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c, gk = k0 + j;
-        float p = 0.f, d = 0.f;
-        if (gq < Sq && gk < Sk)
-          p_and_ds<kBias>(s[a][c], dp[a][c], slse[i], sdelta[i], brow, gk,
-                          scale, inv_sk, &p, &d);
-        sp[i * PLD + j] = p;
-        ds[a][c] = d;
+    mbar_wait(bars.res_load, 0);
+    split_tile<kF32Rows, D, false>(base, base, L::kRes, nullptr, 0, pt);
+    split_tile<kF32Rows, D, false>(base + 2 * L::kRes, base + 2 * L::kRes,
+                                   L::kRes, nullptr, 0, pt);
+    fence_proxy_async();
+    mbar_arrive(bars.res_ready);
+    const float* lr = lse + static_cast<long long>(bh) * Sq;
+    const float* dr = delta + static_cast<long long>(bh) * Sq;
+    for (int j = 0; j < n_qt; ++j) {
+      const int s = j % S, r = j % L::kRaw, q0 = j * NS;
+      // Q, Q^T, dO, dO^T of the operand stage: big, small each
+      unsigned char* t = base + L::kRing + s * L::kStage;
+      unsigned char* src = base + L::kRawAt + r * L::kRawStage;
+      mbar_wait(bars.empty + 8 * s, ((j / S) & 1) ^ 1);
+      float* sts = stats + s * 2 * NS;  // lse, then delta
+      if (pt < 2 * NS) {
+        const int row = q0 + pt % NS;
+        sts[pt] = row < Sq ? (pt < NS ? lr : dr)[row] : 0.f;
       }
+      mbar_wait(bars.raw + 8 * r, (j / L::kRaw) & 1);
+      split_tile<NS, D, true>(src, t, L::kPart, t + 2 * L::kPart, L::kPart,
+                              pt);
+      split_tile<NS, D, true>(src + L::kPart, t + 4 * L::kPart, L::kPart,
+                              t + 6 * L::kPart, L::kPart, pt);
+      fence_proxy_async();
+      mbar_arrive(bars.full + 8 * s);
+      named_barrier(1, 128);  // the raw stage read by every thread
+      if (pt == 0 && j + L::kRaw < n_qt)
+        load_stream<D, NS, L::kRaw>(raw, L::kPart, &map_q, swaps & 1, &map_g,
+                                    swaps & 8, bars, j + L::kRaw, h, b);
     }
-    __syncthreads();
-    // dV += P^T dO
-    for (int i = 0; i < kTile; ++i) {
-      const float pp = sp[i * PLD + jk];
-#pragma unroll
-      for (int dd = 0; dd < ND; ++dd)
-        dv_acc[dd] = fmaf(pp, sdo[i * LD + sub + 4 * dd], dv_acc[dd]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        sp[(4 * ty + a) * PLD + tx + 16 * c] = ds[a][c];
-    __syncthreads();
-    // dK += dS^T Q (scaled once at the end)
-    for (int i = 0; i < kTile; ++i) {
-      const float d = sp[i * PLD + jk];
-#pragma unroll
-      for (int dd = 0; dd < ND; ++dd)
-        dk_acc[dd] = fmaf(d, sq[i * LD + sub + 4 * dd], dk_acc[dd]);
-    }
+    return;
   }
-  const int gk = k0 + jk;
-  if (gk < Sk) {
-    const long long off = (static_cast<long long>(bh) * Sk + gk) * D + sub;
-#pragma unroll
-    for (int dd = 0; dd < ND; ++dd) {
-      dk[off + 4 * dd] = dk_acc[dd] * scale;
-      dv[off + 4 * dd] = dv_acc[dd];
-    }
+  // ----------------------------------------------------------- consumers
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int key0 = k0 + threadIdx.x / 32 * 16 + (lane >> 2);
+  const int key1 = key0 + 8;
+  const float* bk0 = nullptr;
+  const float* bk1 = nullptr;
+  if (kBias) {
+    const float* bb = bias + bh * bias_bh_stride;
+    bk0 = bb + min(key0, Sk - 1);
+    bk1 = bb + min(key1, Sk - 1);
   }
-}
-
-// ------------------------------------------------------------------- dQ
-template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ g,
-             const float* __restrict__ bias, const float* __restrict__ lse,
-             const float* __restrict__ delta, float* __restrict__ dq, int Sq,
-             int Sk, int H, Strides st, long long bias_bh_stride,
-             float scale) {
-  using S = Smem<D>;
-  constexpr int LD = S::LD, PLD = S::PLD, ND = D / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sk = smem;
-  float* sv = sk + kTile * LD;
-  float* sq = sv + kTile * LD;
-  float* sdo = sq + kTile * LD;
-  float* sds = sdo + kTile * LD;  // [kTile query rows][PLD]
-  float* slse = sds + kTile * PLD;
-  float* sdelta = slse + kTile;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kTile;
-  const int b = bh / H, h = bh % H;
-  const float* kb = k + b * st.k[0] + h * st.k[1];
-  const float* vb = v + b * st.v[0] + h * st.v[1];
-  const float* bb = kBias ? bias + bh * bias_bh_stride : nullptr;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int iq = tid / 4, sub = tid % 4;  // accumulated query row and dims
+  const float sc2 = scale * kLog2e;
   const float inv_sk = 1.f / Sk;
+  const bool keys_ragged = k0 + kF32Rows > Sk;
 
-  load_tile<D>(sq, q + b * st.q[0] + h * st.q[1], st.q[2], q0, Sq);
-  load_tile<D>(sdo, g + b * st.g[0] + h * st.g[1], st.g[2], q0, Sq);
-  if (tid < kTile) {
-    const int r = q0 + tid;
-    slse[tid] = r < Sq ? lse[static_cast<long long>(bh) * Sq + r] : 0.f;
-    sdelta[tid] = r < Sq ? delta[static_cast<long long>(bh) * Sq + r] : 0.f;
-  }
-  float dq_acc[ND];
+  float sacc[NS / 2], dpacc[NS / 2], dkacc[D / 2], dvacc[D / 2], pv[NS / 2];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+  // P^T and dS^T as split A fragments
+  uint32_t pb[NS / 8][4], ps[NS / 8][4], db[NS / 8][4], ds[NS / 8][4];
 
-  for (int k0 = 0; k0 < Sk; k0 += kTile) {
-    __syncthreads();  // the previous key tile and dS are no longer read
-    load_tile<D>(sk, kb, st.k[2], k0, Sk);
-    load_tile<D>(sv, vb, st.v[2], k0, Sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    products<D>(sq, sdo, sk, sv, s, dp);
+  mbar_wait(bars.res_ready, 0);
+  for (int j = 0; j < n_qt; ++j) {
+    const int s = j % S, q0 = j * NS;
+    const uint32_t sq = ring + s * L::kStage;
+    const uint32_t sg = sq + 4 * L::kPart;
+    const float* sts = stats + s * 2 * NS;  // lse, then delta
+    const bool ragged = keys_ragged || q0 + NS > Sq;
+    mbar_wait(bars.full + 8 * s, (j / S) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T over this stage's queries
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    wgmma_fence();
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = 4 * ty + a, gq = q0 + i;
-      const float* brow =
-          kBias ? bb + static_cast<long long>(min(gq, Sq - 1)) * Sk : nullptr;
+    for (int ks = 0; ks < D / 8; ++ks)
+      mma3_ss<NS>(sacc, desc_dir<kF32Rows>(sk, ks),
+                  desc_dir<kF32Rows>(sk + L::kRes, ks), desc_dir<NS>(sq, ks),
+                  desc_dir<NS>(sq + L::kPart, ks), ks > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c, gk = k0 + j;
-        float p = 0.f, d = 0.f;
-        if (gq < Sq && gk < Sk)
-          p_and_ds<kBias>(s[a][c], dp[a][c], slse[i], sdelta[i], brow, gk,
-                          scale, inv_sk, &p, &d);
-        sds[i * PLD + j] = d;
+    for (int ks = 0; ks < D / 8; ++ks)
+      mma3_ss<NS>(dpacc, desc_dir<kF32Rows>(sv, ks),
+                  desc_dir<kF32Rows>(sv + L::kRes, ks), desc_dir<NS>(sg, ks),
+                  desc_dir<NS>(sg + L::kPart, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T
+    fence_regs(sacc);
+
+    // P^T while dP^T runs; lse per column
+    uint32_t clamped = 0;  // bias: the scores the clamp took (dS = 0)
+#pragma unroll
+    for (int jj = 0; jj < NS / 8; ++jj) {
+      const int c = 8 * jj + 2 * t;
+      const float2 ls = *reinterpret_cast<const float2*>(sts + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        const float l = (e & 1) ? ls.y : ls.x;
+        const int gq = q0 + c + (e & 1);
+        float p;
+        if (kBias) {
+          const float* bk = (e & 2) ? bk1 : bk0;
+          const float xr = fmaf(
+              sacc[i], scale,
+              gq < Sq ? bk[static_cast<long long>(gq) * Sk] : 0.f);
+          p = l == kNeg ? inv_sk : exp2_ftz((fmaxf(xr, kNeg) - l) * kLog2e);
+          if (xr < kNeg) clamped |= 1u << i;
+        } else {
+          p = exp2_ftz(fmaf(sacc[i], sc2, -l * kLog2e));
+        }
+        if (ragged && (gq >= Sq || ((e & 2) ? key1 : key0) >= Sk)) p = 0.f;
+        pv[i] = p;
       }
+      split_frag(pv + 4 * jj, pb[jj], ps[jj]);
     }
-    __syncthreads();
-    // dQ += dS K (scaled once at the end)
-    for (int j = 0; j < kTile; ++j) {
-      const float d = sds[iq * PLD + j];
+    // dV += P^T dO, B from dO's T tile
+    fence_regs(pb);
+    fence_regs(ps);
+    fence_regs(dvacc);
+    wgmma_fence();
 #pragma unroll
-      for (int dd = 0; dd < ND; ++dd)
-        dq_acc[dd] = fmaf(d, sk[j * LD + sub + 4 * dd], dq_acc[dd]);
+    for (int kk = 0; kk < NS / 8; ++kk)
+      mma3_rs<D>(dvacc, pb[kk], ps[kk], desc_tr<NS>(sq + 6 * L::kPart, kk),
+                 desc_tr<NS>(sq + 7 * L::kPart, kk));
+    wgmma_commit();
+
+    // dS^T = P^T (dP^T - delta); dK += dS^T Q, B from Q's T tile
+    wgmma_wait<1>();  // dP^T
+    fence_regs(dpacc);
+#pragma unroll
+    for (int jj = 0; jj < NS / 8; ++jj) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(sts + NS + 8 * jj + 2 * t);
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e;
+        d[e] = pv[i] * (dpacc[i] - ((e & 1) ? dl.y : dl.x));
+        if (kBias && (clamped >> i & 1)) d[e] = 0.f;
+      }
+      split_frag(d, db[jj], ds[jj]);
     }
+    fence_regs(db);
+    fence_regs(ds);
+    fence_regs(dkacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 8; ++kk)
+      mma3_rs<D>(dkacc, db[kk], ds[kk], desc_tr<NS>(sq + 2 * L::kPart, kk),
+                 desc_tr<NS>(sq + 3 * L::kPart, kk));
+    wgmma_commit();
+    wgmma_wait<0>();  // as dq's: the stage's products done, then release it
+    fence_regs(dvacc);
+    fence_regs(dkacc);
+    if (lane == 0) mbar_arrive(bars.empty + 8 * s);
   }
-  const int gq = q0 + iq;
-  if (gq < Sq) {
-    const long long off = (static_cast<long long>(bh) * Sq + gq) * D + sub;
+
+  const long long base_o = static_cast<long long>(bh) * Sk * D;
 #pragma unroll
-    for (int dd = 0; dd < ND; ++dd) dq[off + 4 * dd] = dq_acc[dd] * scale;
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + 2 * t;
+    if (key0 < Sk) {
+      const long long off = base_o + static_cast<long long>(key0) * D + col;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dkacc[4 * jj] * scale, dkacc[4 * jj + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dvacc[4 * jj], dvacc[4 * jj + 1]);
+    }
+    if (key1 < Sk) {
+      const long long off = base_o + static_cast<long long>(key1) * D + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(
+          dkacc[4 * jj + 2] * scale, dkacc[4 * jj + 3] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dvacc[4 * jj + 2], dvacc[4 * jj + 3]);
+    }
   }
 }
 
@@ -889,32 +1159,39 @@ cudaError_t set_smem(KvKernel kv_kernel, size_t kv_smem, QKernel q_kernel,
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
 }
 
-// f32: delta, then dk/dv and dq, each on its own grid of 64-row blocks.
+// f32: dq (which writes delta), then dk/dv.  maps: the dq kernel's q,
+// k, v, dO (64-row q and dO boxes, streamed-row k and v boxes), then the
+// dk/dv kernel's (the other way round).
 template <int D, bool kBias>
-cudaError_t launch_f32_kind(const float* q, const float* k, const float* v,
-                            const float* g, const float* bias,
-                            const float* lse, const float* delta, float* dq,
-                            float* dk, float* dv, int bh, int sq, int sk,
+cudaError_t launch_f32_kind(const CUtensorMap* maps, const void* o,
+                            const void* g, const float* bias,
+                            const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int bh, int sq, int sk,
                             int heads, const Strides& st,
                             long long bias_bh_stride, float scale,
-                            cudaStream_t stream) {
+                            const int* swaps, cudaStream_t stream) {
+  constexpr size_t q_smem = DqF32Layout<D>::kSmem;
+  constexpr size_t kv_smem = DkdvF32Layout<D>::kSmem;
   static const cudaError_t err =  // once per process and variant
-      set_smem(flash_bwd_dkdv<D, kBias>, Smem<D>::kBytes,
-               flash_bwd_dq<D, kBias>, Smem<D>::kBytes);
+      set_smem(flash_bwd_dkdv_f32<D, kBias>, kv_smem,
+               flash_bwd_dq_f32<D, kBias>, q_smem);
   if (err != cudaSuccess) return err;
-  const long long kv_blocks = (long long)bh * ((sk + kTile - 1) / kTile);
-  const long long q_blocks = (long long)bh * ((sq + kTile - 1) / kTile);
+  const long long q_blocks = (long long)bh * ((sq + kF32Rows - 1) / kF32Rows);
+  const long long kv_blocks = (long long)bh * ((sk + kF32Rows - 1) / kF32Rows);
   if (kv_blocks >= (1ll << 31) || q_blocks >= (1ll << 31))
     return cudaErrorInvalidValue;
-  flash_bwd_dkdv<D, kBias><<<(unsigned)kv_blocks, kThreads, Smem<D>::kBytes,
-                             stream>>>(q, k, v, g, bias, lse, delta, dk, dv,
-                                       sq, sk, heads, st, bias_bh_stride,
-                                       scale);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  flash_bwd_dq_f32<D, kBias><<<(unsigned)q_blocks, kF32Threads, q_smem,
+                               stream>>>(
+      maps[0], maps[1], maps[2], maps[3], f(o), f(g), bias, lse, delta,
+      w(dq), sq, sk, heads, st, bias_bh_stride, scale, swaps[0]);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq<D, kBias><<<(unsigned)q_blocks, kThreads, Smem<D>::kBytes,
-                           stream>>>(q, k, v, g, bias, lse, delta, dq, sq, sk,
-                                     heads, st, bias_bh_stride, scale);
+  flash_bwd_dkdv_f32<D, kBias><<<(unsigned)kv_blocks, kF32Threads, kv_smem,
+                                 stream>>>(
+      maps[4], maps[5], maps[6], maps[7], bias, lse, delta, w(dk), w(dv), sq,
+      sk, heads, bias_bh_stride, scale, swaps[1]);
   return cudaGetLastError();
 }
 
@@ -922,26 +1199,34 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* o, const void* g, const float* bias,
                        const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int bh, int sq, int sk, int heads,
+                       void* dv, int batch, int heads, int sq, int sk,
                        const Strides& st, long long bias_bh_stride,
                        float scale, cudaStream_t stream) {
-  const long long rows = (long long)bh * sq;
-  const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
-  flash_bwd_delta<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(o), static_cast<const float*>(g), delta, rows,
-      sq, heads, D, st);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto w = [](void* p) { return static_cast<float*>(p); };
+  CUtensorMap maps[8];  // q, k, v, dO for the dq kernel, then for dk/dv
+  const void* bases[4] = {q, k, v, g};
+  const long long* strides[4] = {st.q, st.k, st.v, st.g};
+  const int lengths[4] = {sq, sk, sk, sq};
+  const bool resident_dq[4] = {true, false, false, true};
+  int swaps[2] = {0, 0};
+  for (int kernel = 0; kernel < 2; ++kernel)
+    for (int i = 0; i < 4; ++i) {
+      const bool resident = resident_dq[i] != (kernel == 1);
+      bool swap;
+      if (!make_view_map(&maps[4 * kernel + i], bases[i], strides[i], batch,
+                         heads, lengths[i], D,
+                         resident ? kF32Rows : f32_stream_rows<D>(), &swap,
+                         true))
+        return cudaErrorInvalidValue;
+      swaps[kernel] |= swap << i;
+    }
+  const int bh = batch * heads;
   if (bias != nullptr)
-    return launch_f32_kind<D, true>(f(q), f(k), f(v), f(g), bias, lse, delta,
-                                    w(dq), w(dk), w(dv), bh, sq, sk, heads,
-                                    st, bias_bh_stride, scale, stream);
-  return launch_f32_kind<D, false>(f(q), f(k), f(v), f(g), bias, lse, delta,
-                                   w(dq), w(dk), w(dv), bh, sq, sk, heads, st,
-                                   bias_bh_stride, scale, stream);
+    return launch_f32_kind<D, true>(maps, o, g, bias, lse, delta, dq, dk, dv,
+                                    bh, sq, sk, heads, st, bias_bh_stride,
+                                    scale, swaps, stream);
+  return launch_f32_kind<D, false>(maps, o, g, bias, lse, delta, dq, dk, dv,
+                                   bh, sq, sk, heads, st, bias_bh_stride,
+                                   scale, swaps, stream);
 }
 
 // bf16: dq (which writes delta), then dk/dv, on one set of tensor maps.
@@ -1012,13 +1297,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // q, o, dout: [batch, heads, sq, d] and k, v: [batch, heads, sk, d], given
 // by element strides (15 values: batch, head and row strides of q, k, v,
 // o and dout in turn), the head dim contiguous; all f32 or all bf16
-// (is_bf16), for bf16 every row 16-byte aligned and every stride a whole
-// number of 16-byte units.  bias: null or contiguous f32 [1 or
+// (is_bf16), every row 16-byte aligned and every stride a whole number of
+// 16-byte units.  bias: null or contiguous f32 [1 or
 // batch*heads, sq, sk] (bias_per_bh).  lse: the forward's f32
 // [batch*heads, sq]; delta: f32 scratch of the same shape.  dq: contiguous
 // [batch*heads, sq, d]; dk, dv: contiguous [batch*heads, sk, d], in the
-// inputs' dtype.  Launches two kernels (bf16: dq, then dk/dv) or three
-// (f32: delta, dk/dv, dq) on `stream` without synchronising; returns the
+// inputs' dtype.  Launches two kernels (dq, which writes delta, then
+// dk/dv) on `stream` without synchronising; returns the
 // first cudaError_t of the launches (cudaErrorInvalidValue also when the
 // driver refuses a tensor map).
 extern "C" int tlx_flash_attention_bwd(
@@ -1039,7 +1324,6 @@ extern "C" int tlx_flash_attention_bwd(
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const long long bs = bias_per_bh ? (long long)sq * sk : 0;
-  const int bh = batch * heads;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
 #define TLX_LAUNCH(D)                                                       \
@@ -1054,8 +1338,8 @@ extern "C" int tlx_flash_attention_bwd(
 #undef TLX_LAUNCH
   } else {
 #define TLX_LAUNCH(D)                                                       \
-  return launch_f32<D>(q, k, v, o, dout, b, l, dl, dq, dk, dv, bh, sq, sk, \
-                       heads, st, bs, scale, cs)
+  return launch_f32<D>(q, k, v, o, dout, b, l, dl, dq, dk, dv, batch,      \
+                       heads, sq, sk, st, bs, scale, cs)
     switch (d) {
       case 32: TLX_LAUNCH(32);
       case 64: TLX_LAUNCH(64);

@@ -14,7 +14,10 @@ strides: a ``[B, H, S, D]`` view into a packed qkv projection needs no copy.
 On the card the call is a ``torch.autograd.Function``: its forward is the
 kernel, which also writes each row's log-sum-exp when an input requires
 grad, and its backward is ``csrc/flash_attention_bwd.cu`` (dq, dk and dv
-from that statistic, deterministic).  The TPU kernel has no VJP; the JAX
+from that statistic, deterministic).  Both run on the tensor cores in bf16
+and in f32; f32 products are split TF32 (``csrc/flash_attention.cuh``),
+which keeps f32 accuracy and never reads
+``torch.backends.cuda.matmul.allow_tf32``.  The TPU kernel has no VJP; the JAX
 package trains on its einsum path, whose gradient this is.
 ``flash_attention_backward_plain`` is the backward's arithmetic in plain
 torch, for the tests and ``chip_smoke.py``.
@@ -246,9 +249,9 @@ def _launch_kernel(q, k, v, bias, scale, with_lse=False):
 
 
 def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
-    """dq, dk, dv of a card forward: the backward kernels (bf16: dq, which
-    also writes delta = rowsum(grad * out), then dk and dv; f32: delta, dk
-    and dv, dq) on the forward's inputs, its output ``out`` (as the forward
+    """dq, dk, dv of a card forward: the backward kernels (dq, which also
+    writes delta = rowsum(grad * out), then dk and dv; f32 on split TF32
+    products) on the forward's inputs, its output ``out`` (as the forward
     stored it), its log-sum-exp ``lse`` and the output's gradient
     ``grad``; contiguous in q's, k's and v's shapes and dtype.  Counts one
     launch in ``flash_attention_backward.launches``."""
@@ -339,4 +342,4 @@ def flash_attention(q, k, v, bias=None, scale=None):
 
 
 flash_attention.launches = 0  # kernel launches since the last reset
-flash_attention_backward.launches = 0  # backward calls (2 or 3 kernels)
+flash_attention_backward.launches = 0  # backward calls (2 kernels each)
