@@ -107,6 +107,16 @@
                                       # VJP, checked; the 2x kernels timed
                                       # beside the transposed resize on the
                                       # 2x taps; no contract line
+    python3 chip_smoke.py --data      # only the data and utility layers
+                                      # (phase 20; with --profile, each
+                                      # export profiled beside its eager
+                                      # twin); no contract line
+    python3 chip_smoke.py --dispatch  # only the flash wrapper's host cost
+                                      # at TrOCR's decode grids and the
+                                      # registration routes' dispatch cost
+                                      # (builds only the flash kernel; copy
+                                      # this file into another tree's root
+                                      # to measure that tree)
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -357,6 +367,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     128^2 with a margin warm-up; each training leg's gradients against
     the CPU first (``phase_sequence``).
 
+20. (run last) data: the native resize/normalize (g++ at first use) at
+    b256 uint8 500x375 -> 224^2 against its fallback, its host ms and the
+    pinned copy to the card, the fused JPEG route where libjpeg built;
+    ``Config``-built training with metrics (ResNet-50, 10 classes, b32 on
+    CIFAR pickles the phase writes, with and without ``Accuracy``; the
+    UNet of ``configs/unet_circles.yaml`` on Circles with ``MeanIoU``);
+    ``configs/yolov3_coco.yaml``'s detector predicting at b8 on a 16-image
+    COCO folder through the detection transforms, scored by
+    ``CocoEvaluator`` (the ground truth as predictions scores 1.0), and the
+    evaluator's host cost at 100 detections an image; ``torch.export``
+    round trips on the card, bitwise the eager outputs (ViT-B/16 b64 bf16,
+    12 flash launches a forward; full-int8 ResNet-50 b256, 54; SSD's
+    predict at b128 300^2); ``record_features`` on ResNet-50 against the
+    CPU, ``profiler.trace`` and ``benchmark_fn``; the flash wrapper's host
+    cost at TrOCR's decode grids (``phase_data``).
+
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  The last three lines are the kernels' record, the
 card, and the contract line ``{"ok": true, "device": {...}}``.  Without a
@@ -369,6 +395,7 @@ import copy
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -5586,19 +5613,21 @@ def phase_train_profile(name, trainer, batch, step_s, steps=2):
     emit_profile(prof, name + "_train", steps, step_s)
 
 
-def phase_profile(name, model, x, forwards=3, step_s=None):
+def phase_profile(name, model, x, forwards=3, step_s=None, call=None):
     """Device time per kernel over a few forwards (torch.profiler), for
     the breakdown of the step; with the served step's wall time, the share
-    of it the card spends idle."""
+    of it the card spends idle.  ``call`` (default ``model.predict``) is
+    what is profiled."""
     from torch.profiler import ProfilerActivity, profile
 
+    call = model.predict if call is None else call
     with torch.inference_mode():
-        model.predict(x)
+        call(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(forwards):
-                model.predict(x)
+                call(x)
             torch.cuda.synchronize()
     emit_profile(prof, name, forwards, step_s)
 
@@ -7085,18 +7114,623 @@ def phase_sequence(flash, bwd, upsample, sep, profile):
     emit({"phase": "sequence", "seconds": time.perf_counter() - t0})
 
 
+
+# ------------------------------------------------------ data and utilities
+# the data phase's fixtures: CIFAR-style 32^2 images whose class is
+# written into them (a per-class colour over noise), so that three epochs
+# of ten steps lower ResNet-50's loss; COCO-style 416^2 JPEGs with boxes
+DATA_CIFAR = {"images": 320, "steps": 10, "epochs": 3}
+DATA_COCO = {"images": 16, "side": 416, "batch": 8, "boxes": 4,
+             "eval_images": 100, "eval_dets": 100}
+# the export round trips' batches: ViT-B/16 bf16, ResNet-50 full int8 (bf16
+# input), SSD's predict at 300^2
+DATA_EXPORT = {"vit": 64, "resnet50_int8": 256, "ssd": 128}
+DATA_RESIZE = {"batch": 256, "src_hw": (375, 500), "dst_hw": (224, 224)}
+# TrOCR's decode steps (PERF.md section 6): one query row over the
+# 577-token memory and over the 32-slot cache under a [1, 1, 32] bias
+DISPATCH_GRIDS = [("trocr_decode_memory", 512, 1, 577, 32, False),
+                  ("trocr_decode_self", 512, 1, 32, 32, True)]
+
+
+def host_call_us(fn, calls=400, rounds=5):
+    """Host time of one call (microseconds): ``calls`` calls back to back
+    on the wall clock, the card's queue drained before and after, the
+    median of ``rounds``.  Where the call's device work is shorter than its
+    host work, this is the wrapper's own cost."""
+    for _ in range(20):
+        fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out.append(1e6 * (t1 - t0) / calls)
+    return statistics.median(out)
+
+
+def registration_routes_us(device="cuda"):
+    """The dispatch cost of each route to an operator, on a call that does
+    nothing but allocate its output: a plain Python function,
+    ``torch.library`` ``define``/``impl`` (the port's route), and
+    ``torch.library.custom_op``.  Host microseconds a call."""
+    x = torch.zeros(64, device=device)
+
+    def body(t):
+        return torch.empty_like(t)
+
+    # custom_op reads the schema from annotations, which this module's
+    # ``from __future__ import annotations`` would leave as strings
+    body.__annotations__ = {"t": torch.Tensor, "return": torch.Tensor}
+    lib = torch.library.Library("tlxcv_probe", "DEF")
+    lib.define("body(Tensor t) -> Tensor")
+    lib.impl("body", body, "CUDA" if device == "cuda" else "CPU")
+    op = torch.ops.tlxcv_probe.body.default
+    custom = torch.library.custom_op("tlxcv_probe::custom_body",
+                                     mutates_args=())(body)
+    return {"python_function": host_call_us(lambda: body(x)),
+            "library_define_impl": host_call_us(lambda: op(x)),
+            "library_custom_op": host_call_us(lambda: custom(x))}
+
+
+def wrapper_host_times():
+    """The flash wrapper at TrOCR's decode grids, bf16, as the decode loop
+    calls it (no grad): host microseconds a call, events around each call
+    (``time_ms``, which counts the host's work where it is the longer),
+    and the graph-replayed device time.  Runs on any tree that has
+    ``flash_attention``: the registration's before and after."""
+    from tlxcv_tpu_torch.ops.cuda.attention import NEG, flash_attention
+
+    out = {}
+    for name, bh, sq, sk, d, biased in DISPATCH_GRIDS:
+        q, k, v = qkv(bh, sq, d, torch.bfloat16, 0, sk=sk)
+        bias = None
+        if biased:
+            bias = torch.zeros(1, sq, sk, device="cuda")
+            bias[..., sk // 2:] = NEG
+        with torch.inference_mode():
+            call = functools.partial(flash_attention, q, k, v, bias)
+            out[name] = {"grid": [bh, sq, sk, d],
+                         "host_us": host_call_us(call),
+                         "events_ms": time_ms(call, reps=200),
+                         "device_ms": graph_ms(call)}
+    return out
+
+
+def phase_dispatch():
+    """The wrapper's host cost at TrOCR's decode grids, and the dispatch
+    cost of the registration routes; copy this file into another tree's
+    root to measure that tree (``--dispatch``)."""
+    emit({"phase": "dispatch", "flash_wrapper": wrapper_host_times(),
+          "routes_us": registration_routes_us()})
+
+
+def data_native():
+    """The native resize/normalize at b256 uint8 500x375 -> 224^2 against
+    its fallback (cv2's resize, or the numpy one), the pinned copy of the
+    batch to the card, and the fused JPEG route where libjpeg built."""
+    import numpy as np
+
+    from tlxcv_tpu_torch import native
+    from tlxcv_tpu_torch.data.transforms import FusedResizeNormalize
+
+    if not native.available():
+        raise AssertionError("the native resize library did not build "
+                             "(g++ on tlxcv_tpu_torch/native/image_ops.cpp)")
+    rng = np.random.default_rng(0)
+    b, (sh, sw), dst = (DATA_RESIZE["batch"], DATA_RESIZE["src_hw"],
+                        DATA_RESIZE["dst_hw"])
+    imgs = rng.integers(0, 256, (b, sh, sw, 3), dtype=np.uint8)
+    mean, std = (123.7, 116.3, 103.5), (58.4, 57.1, 57.4)
+    fused = FusedResizeNormalize(dst, mean, std)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = fused(imgs)
+        times.append(time.perf_counter() - t0)
+    fallback = native._fallback(imgs[:32], dst,
+                                np.asarray(mean, np.float32),
+                                np.asarray(std, np.float32))
+    err = float(np.abs(out[:32] - fallback).max())
+    host = torch.from_numpy(out).pin_memory()
+    copy_ms = time_ms(lambda: host.to("cuda", non_blocking=True), reps=10,
+                      warmup=2)
+    check = {"batch": b, "src_hw": [sh, sw], "dst_hw": list(dst),
+             "threads": "hardware",
+             "resize_ms_median": 1e3 * statistics.median(times),
+             "resize_ms_all": [1e3 * t for t in times],
+             "fallback_max_abs_err": err, "bound": 0.05,
+             "why": "the reference's tolerance against cv2's fixed-point "
+                    "resize (tests/test_native.py), in normalised units",
+             "pinned_copy_ms": copy_ms,
+             "pinned_copy_gb_per_s": out.nbytes / copy_ms / 1e6,
+             "jpeg_route": native.jpeg_available()}
+    emit({"phase": "data_native", **check})
+    if not err <= 0.05 or out.shape != (b, *dst, 3):
+        raise AssertionError(f"native resize disagrees: {check}")
+    if not native.jpeg_available():
+        print("data_native: jpeglib.h is absent here; the native JPEG "
+              "route did not build, and JPEGs decode through PIL",
+              flush=True)
+        return
+    import io
+
+    from PIL import Image
+
+    blobs = []
+    for im in imgs[:16]:
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format="JPEG", quality=90)
+        blobs.append(buf.getvalue())
+    t0 = time.perf_counter()
+    fusedj = native.decode_resize_normalize(blobs, dst, mean, std)
+    jpeg_s = time.perf_counter() - t0
+    stepwise = fused(np.stack([native.decode_jpeg(b) for b in blobs]))
+    errj = float(np.abs(fusedj - stepwise).max())
+    emit({"phase": "data_jpeg", "images": 16, "decode_resize_ms": 1e3 *
+          jpeg_s, "max_abs_err_against_decode_then_resize": errj})
+    if not errj <= 1e-4:
+        raise AssertionError(f"fused JPEG route disagrees: {errj}")
+
+
+def _config(path):
+    """``Config.from_file``, or the same fields from a dict where PyYAML is
+    missing (the CPU tests hold the dicts equal to the files)."""
+    from tlxcv_tpu_torch.config import Config
+
+    try:
+        return Config.from_file(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), path))
+    except ImportError:
+        return Config(**DATA_CONFIGS[path])
+
+
+DATA_CONFIGS = {
+    "configs/resnet50_cifar10.yaml": {
+        "model": "resnet50", "model_kwargs": {"num_classes": 10},
+        "task": "classification", "optimizer": "Adam", "lr": 0.0001,
+        "batch_size": 32, "n_epoch": 100},
+    "configs/unet_circles.yaml": {
+        "model": "unet", "model_kwargs": {"nx": 172, "ny": 172,
+                                          "channels": 1, "num_classes": 2},
+        "task": "segmentation", "optimizer": "Adam", "lr": 0.001,
+        "batch_size": 2, "n_epoch": 5},
+    "configs/yolov3_coco.yaml": {
+        "model": "yolov3", "model_kwargs": {"num_classes": 80},
+        "task": "detection", "optimizer": "Adam", "lr": 0.0001,
+        "batch_size": 8, "n_epoch": 50},
+}
+
+
+def _write_cifar(root, n, gen):
+    """``n`` images in the CIFAR pickle layout (five train batches), each
+    class a colour over noise."""
+    import pickle
+
+    import numpy as np
+
+    labels = gen.integers(0, 10, n)
+    colours = gen.integers(0, 256, (10, 3))
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    for i, idx in enumerate(np.array_split(np.arange(n), 5)):
+        img = (0.8 * colours[labels[idx]][:, :, None, None]
+               + 0.2 * gen.integers(0, 256, (len(idx), 3, 32, 32)))
+        data = img.astype(np.uint8).reshape(len(idx), -1)
+        with open(os.path.join(base, f"data_batch_{i + 1}"), "wb") as f:
+            pickle.dump({b"data": data,
+                         b"labels": labels[idx].tolist()}, f)
+
+
+def _recording(trainer):
+    """Record each training step's loss (a device tensor)."""
+    losses, step = [], trainer._train_step
+
+    def recorded(x, y, epoch_id=0):
+        loss, out = step(x, y, epoch_id)
+        losses.append(loss)
+        return loss, out
+
+    trainer._train_step = recorded
+    return losses
+
+
+def _timed_epoch(trainer, loader, steps):
+    """Images a second of one epoch of ``steps`` steps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(n_epoch=1, train_dataset=loader,
+                  max_steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    return steps * loader.batch_size / (time.perf_counter() - t0)
+
+
+def data_training(tmp):
+    """Config-built training with a metric: ResNet-50 (10 classes) on
+    CIFAR batches at b32, with and without ``Accuracy``; the UNet of
+    ``configs/unet_circles.yaml`` on Circles with ``MeanIoU``."""
+    import numpy as np
+
+    from tlxcv_tpu_torch.data import Circles, Cifar10, DataLoader
+    from tlxcv_tpu_torch.utils.metrics import Accuracy, MeanIoU
+
+    gen = np.random.default_rng(0)
+    _write_cifar(tmp, DATA_CIFAR["images"], gen)
+    ds = Cifar10(tmp, split="train",
+                 transform=lambda im: im.astype(np.float32) / 255.0)
+    cfg = _config("configs/resnet50_cifar10.yaml")
+    loader = DataLoader(ds, batch_size=cfg.batch_size)
+    torch.manual_seed(0)
+    trainer = cfg.build_trainer(metrics=Accuracy())
+    losses = _recording(trainer)
+    steps = DATA_CIFAR["steps"]
+    trainer.train(n_epoch=DATA_CIFAR["epochs"], train_dataset=loader,
+                  max_steps_per_epoch=steps)
+    curve = [float(v) for v in losses]
+    acc = trainer.metrics.result()
+    with_metric = _timed_epoch(trainer, loader, steps)
+    trainer.metrics = None
+    without = _timed_epoch(trainer, loader, steps)
+    trainer.metrics = Accuracy()
+    evaluated = trainer.evaluate(loader, max_batches=2)
+    check = {"model": cfg.model, "classes": 10, "batch": cfg.batch_size,
+             "steps": len(curve), "loss_curve": curve, "train_acc": acc,
+             "evaluate": evaluated, "img_per_s_with_metric": with_metric,
+             "img_per_s_without_metric": without,
+             "metric_cost_share": 1 - with_metric / without}
+    emit({"phase": "data_train_cifar", **check})
+    if not (all(math.isfinite(v) for v in curve)
+            and np.mean(curve[-steps:]) < np.mean(curve[:steps])
+            and 0.0 <= acc <= 1.0 and "metric" in evaluated):
+        raise AssertionError(f"config-built ResNet-50 training: {check}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = _config("configs/unet_circles.yaml")
+
+    def crop(x, size=132):
+        d = (x.shape[0] - size) // 2
+        return np.ascontiguousarray(x[d:d + size, d:d + size])
+
+    circles = Circles(8, nx=172, ny=172, nc=1, seed=0,
+                      target_transform=crop)
+    loader = DataLoader(circles, batch_size=cfg.batch_size)
+    trainer = cfg.build_trainer(metrics=MeanIoU(2))
+    losses = _recording(trainer)
+    trainer.train(n_epoch=2, train_dataset=loader)
+    curve = [float(v) for v in losses]
+    miou = trainer.metrics.result()
+    check = {"model": cfg.model, "batch": cfg.batch_size, "hw": [172, 172],
+             "steps": len(curve), "loss_curve": curve, "train_miou": miou}
+    emit({"phase": "data_train_circles", **check})
+    if not (all(math.isfinite(v) for v in curve) and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"config-built UNet training: {check}")
+
+
+def _write_coco(root, gen, n, side, boxes):
+    """``n`` JPEG images of ``side``^2 with ``boxes`` filled rectangles
+    each, and their instances JSON (80 categories)."""
+    import numpy as np
+    from PIL import Image
+
+    images, anns = [], []
+    for i in range(n):
+        img = gen.integers(0, 64, (side, side, 3), dtype=np.uint8)
+        for _ in range(boxes):
+            x, y = gen.integers(0, side - 96, 2)
+            w, h = gen.integers(24, 96, 2)
+            img[y:y + h, x:x + w] = gen.integers(128, 256, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(gen.integers(1, 81)),
+                         "bbox": [float(x), float(y), float(w), float(h)],
+                         "area": float(w * h), "iscrowd": 0})
+        name = f"{i:04d}.jpg"
+        Image.fromarray(img).save(os.path.join(root, name), quality=92)
+        images.append({"id": i + 1, "file_name": name, "height": side,
+                       "width": side})
+    path = os.path.join(root, "instances.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": str(c)} for c in range(1, 81)]}, f)
+    return path
+
+
+def _synthetic_eval(gen, n, dets, gts=7, classes=80, side=640):
+    """Per-image detections near random GT boxes, half of them with the
+    GT's label, for the evaluator's cost at COCO's scale."""
+    import numpy as np
+
+    preds, truth = [], []
+    for _ in range(n):
+        xy = gen.uniform(0, side - 64, (gts, 2))
+        wh = gen.uniform(8, 200, (gts, 2))
+        g = np.concatenate([xy, np.minimum(xy + wh, side)], 1).astype(
+            np.float32)
+        gl = gen.integers(0, classes, gts)
+        j = gen.integers(0, gts, dets)
+        p = g[j] + gen.normal(0, 8, (dets, 4)).astype(np.float32)
+        pl = np.where(gen.random(dets) < 0.5, gl[j],
+                      gen.integers(0, classes, dets))
+        preds.append({"boxes": p, "scores": gen.random(dets).astype(
+            np.float32), "labels": pl})
+        truth.append({"boxes": g, "labels": gl})
+    return preds, truth
+
+
+def data_coco(tmp):
+    """COCO evaluation: ``configs/yolov3_coco.yaml``'s detector predicts at
+    b8 on ``CocoDetection`` through the detection transforms; the ground
+    truth scored as predictions gives 1.0, the detector's stats are finite;
+    the evaluator's host cost at 100 detections an image."""
+    import numpy as np
+
+    from tlxcv_tpu_torch.data import CocoDetection, DataLoader
+    from tlxcv_tpu_torch.data import det_transforms as DT
+    from tlxcv_tpu_torch.utils.coco_eval import CocoEvaluator
+
+    gen = np.random.default_rng(1)
+    side, batch = DATA_COCO["side"], DATA_COCO["batch"]
+    ann = _write_coco(tmp, gen, DATA_COCO["images"], side,
+                      DATA_COCO["boxes"])
+    pipeline = DT.DetCompose([
+        DT.DetResize((side, side)),
+        DT.DetNormalize((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        DT.PadGTSingle(num_max_boxes=50)])
+    ds = CocoDetection(tmp, ann, transforms=pipeline)
+    cfg = _config("configs/yolov3_coco.yaml")
+    task = cfg.build_task().eval()
+    first = torch.from_numpy(next(iter(DataLoader(ds, batch_size=batch)))[0])
+    data_bn_statistics(task.backbone, first.cuda())
+    preds, truth, gt_as_pred = [], [], []
+    t_pred = 0.0
+    with torch.inference_mode():
+        for x, y in DataLoader(ds, batch_size=batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dets, counts = task.predict(torch.from_numpy(x).cuda())
+            torch.cuda.synchronize()
+            t_pred += time.perf_counter() - t0
+            for i in range(len(x)):
+                d = dets[i, :int(counts[i])]
+                preds.append({"boxes": d[:, 2:6], "scores": d[:, 1],
+                              "labels": d[:, 0].long()})
+                keep = y["pad_gt_mask"][i] > 0
+                cxcywh = y["boxes"][i][keep] * side
+                xyxy = np.concatenate([cxcywh[:, :2] - cxcywh[:, 2:] / 2,
+                                       cxcywh[:, :2] + cxcywh[:, 2:] / 2], 1)
+                gt = {"boxes": xyxy, "labels": y["class_labels"][i][keep]}
+                truth.append(gt)
+                gt_as_pred.append({**gt, "scores": np.ones(len(xyxy))})
+    ev = CocoEvaluator()
+    ev.update(preds, truth)
+    stats = ev.accumulate()["stats"]
+    perfect = CocoEvaluator()
+    perfect.update(gt_as_pred, truth)
+    perfect_map = perfect.accumulate()["map"]
+    n, dets = DATA_COCO["eval_images"], DATA_COCO["eval_dets"]
+    p, g = _synthetic_eval(np.random.default_rng(2), n, dets)
+    timed = CocoEvaluator()
+    timed.update(p, g)
+    t0 = time.perf_counter()
+    timed.accumulate()
+    eval_s = time.perf_counter() - t0
+    check = {"images": len(truth), "batch": batch, "hw": [side, side],
+             "classes": 80, "detector_stats": stats.tolist(),
+             "gt_as_prediction_map": perfect_map,
+             "predict_s": t_pred, "evaluator_images": n,
+             "evaluator_dets_per_image": dets,
+             "evaluator_s": eval_s,
+             "evaluator_s_per_1000_images": eval_s * 1000 / n,
+             "image_reader": ("native libjpeg" if __import__(
+                 "tlxcv_tpu_torch.native", fromlist=["x"]).jpeg_available()
+                 else "PIL"),
+             "fixture_encoder": "PIL JPEG, quality 92"}
+    emit({"phase": "data_coco", **check})
+    if not (len(truth) == DATA_COCO["images"] and perfect_map == 1.0
+            and np.isfinite(stats).all()):
+        raise AssertionError(f"COCO evaluation: {check}")
+
+
+def _served_rate(fn, x, rounds=5, warmup=2):
+    """Images a second of ``fn(x)``, the host clock around each call and a
+    synchronise, median of ``rounds``."""
+    times = []
+    for i in range(warmup + rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    return x.shape[0] / statistics.median(times)
+
+
+def _equal(got, want):
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, want)
+    return len(got) == len(want) and all(_equal(g, w)
+                                         for g, w in zip(got, want))
+
+
+def export_round_trip(tmp, name, model, x, kernel, per_forward, method,
+                      profile=False):
+    """Export ``model.method`` on the card at a symbolic batch, save, load
+    and serve ``x``: the outputs bitwise the eager model's, ``kernel``
+    launched ``per_forward`` times by one exported forward.  With
+    ``profile``, the device time and idle share of both."""
+    from tlxcv_tpu_torch.utils.export import (export_model, load_exported,
+                                              save_exported)
+
+    t0 = time.perf_counter()
+    art = export_model(model, tuple(x.shape[1:]), dtype=x.dtype,
+                       method=method)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{name}.pt2")
+    size = save_exported(path, art)
+    served = load_exported(path)
+    eager = getattr(model, "forward" if method == "__call__" else method)
+    with torch.inference_mode():
+        want = eager(x)
+        reset_launches()
+        got = served(x)
+        counts = launches()
+        small = served(x[:3])
+        rates = {"exported_img_per_s": _served_rate(served, x)}
+        rates["eager_img_per_s"] = _served_rate(eager, x)
+    graph_ops = sorted({str(n.target) for n in art.graph.nodes
+                        if str(n.target).startswith("tlxcv.")})
+    want_counts = {k: per_forward if k == kernel else 0 for k in counts}
+    check = {"batch": x.shape[0], "dtype": str(x.dtype).split(".")[-1],
+             "bitwise_equal": _equal(got, want), "launches": counts,
+             "graph_operators": graph_ops, "artifact_bytes": size,
+             "export_s": export_s, "batch3_shapes": [
+                 list(t.shape) for t in (small if isinstance(small, tuple)
+                                         else (small,))], **rates}
+    emit({"phase": "data_export", "model": name, **check})
+    if not check["bitwise_equal"] or counts != want_counts:
+        raise AssertionError(f"{name} exported: {check}")
+    if profile:
+        batch = x.shape[0]
+        phase_profile(name + "_exported", None, x, call=served,
+                      step_s=batch / rates["exported_img_per_s"])
+        phase_profile(name + "_eager", None, x, call=eager,
+                      step_s=batch / rates["eager_img_per_s"])
+    return counts
+
+
+def data_export(tmp, flash_record, int8_record, profile=False):
+    """ViT-B/16 b64 bf16 (12 flash launches), full-int8 ResNet-50 b256 (54
+    int8_matmul launches) and SSD's predict at b128 300^2, each exported
+    on the card, saved, loaded and served (with ``profile``, each profiled
+    beside its eager twin)."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.ops.quant import quantize_for_serving
+    from tlxcv_tpu_torch.tasks import ImageClassification, ObjectDetection
+
+    gen = torch.Generator().manual_seed(5)
+    vit = ImageClassification(create_model(
+        "vit_base_patch16_224", generator=gen)).eval().to(torch.bfloat16)
+    x = torch.randn(DATA_EXPORT["vit"], 224, 224, 3, generator=gen).to(
+        "cuda", torch.bfloat16)
+    counts = export_round_trip(tmp, "vit_base_patch16_224", vit, x,
+                               "flash_attention", 12, "__call__", profile)
+    flash_record["export_launches"] = counts["flash_attention"]
+    del vit, x
+    torch.cuda.empty_cache()
+
+    # quantized on the card (phase_resnet holds the card's int8 ResNet-50
+    # against the CPU's); the round trip compares the card with itself
+    card8 = ImageClassification(create_model("resnet50",
+                                             generator=gen)).eval()
+    random_bn_statistics(card8, gen)
+    quantize_for_serving(card8.backbone, [torch.randn(2, 224, 224, 3,
+                                                      generator=gen)])
+    x = torch.randn(DATA_EXPORT["resnet50_int8"], 224, 224, 3,
+                    generator=gen).to("cuda", torch.bfloat16)
+    counts = export_round_trip(tmp, "resnet50_int8", card8, x,
+                               "int8_matmul", 54, "__call__", profile)
+    int8_record["export_launches"] = counts["int8_matmul"]
+    del card8, x
+    torch.cuda.empty_cache()
+
+    ssd = ObjectDetection(create_model("ssd", generator=gen)).eval()
+    x = torch.randn(DATA_EXPORT["ssd"], 300, 300, 3, generator=gen).cuda()
+    data_bn_statistics(ssd.backbone, x[:16])
+    export_round_trip(tmp, "ssd", ssd, x, None, 0, "predict", profile)
+
+
+def data_theseus_profiler(tmp):
+    """``record_features`` on ResNet-50 at the reference's paths, on the
+    card in bf16 against the CPU in f32 within the ResNet legs' bf16 bound;
+    ``profiler.trace`` writes a trace and ``benchmark_fn`` times a
+    forward."""
+    from tlxcv_tpu_torch import create_model
+    from tlxcv_tpu_torch.utils import profiler
+    from tlxcv_tpu_torch.utils.theseus import record_features
+
+    gen = torch.Generator().manual_seed(7)
+    cpu = create_model("resnet50", device="cpu", generator=gen).eval()
+    random_bn_statistics(cpu, gen)
+    card = params_to(copy.deepcopy(cpu).cuda(), torch.bfloat16)
+    paths = ["layer1", "layer2", "layer3", "layer4"]
+    want, got = record_features(cpu, paths), record_features(card, paths)
+    x = torch.randn(4, 224, 224, 3, generator=gen)
+    with torch.inference_mode():
+        cpu(x)
+        card(x.cuda().to(torch.bfloat16))
+    errs = {}
+    for p in paths:
+        scale = want[p].abs().max().item()
+        errs[p] = {"max_abs_err": (got[p].float().cpu() - want[p]).abs()
+                   .max().item(), "bound": 3e-2 * scale,
+                   "shape": list(got[p].shape)}
+    logdir = os.path.join(tmp, "trace")
+    xc = x.cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        with profiler.trace(logdir) as prof:
+            card(xc)
+            torch.cuda.synchronize()
+        fwd_s = profiler.benchmark_fn(card, xc, iters=10)
+    trace = os.path.join(logdir, "trace.json")
+    device_us = sum(getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0))
+                    for e in prof.key_averages())
+    check = {"features": errs, "trace_bytes": os.path.getsize(trace),
+             "trace_device_us": device_us, "benchmark_fn_ms": 1e3 * fwd_s,
+             "device_info": profiler.device_info()}
+    emit({"phase": "data_theseus_profiler", **check})
+    if not all(e["max_abs_err"] <= e["bound"] for e in errs.values()):
+        raise AssertionError(f"recorded features disagree: {check}")
+    if not (check["trace_bytes"] > 0 and fwd_s > 0):
+        raise AssertionError(f"profiler: {check}")
+
+
+def phase_data(flash_record, int8_record, profile=False):
+    """The data and utility layers on the card: the native host ops, config
+    training with metrics, COCO evaluation, export round trips (with
+    ``profile``, each profiled beside its eager twin), theseus and the
+    profiler, then the flash wrapper's host cost."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    data_native()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_training(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_coco(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_export(tmp, flash_record, int8_record, profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_theseus_profiler(tmp)
+    phase_dispatch()
+    emit({"phase": "data_done", "seconds": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
+    if "--dispatch" in sys.argv[1:]:  # the flash wrapper's host cost alone
+        phase_dispatch()      # (builds only the flash kernel, at first use)
+        print(card_line(), flush=True)
+        return 0
     phase_environment()
     if "--vit" in sys.argv[1:]:  # ViT-B/16 checked and served, alone
         phase_model({})
         print(card_line(), flush=True)
         return 0
     profile = "--profile" in sys.argv[1:]
+    if "--data" in sys.argv[1:]:  # the data and utility layers alone
+        flash = {"name": "flash_attention"}
+        int8 = {"name": "int8_matmul"}
+        phase_data(flash, int8, profile)
+        emit({"kernels": [flash, int8]})
+        print(card_line(), flush=True)
+        return 0
     if "--int8" in sys.argv[1:]:  # the int8 GEMM and its two int8 paths
         int8 = phase_int8_kernels()
         _, resnet8, resnet_x = phase_resnet(int8, floats=False)
@@ -7268,6 +7902,7 @@ def main():
     attention_training_legs(bwd, profile)
     training_legs(int8, profile)
     phase_backward_profile()
+    phase_data(flash, int8, profile)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("fused_ms", "fused_bound_ms", "fused_library_ms", "forward_ms",
@@ -7286,7 +7921,7 @@ def main():
              "retinaface_bound_ms", "sequence_grids",
              "retinaface_train_launches", "retinaface_train_ms",
              "retinaface_train_plain_ms", "retinaface_train_library_ms",
-             "retinaface_train_bound_ms", "f32_grids")
+             "retinaface_train_bound_ms", "f32_grids", "export_launches")
     emit({"kernels": [{key: r[key] for key in keys + extra if key in r}
                       for r in (flash, bwd, int8, bf16, gather, upsample,
                                 sep, up2x)]})

@@ -2172,3 +2172,109 @@ def test_trocr_trains_under_the_bf16_policy_on_the_card(cuda):
             assert flash_attention.launches == fwd + 5
             assert flash_attention_backward.launches == bwd + 5
     assert abs(losses[1] - losses[0]) <= 1e-2 * abs(losses[0])
+
+
+# --------------------------------------------- operators and export (item 14)
+def _operator_cases(dev):
+    """(name, operator, its plain version, arguments on ``dev``): every
+    ``tlxcv`` operator at a shape its kernel takes."""
+    from tlxcv_tpu_torch.ops.cuda import attention as A
+    from tlxcv_tpu_torch.ops.cuda import gather as G
+    from tlxcv_tpu_torch.ops.cuda import matmul as M
+    from tlxcv_tpu_torch.ops.cuda import upsample as U
+
+    g = torch.Generator().manual_seed(11)
+
+    def f(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def q8(*shape):
+        return torch.randint(-100, 100, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    q, k, v = (f(2, 3, n, 64, dtype=torch.bfloat16) for n in (40, 72, 72))
+    a, w = q8(130, 64), q8(48, 64)
+    scale, bias = f(48).abs() / 1e3, f(48)
+    x, skip = f(2, 5, 7, 16), f(2, 10, 14, 16)
+    return [
+        ("flash_attention", A.flash_attention_op,
+         lambda *t: A._plain_in_kernel_layout(*t, with_lse=False),
+         (q, k, v, None, 0.125)),
+        ("int8_matmul_nt", M.int8_matmul_nt_op,
+         lambda a, w: M.int8_matmul_plain(a, w.t()), (a, w)),
+        ("int8_matmul_requant", M.int8_matmul_requant_op,
+         M.int8_matmul_requant_plain,
+         (a, w, scale, bias, True, torch.tensor(0.05, device=dev),
+          torch.float32)),
+        ("bf16_matmul", M.bf16_matmul_op, M.bf16_matmul_plain,
+         (f(70, 40, dtype=torch.bfloat16), f(40, 24, dtype=torch.bfloat16))),
+        ("gather_rows", G.gather_rows_op, G.gather_rows_plain,
+         (f(50, 32), torch.randint(0, 50, (33,), generator=g,
+                                   dtype=torch.int32).to(dev))),
+        ("upsample_add", U.upsample_add_op, U.upsample_add_plain,
+         (x, skip, "bilinear")),
+        ("upsample2x", U.upsample2x_op, U.upsample2x_plain, (x,)),
+    ]
+
+
+def test_operators_launch_their_kernels_and_match_plain(cuda):
+    """Each operator's CUDA implementation launches its kernel (one count)
+    and never its plain version; its output against the plain version on
+    the same card tensors (bitwise but for flash attention's bf16)."""
+    import chip_smoke
+
+    for name, op, plain, args in _operator_cases(cuda):
+        chip_smoke.reset_launches()
+        got = op(*args)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in chip_smoke.launches().items() if n}
+        want = plain(*args)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        if name == "flash_attention":
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=0)
+        else:
+            assert torch.equal(got, want), name
+        kernel = {"int8_matmul_nt": "int8_matmul",
+                  "int8_matmul_requant": "int8_matmul",
+                  "upsample_add": "upsample_add_fused",
+                  "upsample2x": "upsample2x_fused"}.get(name, name)
+        assert counts == {kernel: 1}, (name, counts)
+
+
+@pytest.mark.parametrize("kind", ["vit", "int8"])
+def test_export_on_the_card_replays_the_kernels(cuda, kind, tmp_path):
+    """A micro ViT (bf16, 2 flash launches a forward) and a micro int8
+    ResNet-18 (21 int8 GEMM launches) exported on the card, saved, loaded,
+    served at batches 1 and 3: bitwise the eager model, the same kernels."""
+    import chip_smoke
+    from tlxcv_tpu_torch.models.classification import vision_transformer
+    from tlxcv_tpu_torch.tasks import ImageClassification
+    from tlxcv_tpu_torch.utils.export import (export_model, load_exported,
+                                              save_exported)
+
+    torch.manual_seed(0)
+    if kind == "vit":
+        model = ImageClassification(vision_transformer.VisionTransformer(
+            img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=4,
+            num_classes=10, qkv_bias=True, device="cpu")).eval()
+        model = model.to(cuda, torch.bfloat16)
+        dtype, kernel, per = torch.bfloat16, "flash_attention", 2
+    else:
+        model = create_model("resnet18", device="cpu", num_classes=10).eval()
+        quantize_weights(model)
+        calibrate_activations(model, [torch.randn(2, 32, 32, 3)])
+        model = model.to(cuda)
+        dtype, kernel, per = torch.float32, "int8_matmul", 21
+    art = export_model(model, (32, 32, 3), dtype=dtype)
+    save_exported(str(tmp_path / "m.pt2"), art)
+    serve = load_exported(str(tmp_path / "m.pt2"))
+    for b in (1, 3):
+        x = torch.randn(b, 32, 32, 3, device=cuda).to(dtype)
+        with torch.inference_mode():
+            want = model(x)
+            chip_smoke.reset_launches()
+            got = serve(x)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in chip_smoke.launches().items() if n}
+        assert torch.equal(got, want) and counts == {kernel: per}, counts

@@ -79,7 +79,12 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "models.video_classification.i3d",
                  "tasks.video_classification", "models.ocr.transform",
                  "models.ocr.trocr", "tasks.ocr", "tasks.distillation",
-                 "data.charades", "data.synth90k"):
+                 "data.charades", "data.synth90k", "data.cifar",
+                 "data.circles", "data.coco", "data.wider", "data.face300w",
+                 "data.casiawebface", "data.det_transforms",
+                 "data.landmark_transforms", "native", "ops.cuda.library",
+                 "utils.coco_eval", "utils.convert", "utils.theseus",
+                 "utils.profiler", "utils.export"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 

@@ -346,8 +346,7 @@ def test_train_through_the_loader_on_shapes(tmp_path):
     assert trainer.step == 1
     for k, p in tt.named_parameters():
         assert torch.equal(p, trainer.params[k].detach()), k
-    for kw in ({"mesh": object()}, {"param_sharding": "fsdp"},
-               {"metrics": object()}):
+    for kw in ({"mesh": object()}, {"param_sharding": "fsdp"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(tt, device="cpu", **kw)
     path = str(tmp_path / "state.npz")

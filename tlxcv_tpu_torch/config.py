@@ -1,10 +1,16 @@
-"""Model registry (counterpart of ``tlxcv_tpu/config.py:13-35``): a flat
-table of model factories keyed by name; and the segmentation configs
-(``load_seg_config``, ``build_seg_model``: ``tlxcv_tpu/config.py:161-201``),
-PaddleSeg-style YAMLs such as ``configs/segmentation/*/*.yml``."""
+"""Model registry and experiment configs (counterpart of
+``tlxcv_tpu/config.py``): a flat table of model factories keyed by name;
+``Config``, a flat experiment config that builds the model, the optimizer,
+the task and the Trainer from a plain dict, a YAML or a JSON file
+(``config.py:103-165``); and the segmentation configs (``load_seg_config``,
+``build_seg_model``: ``config.py:161-201``), PaddleSeg-style YAMLs such as
+``configs/segmentation/*/*.yml``.  GAN recipes (``build_gan_trainer``)
+come with the GAN trainers (ROADMAP queue 1, item 13)."""
 from __future__ import annotations
 
+import dataclasses
 import functools
+import json
 import os
 import typing as tp
 
@@ -94,6 +100,76 @@ def _populate():
             arch, functools.partial(D.ppyoloe, arch))
     for arch in D.YOLOX_SIZES:
         _MODEL_REGISTRY.setdefault(arch, functools.partial(D.yolox, arch))
+
+
+@dataclasses.dataclass
+class Config:
+    """Flat experiment config: model + optimizer + training params.  The
+    ``build_*`` methods build on ``device`` (``None``: the CUDA card)."""
+
+    model: str = "resnet50"
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
+    task: str = "classification"
+    optimizer: str = "Adam"
+    lr: float = 1e-3
+    optimizer_kwargs: dict = dataclasses.field(default_factory=dict)
+    batch_size: int = 32
+    n_epoch: int = 10
+    seed: int = 0
+    ema_decay: tp.Optional[float] = None  # the Trainer's weight EMA
+
+    @classmethod
+    def from_file(cls, path):
+        """A YAML (``.yaml``/``.yml``, needs PyYAML) or JSON file."""
+        with open(path) as f:
+            if path.endswith((".yaml", ".yml")):
+                try:
+                    import yaml
+                except ImportError as err:
+                    raise ImportError(
+                        "Config.from_file reads YAML with PyYAML (the yaml "
+                        "module), which is not installed; pass a JSON "
+                        "file or build Config(**dict)") from err
+                d = yaml.safe_load(f)
+            else:
+                d = json.load(f)
+        return cls(**d)
+
+    def build_model(self, device=None):
+        return create_model(self.model, device=device, **self.model_kwargs)
+
+    def build_optimizer(self):
+        """The ``train.optimizers`` factory named ``optimizer`` at ``lr``."""
+        from .train import optimizers as opt
+
+        return getattr(opt, self.optimizer)(self.lr, **self.optimizer_kwargs)
+
+    def build_task(self, device=None):
+        from . import tasks
+
+        if self.task == "gan":
+            raise NotImplementedError("Config: task 'gan' is not ported yet "
+                                      "(ROADMAP queue 1, item 12)")
+        names = {
+            "classification": tasks.ImageClassification,
+            "segmentation": tasks.ImageSegmentation,
+            "detection": tasks.ObjectDetection,
+            "pose": tasks.HumanPoseEstimation,
+            "landmark": tasks.FacialLandmarkDetection,
+            "ocr": tasks.OpticalCharacterRecognition,
+            "video": tasks.VideoClassification,
+        }
+        return names[self.task](self.build_model(device))
+
+    def build_trainer(self, network=None, device=None, **kw):
+        """Task + optimizer + Trainer in one step (the EMA wired
+        through); ``kw`` goes to the Trainer (``metrics=``, ...)."""
+        from .train import Trainer
+
+        net = network if network is not None else self.build_task(device)
+        kw.setdefault("ema_decay", self.ema_decay)
+        return Trainer(network=net, optimizer=self.build_optimizer(),
+                       seed=self.seed, device=device, **kw)
 
 
 def load_seg_config(path):

@@ -9,9 +9,8 @@ Two tiers, as in the reference:
   (resize, normalize, a random horizontal flip drawn from an explicit
   ``torch.Generator``).
 
-The reference's ``FusedResizeNormalize`` calls its native host ops
-(``tlxcv_tpu/native``), which are not ported yet (ROADMAP queue 1, item
-14).
+``FusedResizeNormalize`` is the resize and the normalize in one threaded
+C++ pass over a uint8 batch (``tlxcv_tpu_torch.native``).
 """
 from __future__ import annotations
 
@@ -24,7 +23,8 @@ except Exception:  # cv2 is optional: Resize falls back to numpy
     cv2 = None
 
 __all__ = ["Compose", "Resize", "Normalize", "ToTensor",
-           "RandomFlipHorizontal", "RandomCrop", "batch_preprocess"]
+           "RandomFlipHorizontal", "RandomCrop", "batch_preprocess",
+           "FusedResizeNormalize"]
 
 
 class Compose:
@@ -139,3 +139,27 @@ def batch_preprocess(images, mean, std, generator=None, size=None,
                           device=generator.device) < 0.5
         x = torch.where(flip.to(x.device), x.flip(2), x)
     return x
+
+
+class FusedResizeNormalize:
+    """Resize (cv2's bilinear, half-pixel centres) and normalize of uint8
+    HWC images in one threaded C++ pass (``native.resize_normalize_batch``,
+    its numpy fallback without the library): one image [H, W, C] or a
+    batch [B, H, W, C] in, float32 NHWC out."""
+
+    def __init__(self, size, mean, std, threads=0):
+        self.size = (tuple(size) if isinstance(size, (tuple, list))
+                     else (size, size))
+        self.mean = mean
+        self.std = std
+        self.threads = threads
+
+    def __call__(self, img):
+        from .. import native
+
+        img = np.asarray(img)
+        batched = img.ndim == 4
+        out = native.resize_normalize_batch(
+            img if batched else img[None], self.size, self.mean, self.std,
+            self.threads)
+        return out if batched else out[0]

@@ -9,8 +9,13 @@ own choice.
 
 ``flash_attention`` takes the plain version for a tensor on the CPU, which
 autograd differentiates.  For a CUDA tensor it launches the kernel or
-raises; it never falls back.  The kernel reads q, k, v through their
-strides: a ``[B, H, S, D]`` view into a packed qkv projection needs no copy.
+raises; it never falls back.  Its forward is the operator
+``tlxcv::flash_attention`` (``library``; ``tlxcv::flash_attention_lse``
+when it also writes the log-sum-exp), which ``torch.export`` records: a
+call that needs no gradient reaches the operator directly, on either
+device, and one that does goes through the ``autograd.Function``.  The
+kernel reads q, k, v through their strides: a ``[B, H, S, D]`` view into
+a packed qkv projection needs no copy.
 On the card the call is a ``torch.autograd.Function``: its forward is the
 kernel, which also writes each row's log-sum-exp when an input requires
 grad, and its backward is ``csrc/flash_attention_bwd.cu`` (dq, dk and dv
@@ -40,8 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .library import check_device, define, needs_grad
 
 __all__ = ["flash_attention", "flash_attention_backward",
+           "flash_attention_op", "flash_attention_lse_op",
            "flash_attention_plain", "flash_attention_backward_plain",
            "padded_head_dim", "NEG"]
 
@@ -289,6 +296,53 @@ def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
     return dq, dk, dv
 
 
+def _kernel_layout(q):
+    """The shape of the kernel's output: [BH, Sq, D], or [B, Sq, H, D] for
+    a 4D call (the token-major store)."""
+    return q.shape if q.ndim == 3 else (q.shape[0], q.shape[2], q.shape[1],
+                                        q.shape[3])
+
+
+def _plain_in_kernel_layout(q, k, v, bias, scale, with_lse):
+    out, lse = flash_attention_plain(q, k, v, bias, scale, return_lse=True)
+    out = out if q.ndim == 3 else out.transpose(1, 2).contiguous()
+    return (out, lse.float()) if with_lse else out
+
+
+def _fake(q, k, v, bias, scale):
+    return q.new_empty(_kernel_layout(q))
+
+
+def _fake_lse(q, k, v, bias, scale):
+    return (q.new_empty(_kernel_layout(q)),
+            q.new_empty(math.prod(q.shape[:-2]), q.shape[-2],
+                        dtype=torch.float32))
+
+
+def _cuda(q, k, v, bias, scale):
+    _check_kernel_inputs(q, k, v, bias)
+    return _launch_kernel(q, k, v, bias, scale)[0]
+
+
+def _cuda_lse(q, k, v, bias, scale):
+    _check_kernel_inputs(q, k, v, bias)
+    return _launch_kernel(q, k, v, bias, scale, with_lse=True)
+
+
+# The forward as operators (``library``): the output in the kernel's layout;
+# the second also returns the rows' log-sum-exp [BH, Sq] f32 for the
+# backward.  On the card q, k, v must be what the kernel takes (head dim
+# 32, 64, 96 or 128: ``flash_attention`` pads before the call).
+_SCHEMA = "(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale)"
+flash_attention_op = define(
+    "flash_attention" + _SCHEMA + " -> Tensor",
+    lambda *a: _plain_in_kernel_layout(*a, with_lse=False), _cuda, _fake)
+flash_attention_lse_op = define(
+    "flash_attention_lse" + _SCHEMA + " -> (Tensor, Tensor)",
+    lambda *a: _plain_in_kernel_layout(*a, with_lse=True), _cuda_lse,
+    _fake_lse)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernel as an autograd node: forward launches it (writing the
     rows' log-sum-exp when ``train``), backward launches the backward
@@ -296,10 +350,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, train):
-        out, lse = _launch_kernel(q, k, v, bias, scale, with_lse=train)
-        if train:
-            ctx.save_for_backward(q, k, v, bias, out, lse)
-            ctx.scale = scale
+        if not train:
+            return flash_attention_op(q, k, v, bias, scale)
+        out, lse = flash_attention_lse_op(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
@@ -323,20 +378,24 @@ def flash_attention(q, k, v, bias=None, scale=None):
     On the card the result has a ``grad_fn`` whose backward is the
     backward kernel."""
     _check_shapes(q, k, v, bias)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, scale)
+    check_device("flash_attention", q)
     d = q.shape[-1]
-    dp = padded_head_dim(d)
     scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        if needs_grad(q, k, v, bias):  # autograd through the plain version
+            return flash_attention_plain(q, k, v, bias, scale)
+        out = flash_attention_op(q, k, v, bias, scale)
+        return out if q.ndim == 3 else out.transpose(1, 2)
+    dp = padded_head_dim(d)
     if dp != d:  # zero columns: q.kᵀ and the kept columns of P.v unchanged
         q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
-    _check_kernel_inputs(q, k, v, bias)
-    train = torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad)
-    if train and bias is not None and bias.requires_grad:
-        raise ValueError("flash_attention on the card takes a constant bias: "
-                         "its backward gives the bias no gradient")
-    out = _FlashAttention.apply(q, k, v, bias, scale, train)
+    if needs_grad(q, k, v):
+        if bias is not None and bias.requires_grad:
+            raise ValueError("flash_attention on the card takes a constant "
+                             "bias: its backward gives the bias no gradient")
+        out = _FlashAttention.apply(q, k, v, bias, scale, True)
+    else:
+        out = flash_attention_op(q, k, v, bias, scale)
     out = out if q.ndim == 3 else out.transpose(1, 2)
     return out if dp == d else out[..., :d]
 

@@ -13,8 +13,10 @@ that would need a read back to the host).  It takes the plain version for
 CPU tensors; for CUDA tensors it launches the kernel or raises, never
 falling back.
 
-It is differentiable in a floating table.  The gradient is a scatter-add of
-the output gradient into an f32 zero table, cast back to the table's dtype.
+Its forward is the operator ``tlxcv::gather_rows`` (``library``), which
+``torch.export`` records.  It is differentiable in a floating table.  The
+gradient is a scatter-add of the output gradient into an f32 zero table,
+cast back to the table's dtype.
 The reference has no backward kernel here: its gradient of ``table[idx]``
 is XLA's scatter-add, outside any Pallas kernel, and ``index_add_`` is its
 counterpart.  On the card ``index_add_`` adds with atomics, so the order of
@@ -28,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build
+from .library import check_device, define, needs_grad
 
 __all__ = ["gather_rows", "gather_rows_bs", "gather_rows_plain"]
 
@@ -83,6 +86,12 @@ def _gather_kernel(table, idx):
     return out
 
 
+gather_rows_op = define(
+    "gather_rows(Tensor table, Tensor idx) -> Tensor", gather_rows_plain,
+    _gather_kernel,
+    lambda table, idx: table.new_empty(idx.shape[0], table.shape[1]))
+
+
 class _GatherRows(torch.autograd.Function):
     """``table[idx]`` with its gradient, a scatter-add in f32."""
 
@@ -90,9 +99,7 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        if table.device.type == "cpu":
-            return gather_rows_plain(table, idx)
-        return _gather_kernel(table, idx)
+        return gather_rows_op(table, idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -108,7 +115,10 @@ def gather_rows(table, idx):
     [R, C], byte for byte ``table[idx]``; differentiable in a floating
     table."""
     _check(table, idx)
-    return _GatherRows.apply(table, idx)
+    check_device("gather_rows", table)
+    if needs_grad(table):
+        return _GatherRows.apply(table, idx)
+    return gather_rows_op(table, idx)
 
 
 gather_rows.launches = 0  # kernel launches since the last reset

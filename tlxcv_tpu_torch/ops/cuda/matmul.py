@@ -26,7 +26,11 @@ N] bf16 -> [M, N] bf16``: the products summed in f32 and rounded to bf16
 once, at the end.
 
 All of them take the plain version for tensors on the CPU.  For CUDA
-tensors they launch the kernel or raise; they never fall back.
+tensors they launch the kernel or raise; they never fall back.  Each entry
+is an operator of ``library`` (``tlxcv::int8_matmul_nt``,
+``tlxcv::int8_matmul_requant``, ``tlxcv::bf16_matmul``), which
+``torch.export`` records; on the CPU, ``int8_matmul_requant`` calls its
+plain version directly where autograd records the epilogue's tensors.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .library import check_device, define, needs_grad
 
 __all__ = ["bf16_matmul", "bf16_matmul_plain", "int8_matmul", "int8_matmul_nt",
            "int8_matmul_plain", "int8_matmul_requant",
@@ -140,8 +145,11 @@ def int8_matmul_nt(a, w):
     transposed, as the int8 layers pack their weight) -> [M, N] int32,
     exact.  On the card K must be a multiple of ``K_ALIGN``."""
     _check_operands(a, w, 1)
-    if a.device.type == "cpu":
-        return int8_matmul_plain(a, w.t())
+    check_device("int8_matmul", a)
+    return int8_matmul_nt_op(a, w)
+
+
+def _int8_nt_cuda(a, w):
     m, n, k = _check_int8_kernel(a, w)
     out = torch.empty(m, n, dtype=torch.int32, device=a.device)
     if m == 0 or n == 0 or k == 0:
@@ -149,6 +157,12 @@ def int8_matmul_nt(a, w):
     _launch(int8_matmul, "tlx_int8_matmul_nt", "tlx_int8_error_string",
             (a, w, out), m, (n, k), aligned=(a, w, out))
     return out
+
+
+int8_matmul_nt_op = define(
+    "int8_matmul_nt(Tensor a, Tensor w) -> Tensor",
+    lambda a, w: int8_matmul_plain(a, w.t()), _int8_nt_cuda,
+    lambda a, w: a.new_empty(a.shape[0], w.shape[0], dtype=torch.int32))
 
 
 # ------------------------------------------------- int8 with its epilogue
@@ -224,10 +238,17 @@ def int8_matmul_requant(a, w, scale, bias=None, relu=False, out_scale=None,
     would record (the kernel has no backward)."""
     _check_operands(a, w, 1)
     _check_requant(a, w, scale, bias, out_scale, out_dtype)
-    if a.device.type == "cpu":
+    check_device("int8_matmul_requant", a)
+    if a.device.type == "cpu" and needs_grad(scale, bias, out_scale):
         return int8_matmul_requant_plain(a, w, scale, bias, relu, out_scale,
                                          out_dtype)
-    _refuse_grad(scale, bias, out_scale)
+    if a.device.type != "cpu":
+        _refuse_grad(scale, bias, out_scale)
+    return int8_matmul_requant_op(a, w, scale, bias, bool(relu), out_scale,
+                                  out_dtype)
+
+
+def _requant_cuda(a, w, scale, bias, relu, out_scale, out_dtype):
     m, n, k = _check_int8_kernel(a, w)
     if k == 0:
         raise ValueError("the fused kernel takes K > 0")
@@ -243,6 +264,17 @@ def int8_matmul_requant(a, w, scale, bias=None, relu=False, out_scale=None,
             (n, k, int(bool(relu)), _OUT_KIND[out_dtype]),
             aligned=(a, w, out))
     return out
+
+
+def _requant_fake(a, w, scale, bias, relu, out_scale, out_dtype):
+    return a.new_empty(a.shape[0], w.shape[0], dtype=(
+        torch.int8 if out_scale is not None else out_dtype))
+
+
+int8_matmul_requant_op = define(
+    "int8_matmul_requant(Tensor a, Tensor w, Tensor scale, Tensor? bias, "
+    "bool relu, Tensor? out_scale, ScalarType out_dtype) -> Tensor",
+    int8_matmul_requant_plain, _requant_cuda, _requant_fake)
 
 
 int8_matmul.launches = 0  # kernel launches since the last reset
@@ -284,8 +316,11 @@ def bf16_matmul(a, b):
     zero-padded to a multiple of ``BF16_ALIGN`` for the kernel when they
     are not one already; ``b`` is read as it lies, never transposed."""
     _check_bf16_operands(a, b)
-    if a.device.type == "cpu":
-        return bf16_matmul_plain(a, b)
+    check_device("bf16_matmul", a)
+    return bf16_matmul_op(a, b)
+
+
+def _bf16_cuda(a, b):
     _check_device("bf16_matmul", a, b)
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty(m, n, dtype=torch.bfloat16, device=a.device)
@@ -300,6 +335,11 @@ def bf16_matmul(a, b):
     _launch(bf16_matmul, "tlx_bf16_matmul", "tlx_bf16_error_string",
             (a, b, out), m, (n, kp, ldb), aligned=(a, b, out))
     return out
+
+
+bf16_matmul_op = define(
+    "bf16_matmul(Tensor a, Tensor b) -> Tensor", bf16_matmul_plain,
+    _bf16_cuda, lambda a, b: a.new_empty(a.shape[0], b.shape[1]))
 
 
 bf16_matmul.launches = 0  # kernel launches since the last reset

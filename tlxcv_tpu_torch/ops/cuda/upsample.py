@@ -29,7 +29,9 @@ OW >= W), nearest or half-pixel bilinear, with the taps of the reference's
 output dtype.  It is differentiable: ``d_skip = g`` and ``dx =
 sep_resize(g, Ahᵀ, Awᵀ)``, as ``_fused_up_add_bwd``.  Every function here
 takes the plain versions for CPU tensors; for CUDA tensors it launches the
-kernels or raises, never falling back.
+kernels or raises, never falling back.  The forward entries are operators
+of ``library`` (``tlxcv::upsample_add``, ``tlxcv::upsample2x``), which
+``torch.export`` records.
 
 Rounding contract: every result here, forward and gradient, sums its taps
 (and the skip) in f32 and rounds once to the output dtype.  In bf16 that is
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .library import check_device, define, needs_grad
 
 __all__ = ["upsample_add_fused", "upsample_add_plain", "sep_resize",
            "sep_resize_plain", "sep_taps", "upsample2x_fused",
@@ -326,17 +329,21 @@ def _upsample_add_kernel(x, skip, mode):
     return out
 
 
+upsample_add_op = define(
+    "upsample_add(Tensor x, Tensor skip, str mode) -> Tensor",
+    upsample_add_plain, _upsample_add_kernel,
+    lambda x, skip, mode: x.new_empty(skip.shape))
+
+
 class _UpsampleAdd(torch.autograd.Function):
-    """``_fused_up_add`` with its VJP: the forward kernel (or its plain
-    version on the CPU); backward ``dx = sep_resize(g, Ahᵀ, Awᵀ)``,
-    ``d_skip = g``."""
+    """``_fused_up_add`` with its VJP: the forward operator (the kernel, or
+    its plain version on the CPU); backward ``dx = sep_resize(g, Ahᵀ,
+    Awᵀ)``, ``d_skip = g``."""
 
     @staticmethod
     def forward(ctx, x, skip, mode):
         ctx.mode, ctx.in_hw = mode, tuple(x.shape[1:3])
-        if x.device.type == "cpu":
-            return upsample_add_plain(x, skip, mode)
-        return _upsample_add_kernel(x, skip, mode)
+        return upsample_add_op(x, skip, mode)
 
     @staticmethod
     def backward(ctx, g):
@@ -355,7 +362,10 @@ def upsample_add_fused(x, skip, mode="bilinear"):
     and rounded once; differentiable in x and skip (the x-gradient also
     summed in f32 and rounded once)."""
     _check(x, skip, mode)
-    return _UpsampleAdd.apply(x, skip, mode)
+    check_device("upsample_add_fused", x)
+    if needs_grad(x, skip):
+        return _UpsampleAdd.apply(x, skip, mode)
+    return upsample_add_op(x, skip, mode)
 
 
 upsample_add_fused.launches = 0  # forward kernel launches since the last reset
@@ -463,15 +473,20 @@ def upsample2x_vjp(g):
 upsample2x_vjp.launches = 0  # kernel launches since the last reset
 
 
+upsample2x_op = define(
+    "upsample2x(Tensor x) -> Tensor", upsample2x_plain,
+    lambda x: _upsample2x_kernel(x, vjp=False),
+    lambda x: x.new_empty(x.shape[0], 2 * x.shape[1], 2 * x.shape[2],
+                          x.shape[3]))
+
+
 class _Upsample2x(torch.autograd.Function):
     """``_fused_2x`` with its VJP: the 2× kernels of
     ``csrc/upsample2x.cu`` (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x):
-        if x.device.type == "cpu":
-            return upsample2x_plain(x)
-        return _upsample2x_kernel(x, vjp=False)
+        return upsample2x_op(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -483,7 +498,10 @@ def upsample2x_fused(x):
     f32 or bf16 with any strides, summed in f32 and rounded once,
     differentiable (the reference's ``upsample2x_fused``)."""
     _check_2x(x, False)
-    return _Upsample2x.apply(x)
+    check_device("upsample2x_fused", x)
+    if needs_grad(x):
+        return _Upsample2x.apply(x)
+    return upsample2x_op(x)
 
 
 upsample2x_fused.launches = 0  # forward kernel launches since the last reset

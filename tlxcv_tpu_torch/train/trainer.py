@@ -41,6 +41,12 @@ its forward.
   remat, bitwise on the CPU.
 - ``progress=True``: ``rich`` progress bars over the epochs and batches,
   the reference's; without ``rich`` it raises ``ImportError``.
+- ``metrics``: a ``utils.metrics.Metric``, reset at each epoch's start and
+  at each ``evaluate``, updated after every step on host copies of the
+  outputs and labels (``as_numpy``: one read back to the host a step, as
+  the reference's), except a step that ``nan_guard`` skipped; its result
+  is reported in the epoch line and in ``evaluate``'s dict as
+  ``"metric"``.
 - A network whose detection head has ``static_assigner_epoch``
   (PP-YOLOE) is called with ``epoch_id``, the epoch of the loop, as the
   reference's Trainer does for its assigner switch.
@@ -53,8 +59,8 @@ its forward.
   draws the same numbers as the uninterrupted one.  ``save_weights``
   writes the evaluation parameters through ``utils.checkpoint``.
 
-Not ported yet (each raises ``NotImplementedError``): ``metrics`` (ROADMAP
-queue 1, item 14), ``mesh`` and ``param_sharding="fsdp"`` (item 15).
+Not ported yet (each raises ``NotImplementedError``): ``mesh`` and
+``param_sharding="fsdp"`` (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ from torch.utils.checkpoint import checkpoint as remat_checkpoint
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..utils import checkpoint
+from ..utils.metrics import as_numpy
 from . import optimizers
 
 __all__ = ["Trainer", "Model"]
@@ -130,8 +137,6 @@ class Trainer:
         live (``None``: the CUDA card).  ``seed`` seeds torch's generators
         once, here: the port's Dropout layers draw from them unless given
         their own."""
-        if metrics is not None:
-            raise _not_ported("metrics (with utils/metrics)", 14)
         if mesh is not None:
             raise _not_ported("a device mesh", 15)
         if param_sharding == "fsdp":
@@ -139,6 +144,7 @@ class Trainer:
         if param_sharding != "replicated":
             raise ValueError(f"unknown param_sharding {param_sharding!r}")
         self.remat = bool(remat)
+        self.metrics = metrics
         self.device = resolve_device(device)
         self.network = network.to(self.device)
         self.loss_fn = loss_fn if loss_fn is not None else network.loss_fn
@@ -292,6 +298,15 @@ class Trainer:
             p.grad = None
         return gate
 
+    def _skipped(self, loss) -> bool:
+        """True when nan_guard skipped this step (a NaN loss): its outputs
+        must not reach the metric.  Reads the loss back only under the
+        guard."""
+        return self.nan_guard and bool(torch.isnan(loss))
+
+    def _update_metric(self, out, y):
+        self.metrics.update(_map(as_numpy, out), _map(as_numpy, y))
+
     def _count_skips(self, losses) -> int:
         """nan_guard reports a skipped update as a NaN loss; tally them
         once per epoch (no host sync per step)."""
@@ -315,13 +330,17 @@ class Trainer:
         """One epoch of training steps; returns the step losses (device
         tensors)."""
         losses = []
+        if self.metrics is not None:
+            self.metrics.reset()
         batches = device_prefetch(train_dataset, self._put_batch)
         for bi, (x, y) in enumerate(batches):
             if max_steps_per_epoch is not None and bi >= max_steps_per_epoch:
                 break
-            loss, _ = self._train_step(x, y, epoch_id=epoch)
+            loss, out = self._train_step(x, y, epoch_id=epoch)
             self.step += 1
             losses.append(loss)
+            if self.metrics is not None and not self._skipped(loss):
+                self._update_metric(out, y)
             if print_train_batch:
                 print(f"epoch {epoch + 1} batch {bi} loss {float(loss):.4f}")
             if on_step is not None:
@@ -346,6 +365,8 @@ class Trainer:
                 msg = (f"Epoch {epoch + 1} of {n_epoch} took "
                        f"{time.time() - t0:.2f}s | train loss: "
                        f"{self._mean_loss(losses):.4f}")
+                if self.metrics is not None:
+                    msg += f" | train acc: {self.metrics.result():.4f}"
                 if skipped:
                     msg += f" | nan_guard skipped {skipped} step(s)"
                 print(msg)
@@ -378,8 +399,10 @@ class Trainer:
                                      max_steps_per_epoch,
                                      on_step=lambda: prog.advance(btask))
                 self._count_skips(losses)
-                prog.update(etask, description=f"[red]Epochs (loss "
-                            f"{self._mean_loss(losses):.4f})")
+                desc = f"[red]Epochs (loss {self._mean_loss(losses):.4f}"
+                if self.metrics is not None:
+                    desc += f", metric {self.metrics.result():.4f}"
+                prog.update(etask, description=desc + ")")
                 prog.advance(etask)
         self._sync_to_network()
         return self
@@ -388,14 +411,21 @@ class Trainer:
     def evaluate(self, dataset, max_batches: tp.Optional[int] = None):
         self.network.eval()
         losses = []
+        if self.metrics is not None:
+            self.metrics.reset()
         for bi, (x, y) in enumerate(dataset):
             if max_batches is not None and bi >= max_batches:
                 break
             x, y = self._put_batch((x, y))
-            losses.append(self._loss(self.eval_params, x, y,
-                                     training=False)[0])
-        return {"loss": float(torch.stack(losses).mean()) if losses
-                else 0.0}
+            loss, out = self._loss(self.eval_params, x, y, training=False)
+            losses.append(loss)
+            if self.metrics is not None:
+                self._update_metric(out, y)
+        result = {"loss": float(torch.stack(losses).mean()) if losses
+                  else 0.0}
+        if self.metrics is not None:
+            result["metric"] = self.metrics.result()
+        return result
 
     @property
     def eval_params(self):
