@@ -117,6 +117,22 @@
                                       # (builds only the flash kernel; copy
                                       # this file into another tree's root
                                       # to measure that tree)
+    python3 chip_smoke.py --accuracy [name ...] [--out-dir DIR]
+                                      # only the hermetic accuracy checks
+                                      # (tlxcv_tpu_torch/demo/*/accuracy_
+                                      # check*.py), trained from random
+                                      # weights at the reference's
+                                      # schedules: fcos maskrcnn solov2
+                                      # pose pfld face video ocr qat (the
+                                      # default), sweep:<entry>[,...],
+                                      # sweep-int8:<entry>, detr_r50; one
+                                      # JSON line a check (metric, value,
+                                      # floor, steps, seconds, launches);
+                                      # results files beside the scripts
+                                      # or in DIR; exits non-zero if any
+                                      # check misses its floor, raises or
+                                      # does not reach its kernels; ends on
+                                      # the contract line
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -402,6 +418,8 @@ import sys
 import time
 
 import torch
+
+from tlxcv_tpu_torch.ops.cuda import launch_counts, reset_launches
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense tensor-core bf16
@@ -1497,43 +1515,12 @@ def phase_probe(record):
 
     reset_launches()
     result = probe_int8_gemm.run()
-    counts = launches()
+    counts = launch_counts(f32=False)
     emit({"phase": "probe", **result, "launches": counts})
     if counts["bf16_matmul"] == 0 or counts["int8_matmul"] == 0:
         raise AssertionError(f"the GEMM probe did not launch both kernels: "
                              f"{counts}")
     record["launches"] = counts["bf16_matmul"]
-
-
-def _counted():
-    """Every kernel wrapper that counts its launches, by kernel name."""
-    from tlxcv_tpu_torch.ops.cuda.attention import (flash_attention,
-                                                    flash_attention_backward)
-    from tlxcv_tpu_torch.ops.cuda.gather import gather_rows
-    from tlxcv_tpu_torch.ops.cuda.matmul import bf16_matmul, int8_matmul
-    from tlxcv_tpu_torch.ops.cuda.upsample import (sep_resize,
-                                                   upsample2x_fused,
-                                                   upsample2x_vjp,
-                                                   upsample_add_fused)
-
-    return {"flash_attention": flash_attention,
-            "flash_attention_backward": flash_attention_backward,
-            "int8_matmul": int8_matmul,
-            "bf16_matmul": bf16_matmul,
-            "gather_rows": gather_rows,
-            "upsample_add_fused": upsample_add_fused,
-            "sep_resize": sep_resize,
-            "upsample2x_fused": upsample2x_fused,
-            "upsample2x_vjp": upsample2x_vjp}
-
-
-def reset_launches():
-    for fn in _counted().values():
-        fn.launches = 0
-
-
-def launches():
-    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def check_labels(pred, batch):
@@ -1563,7 +1550,7 @@ def serve(model, x, expect, name, dtype, warmup=3, rounds=SERVE_ROUNDS,
             torch.cuda.synchronize()
             if i >= warmup:
                 times.append(time.perf_counter() - t0)
-    counts = launches()
+    counts = launch_counts(f32=False)
     want = {k: expect.get(k, 0) * (warmup + rounds) for k in counts}
     if counts != want:
         raise AssertionError(f"{name} {dtype}: kernel launches {counts}, "
@@ -1642,7 +1629,7 @@ def float_logit_check(name, cpu, card, x4, depth="53 convs", expect=None,
         scale = want.abs().max().item()
         reset_launches()
         got32 = card(x4.cuda()).float().cpu()
-        per_forward = launches()
+        per_forward = launch_counts(f32=False)
     params_to(card, torch.bfloat16)
     with torch.inference_mode():
         got16 = card(x4.cuda().to(torch.bfloat16)).float().cpu()
@@ -2813,7 +2800,7 @@ def phase_upsample2x_kernels():
     y = upsample2x_fused(x)
     y.backward(gy)
     torch.cuda.synchronize()
-    counts = launches()
+    counts = launch_counts(f32=False)
     want = {k: int(k in ("upsample2x_fused", "upsample2x_vjp"))
             for k in counts}
     right = (torch.equal(y, upsample2x_plain(x.detach()))
@@ -3035,7 +3022,7 @@ def timed_train(trainer, batches, expect, name, batch, warmup=3,
     trainer.train(1, data[warmup:], print_freq=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launches()
+    counts = launch_counts(f32=False)
     want = {k: expect.get(k, 0) * (warmup + steps) for k in counts}
     if counts != want:
         raise AssertionError(f"{name} training: kernel launches {counts}, "
@@ -3206,7 +3193,7 @@ def vit_int8_check(cpu8, cpu32, card8, x4, attention):
             witness = cpu8(torch.nextafter(x4, torch.full_like(x4, math.inf)))
             reset_launches()
             got8 = card8(x4.cuda()).cpu()
-            per_forward = launches()
+            per_forward = launch_counts(f32=False)
     finally:
         use_int8_attention(False)
         for h in handles:
@@ -3428,7 +3415,7 @@ def phase_grouped_int8(int8_record):
     with torch.inference_mode():
         got = card(xc)
         torch.cuda.synchronize()
-        counts = launches()
+        counts = launch_counts(f32=False)
         want = conv(x)
     bitwise = got.dtype == want.dtype and torch.equal(got.cpu(), want)
     expect = {k: 32 if k == "int8_matmul" else 0 for k in counts}
@@ -3611,7 +3598,7 @@ def detr_check(cpu, card, x2):
                                  x2.to(dtype))
         reset_launches()
         got = detr_stages(card, x2.to("cuda", dtype))
-        per_forward = {k: v for k, v in launches().items() if v}
+        per_forward = {k: v for k, v in launch_counts(f32=False).items() if v}
         errs = {k: _rel(got[k], want[k]) for k in DETR_STAGES}
         finite = all(bool(torch.isfinite(got[k]).all()) for k in DETR_STAGES)
         levels = None
@@ -4263,7 +4250,7 @@ def zoo_check(name, cpu, card, x2, expect, dev="cuda"):
             params_to(card, dtype)
         reset_launches()
         got = stages(card, x2.to(dev, dtype), want)
-        per_forward = {k: v for k, v in launches().items() if v}
+        per_forward = {k: v for k, v in launch_counts(f32=False).items() if v}
         heads = zip(got["heads"], want["heads"], truth["heads"],
                     want16["heads"])
         if dtype == torch.float32:
@@ -4621,10 +4608,10 @@ def seg_logit_check(name, cpu, card, x1, expect):
             x1.to(torch.bfloat16)).float()
         reset_launches()
         got32 = card(x1.cuda()).float().cpu()
-        per_forward = launches()
+        per_forward = launch_counts(f32=False)
         params_to(card, torch.bfloat16)
         got16 = card(x1.cuda().to(torch.bfloat16)).float().cpu()
-        if launches() != {k: 2 * v for k, v in per_forward.items()}:
+        if launch_counts(f32=False) != {k: 2 * v for k, v in per_forward.items()}:
             raise AssertionError(f"{name}: the bf16 forward launched "
                                  f"other kernels than the f32 one")
     scale = want.abs().max().item()
@@ -6107,7 +6094,7 @@ def retinaface_check(cpu, card, x1):
             reset_launches()
             got = card(x1.to("cuda", dtype))
             torch.cuda.synchronize()
-            per_forward = {k: v for k, v in launches().items() if v}
+            per_forward = {k: v for k, v in launch_counts(f32=False).items() if v}
         merges = [[list(a.shape[1:3]), list(b.shape[1:3]), same]
                   for a, b, _, same in calls]
         got = [g.float().cpu() for g in got]
@@ -6772,13 +6759,13 @@ def trocr_check(cpu, card, x):
         reset_launches()
         got = card.generate(xc)
         torch.cuda.synchronize()
-        per_generate = {k: v for k, v in launches().items() if v}
+        per_generate = {k: v for k, v in launch_counts(f32=False).items() if v}
         got_beam = card.generate_beam(xc[:nb], num_beams=TROCR_BEAMS)
         got_forced = trocr_forced_logits(card, xc, greedy).cpu()
         reset_launches()
         with torch.inference_mode():
             got_teacher = card(xc, greedy.cuda().long()).float().cpu()
-        per_forward = {k: v for k, v in launches().items() if v}
+        per_forward = {k: v for k, v in launch_counts(f32=False).items() if v}
         tol = 1e-3 if dtype == torch.float32 else 3e-2
         scale = forced.abs().max().item()
         row = {"greedy_share": _token_share(got, greedy),
@@ -6941,7 +6928,7 @@ def leg_distillation(profile, dev="cuda"):
     batches = list(teacher_labels(teacher, host))
     torch.cuda.synchronize()
     teacher_ms = 1e3 * (time.perf_counter() - t1) / len(host)
-    counts = launches()
+    counts = launch_counts(f32=False)
     agree = [(y["teacher"].argmax(-1) == y["label"]).float().mean().item()
              for _, y in batches]
     emit({"phase": "teacher_labels", "teacher": "regnety_4gf",
@@ -7575,7 +7562,7 @@ def export_round_trip(tmp, name, model, x, kernel, per_forward, method,
         want = eager(x)
         reset_launches()
         got = served(x)
-        counts = launches()
+        counts = launch_counts(f32=False)
         small = served(x[:3])
         rates = {"exported_img_per_s": _served_rate(served, x)}
         rates["eager_img_per_s"] = _served_rate(eager, x)
@@ -7708,10 +7695,136 @@ def phase_data(flash_record, int8_record, profile=False):
     emit({"phase": "data_done", "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------ hermetic accuracy checks
+# check -> (its module under tlxcv_tpu_torch.demo, its main's arguments);
+# the sweep's entries (sweep:<entry>[,...], sweep-int8:<entry>) come on top
+ACCURACY_CHECKS = {
+    "fcos": ("object_detection.accuracy_check", {}),
+    "maskrcnn": ("object_detection.accuracy_check_instance_seg",
+                 {"names": ["maskrcnn"]}),
+    "solov2": ("object_detection.accuracy_check_instance_seg",
+               {"names": ["solov2"]}),
+    "pose": ("human_pose_estimation.accuracy_check", {}),
+    "pfld": ("facial_landmark_detection.accuracy_check", {}),
+    "face": ("face_recognition.accuracy_check", {}),
+    "video": ("video_classification.accuracy_check", {}),
+    "ocr": ("ocr.accuracy_check", {}),
+    "qat": ("image_classification.accuracy_check_qat", {}),
+    "detr_r50": ("object_detection.accuracy_check_detr_r50", {}),
+}
+# The nine checks that --accuracy runs when it is named alone
+ACCURACY_DEFAULT = tuple(ACCURACY_CHECKS)[:9]
+# the kernels each check must reach on the card (launch counters above 0):
+# the flash kernels on their f32 route, the int8 GEMM, the Mask R-CNN trio
+ACCURACY_KERNELS = {
+    "ocr": ("flash_attention_f32", "flash_attention_backward_f32"),
+    "qat": ("int8_matmul",),
+    "maskrcnn": ("gather_rows", "upsample_add_fused", "sep_resize"),
+}
+
+
+def run_accuracy_check(name, out_dir):
+    """Run one check at its defaults (the reference's schedules); the
+    result rows its ``main`` returned, or those of its ``BelowFloor``."""
+    import importlib
+
+    from tlxcv_tpu_torch.demo import _accuracy as A
+
+    if name.startswith(("sweep:", "sweep-int8:")):
+        module, kw = "object_detection.accuracy_sweep", {
+            "names": name.split(":", 1)[1].split(","),
+            "int8": name.startswith("sweep-int8:")}
+    else:
+        module, kw = ACCURACY_CHECKS[name]
+        kw = dict(kw)
+    if out_dir is not None:
+        # one folder a task, as the scripts sit (four checks' files are
+        # all called accuracy_results.json)
+        kw["out_dir"] = os.path.join(out_dir, module.split(".")[0])
+    main = importlib.import_module("tlxcv_tpu_torch.demo." + module).main
+    try:
+        result = main(**kw)
+    except A.BelowFloor as e:
+        result = e.result
+    return result if isinstance(result, list) else [result]
+
+
+def phase_accuracy(names, out_dir=None):
+    """The hermetic accuracy checks, one after another, each at its
+    defaults; one JSON line each.  Every named check runs even if an
+    earlier one missed; the misses, errors and kernels not reached are
+    returned."""
+    failed = []
+    for name in names:
+        reset_launches()
+        t0 = time.perf_counter()
+        row = {"phase": "accuracy", "check": name}
+        try:
+            rows = run_accuracy_check(name, out_dir)
+            errors = [f"{r['model']}: {r['error']}" for r in rows
+                      if "error" in r]
+            if errors:
+                raise RuntimeError("; ".join(errors))
+            sweep = name.startswith(("sweep:", "sweep-int8:"))
+            steps = [{k: v for k, v in r.items() if "steps" in k}
+                     for r in rows]
+            row["steps"] = ({r["model"]: st for r, st in zip(rows, steps)}
+                            if sweep else steps[0])
+            row["metrics"] = [
+                {**m, "metric": f"{r['model']}.{m['metric']}" if sweep
+                 else m["metric"]} for r in rows for m in r["metrics"]]
+            row.update({k: row["metrics"][0][k]
+                        for k in ("metric", "value", "floor")})
+            ok = all(m["ok"] for m in row["metrics"])
+        except Exception as e:  # the other checks still run
+            row["error"] = repr(e)[:2000]
+            ok = False
+        counts = launch_counts()
+        row["seconds"] = round(time.perf_counter() - t0, 1)
+        row["launches"] = {k: v for k, v in counts.items() if v}
+        missing = [k for k in ACCURACY_KERNELS.get(name, ())
+                   if counts[k] == 0]
+        if missing:
+            row["kernels_not_reached"] = missing
+        row["ok"] = ok and not missing
+        emit(row)
+        if not row["ok"]:
+            failed.append(name)
+        torch.cuda.empty_cache()
+    return failed
+
+
+def accuracy_main(argv):
+    """``--accuracy [name ...] [--out-dir DIR]``."""
+    out_dir = None
+    if "--out-dir" in argv:
+        i = argv.index("--out-dir")
+        out_dir = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    names = [a for a in argv[argv.index("--accuracy") + 1:]
+             if not a.startswith("--")] or list(ACCURACY_DEFAULT)
+    bad = [n for n in names if n not in ACCURACY_CHECKS
+           and not n.startswith(("sweep:", "sweep-int8:"))]
+    if bad:
+        print(f"chip_smoke: unknown accuracy checks {bad}", file=sys.stderr)
+        return 2
+    emit({"phase": "environment", "card": card_line(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    failed = phase_accuracy(names, out_dir)
+    emit({"phase": "accuracy_done", "checks": names, "failed": failed})
+    print(card_line(), flush=True)
+    emit({"ok": not failed,
+          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 1 if failed else 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if "--accuracy" in sys.argv[1:]:  # the checks at PyTorch's own TF32
+        return accuracy_main(sys.argv[1:])  # defaults (cuDNN TF32 on)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
     torch.backends.cudnn.allow_tf32 = False
     if "--dispatch" in sys.argv[1:]:  # the flash wrapper's host cost alone

@@ -2221,13 +2221,13 @@ def test_operators_launch_their_kernels_and_match_plain(cuda):
     """Each operator's CUDA implementation launches its kernel (one count)
     and never its plain version; its output against the plain version on
     the same card tensors (bitwise but for flash attention's bf16)."""
-    import chip_smoke
+    from tlxcv_tpu_torch.ops.cuda import launch_counts, reset_launches
 
     for name, op, plain, args in _operator_cases(cuda):
-        chip_smoke.reset_launches()
+        reset_launches()
         got = op(*args)
         torch.cuda.synchronize()
-        counts = {k: n for k, n in chip_smoke.launches().items() if n}
+        counts = {k: n for k, n in launch_counts(f32=False).items() if n}
         want = plain(*args)
         assert got.shape == want.shape and got.dtype == want.dtype, name
         if name == "flash_attention":
@@ -2247,8 +2247,8 @@ def test_export_on_the_card_replays_the_kernels(cuda, kind, tmp_path):
     """A micro ViT (bf16, 2 flash launches a forward) and a micro int8
     ResNet-18 (21 int8 GEMM launches) exported on the card, saved, loaded,
     served at batches 1 and 3: bitwise the eager model, the same kernels."""
-    import chip_smoke
     from tlxcv_tpu_torch.models.classification import vision_transformer
+    from tlxcv_tpu_torch.ops.cuda import launch_counts, reset_launches
     from tlxcv_tpu_torch.tasks import ImageClassification
     from tlxcv_tpu_torch.utils.export import (export_model, load_exported,
                                               save_exported)
@@ -2273,8 +2273,8 @@ def test_export_on_the_card_replays_the_kernels(cuda, kind, tmp_path):
         x = torch.randn(b, 32, 32, 3, device=cuda).to(dtype)
         with torch.inference_mode():
             want = model(x)
-            chip_smoke.reset_launches()
+            reset_launches()
             got = serve(x)
             torch.cuda.synchronize()
-            counts = {k: n for k, n in chip_smoke.launches().items() if n}
+            counts = {k: n for k, n in launch_counts(f32=False).items() if n}
         assert torch.equal(got, want) and counts == {kernel: per}, counts

@@ -84,7 +84,17 @@ def test_importing_every_port_module_pulls_in_no_jax():
                  "data.casiawebface", "data.det_transforms",
                  "data.landmark_transforms", "native", "ops.cuda.library",
                  "utils.coco_eval", "utils.convert", "utils.theseus",
-                 "utils.profiler", "utils.export"):
+                 "utils.profiler", "utils.export", "demo._accuracy",
+                 "demo.object_detection.accuracy_sweep",
+                 "demo.object_detection.accuracy_check",
+                 "demo.object_detection.accuracy_check_instance_seg",
+                 "demo.object_detection.accuracy_check_detr_r50",
+                 "demo.human_pose_estimation.accuracy_check",
+                 "demo.facial_landmark_detection.accuracy_check",
+                 "demo.face_recognition.accuracy_check",
+                 "demo.video_classification.accuracy_check",
+                 "demo.ocr.accuracy_check",
+                 "demo.image_classification.accuracy_check_qat"):
         assert f"tlxcv_tpu_torch.{name}" in got["imported"]
     assert got["bad"] == []
 
@@ -102,4 +112,5 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_import_in_source(path):
-    assert not _imported_roots(path) & {"jax", "jaxlib", "tlxcv_tpu"}
+    assert not _imported_roots(path) & {"jax", "jaxlib", "tlxcv_tpu",
+                                        "optax", "demo"}

@@ -1,0 +1,1 @@
+"""Facial-landmark demos of the port: the hermetic accuracy check."""

@@ -1,0 +1,1 @@
+"""OCR demos of the port: the hermetic accuracy check."""

@@ -252,6 +252,7 @@ def _launch_kernel(q, k, v, bias, scale, with_lse=False):
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{_error_string(rc)} ({rc})")
     flash_attention.launches += 1
+    flash_attention.f32_launches += q.dtype == torch.float32
     return out, lse
 
 
@@ -293,6 +294,7 @@ def flash_attention_backward(q, k, v, bias, scale, out, lse, grad):
                            f"{_error_string(rc, 'flash_attention_bwd')} "
                            f"({rc})")
     flash_attention_backward.launches += 1
+    flash_attention_backward.f32_launches += q.dtype == torch.float32
     return dq, dk, dv
 
 
@@ -402,3 +404,6 @@ def flash_attention(q, k, v, bias=None, scale=None):
 
 flash_attention.launches = 0  # kernel launches since the last reset
 flash_attention_backward.launches = 0  # backward calls (2 kernels each)
+# of those, the launches on f32 inputs (the split-TF32 route)
+flash_attention.f32_launches = 0
+flash_attention_backward.f32_launches = 0

@@ -25,6 +25,8 @@ A learning rate is a float or a schedule: a function of the count of
 applied updates (a float32 tensor, 0 for the first update), evaluated on
 the device.  Weight decay is restricted by a mask, as optax's ``mask=``:
 the masked-out parameters form a second parameter group with no decay.
+A learning rate per label (``lr={label: lr}``, ``lr_labels``) makes one
+parameter group per label, as optax's ``multi_transform``.
 """
 from __future__ import annotations
 
@@ -59,11 +61,25 @@ class _Optax(torch.optim.Optimizer):
     once, the count of applied updates, clipping and the schedule."""
 
     def __init__(self, named_params, lr, defaults, grad_clip=None,
-                 weight_decay=0.0, weight_decay_mask=None):
+                 weight_decay=0.0, weight_decay_mask=None, lr_labels=None):
         named = list(dict(named_params).items())
         if not named:
             raise ValueError("the optimizer got no parameters")
-        if weight_decay and weight_decay_mask is not None:
+        if isinstance(lr, dict):
+            # optax's multi_transform: one group per label, each with its
+            # own learning rate (the labels in lr's order)
+            if lr_labels is None or weight_decay_mask is not None:
+                raise ValueError("a learning rate per label takes lr_labels "
+                                 "and no weight_decay_mask")
+            labels = (lr_labels(dict(named)) if callable(lr_labels)
+                      else lr_labels)
+            unknown = {labels[k] for k, _ in named} - set(lr)
+            if unknown:
+                raise ValueError(f"labels without a learning rate: {unknown}")
+            groups = [{"params": [p for k, p in named if labels[k] == name],
+                       "lr": rate} for name, rate in lr.items()]
+            groups = [g for g in groups if g["params"]]
+        elif weight_decay and weight_decay_mask is not None:
             mask = (weight_decay_mask(dict(named))
                     if callable(weight_decay_mask) else weight_decay_mask)
             groups = [{"params": [p for k, p in named if mask[k]]},
@@ -72,7 +88,8 @@ class _Optax(torch.optim.Optimizer):
             groups = [g for g in groups if g["params"]]
         else:
             groups = [{"params": [p for _, p in named]}]
-        super().__init__(groups, dict(lr=lr, weight_decay=weight_decay,
+        super().__init__(groups, dict(lr=None if isinstance(lr, dict)
+                                      else lr, weight_decay=weight_decay,
                                       **defaults))
         self.grad_clip = grad_clip
         first = self.param_groups[0]["params"][0]
@@ -117,9 +134,11 @@ class OptaxAdam(_Optax):
     wd · p``, ``p += -lr · u``."""
 
     def __init__(self, named_params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
-                 weight_decay=0.0, weight_decay_mask=None, grad_clip=None):
+                 weight_decay=0.0, weight_decay_mask=None, grad_clip=None,
+                 lr_labels=None):
         super().__init__(named_params, lr, dict(b1=b1, b2=b2, eps=eps),
-                         grad_clip, weight_decay, weight_decay_mask)
+                         grad_clip, weight_decay, weight_decay_mask,
+                         lr_labels)
 
     def _init_state(self, p):
         return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
@@ -206,11 +225,16 @@ def _apply(ps, updates, lr):
 
 
 def Adam(lr=1e-3, beta_1=0.9, beta_2=0.999, eps=1e-8, weight_decay=0.0,
-         grad_clip=None, weight_decay_mask=None):
+         grad_clip=None, weight_decay_mask=None, lr_labels=None):
+    """``lr`` may be ``{label: lr}`` with ``lr_labels`` ``{name: label}``
+    (or a function of ``{name: tensor}`` giving it): optax's
+    ``multi_transform`` of one Adam per label; ``grad_clip`` then clips
+    over every parameter together, as ``chain(clip_by_global_norm,
+    multi_transform)``."""
     return functools.partial(OptaxAdam, lr=lr, b1=beta_1, b2=beta_2,
                              eps=eps, weight_decay=weight_decay,
                              weight_decay_mask=weight_decay_mask,
-                             grad_clip=grad_clip)
+                             grad_clip=grad_clip, lr_labels=lr_labels)
 
 
 def AdamW(lr=1e-3, weight_decay=1e-4, **kw):
